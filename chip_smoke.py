@@ -4,24 +4,36 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``tensorfft_tpu_torch/csrc`` (nvcc, at
-first use), then:
+first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills);
-  2. drives the main path, ``fft_split`` with the default bf16 plans, once
-     over the flagship configurations (N=4096 x 256, N=4096 x 4096,
-     N=16384 x 4096 through kernel A; N=2^20 x 16 through kernels B and C)
-     with every launch counter reset just before, and fails unless each
-     kernel of the path was launched;
+  2. drives the two main paths, each with every launch counter reset just
+     before and read just after, and fails unless each kernel of the path
+     was launched:
+       C2C: ``fft_split`` with the default bf16 plans over the flagship
+            configurations (N=4096 x 256, N=4096 x 4096, N=16384 x 4096
+            through kernel A; N=2^20 x 16 through kernels B and C);
+       R2C: ``rfft_split`` then ``irfft_split`` with the default bf16 plans
+            at real N=32768 x 4096 (fused route) and real N=2^20 x 16
+            (four-step route), which launch all nine kernels;
   3. holds each kernel's output against its plain-torch version on the same
-     card and inputs (``testing.metrics.agreement``: one bf16 ulp of the
-     output scale, on at most 0.1% of elements for kernel A and 1% for the
-     four-step; fp32 within 1e-5 relative);
+     card and inputs, first on the inputs the main paths gave it, then the
+     R2C kernels again under the float32 policy at a cut batch
+     (``testing.metrics.agreement``: one bf16 ulp of the
+     output scale, on at most 0.1% of elements for kernel A and the untangle
+     pair and 1% for the four-step passes; fp32 within 1e-5 relative; pack
+     and interleave bit-identical);
   4. runs the reference accuracy gate (avg <= 1e-3, sigma <= 1e-2,
-     max <= 0.5 against the numpy fp64 oracle) for N = 256 ... 2^20 under
-     the bf16 policy and N = 4096, 16384, 2^20 under the float32 policy, and
-     checks that ifft_split(fft_split(x)) returns x;
-  5. times the kernel path, the plain version and torch.fft.fft (complex64)
-     with CUDA events and reports GFLOP/s at 5 N log2 N per transform.
+     max <= 0.5 against the numpy fp64 oracle) for the C2C path at
+     N = 256 ... 2^20 (bf16) and N = 4096, 16384, 2^20 (float32), and for
+     the R2C path against ``np.fft.rfft(x)/N`` at real N = 512 ... 2^21
+     (bf16) and N = 8192, 32768, 2^21 (float32); checks that each inverse
+     returns its input, and ``fft_convolve_real`` against an fp64 circular
+     convolution;
+  5. times each kernel, its plain version and, where one exists, the one
+     PyTorch call that computes the same function, with CUDA events, beside
+     the least time the card could take (compulsory bytes at the HBM rate or
+     operations at the peak rate of their type, whichever is larger).
 
 The second-to-last lines are a JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -41,21 +53,67 @@ import time
 import numpy as np
 
 SEED = 0
-# (label, N, batch): the main path's flagship configurations.
+# (label, N, batch): the C2C main path's flagship configurations.
 FLAGSHIP = [
     ("entry", 4096, 256),
     ("bench-secondary", 4096, 4096),
     ("bench-headline", 16384, 4096),
     ("four-step", 1 << 20, 16),
 ]
+# (label, real N, batch): the R2C main path's configurations.  M = N/2 =
+# 16384 is kernel A's headline length; N = 2^20 x 16 is the JAX package's
+# config 4 (BASELINE.md:30), on the four-step route.
+R2C_FLAGSHIP = [
+    ("r2c-fused", 32768, 4096),
+    ("r2c-config4", 1 << 20, 16),
+]
+R2C_SHAPE = {label: f"real N={n} x B={b} bf16" for label, n, b in R2C_FLAGSHIP}
+# The float32 variants of the R2C kernels against their plain versions: the
+# main path's lengths, with the batch cut.
+R2C_FP32 = [("r2c-fused", 32768, 256), ("r2c-config4", 1 << 20, 2)]
 GATE_BF16 = [256, 1024, 4096, 16384, 1 << 17, 1 << 20]
 GATE_F32 = [4096, 16384, 1 << 20]
-# Round trip: max |ifft(fft(x)) - x| relative to max |x|.  bf16 storage
-# keeps 8 significant bits, so the passes' storage rounding leaves ~2^-7;
-# bf16x3 keeps 16 bits per operand, ~1.5e-5 per stage over up to 6 stages.
+R2C_GATE_BF16 = [512, 8192, 32768, 1 << 18, 1 << 21]
+R2C_GATE_F32 = [8192, 32768, 1 << 21]
+# Round trip: max |inverse(forward(x)) - x| relative to max |x|.  bf16
+# storage keeps 8 significant bits, so the passes' storage rounding leaves
+# ~2^-7; bf16x3 keeps 16 bits per operand, ~1.5e-5 per stage over up to 6
+# stages.
 ROUNDTRIP_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
+# fft_convolve_real (float32 policy) against the fp64 convolution, relative
+# to the output's largest magnitude: three bf16x3 transforms at ~1e-5 each.
+CONVOLVE_TOL = 1e-3
 # bf16 partial products per stage matmul under each dot algorithm.
 PRODUCTS = {"bf16": 1, "bf16ax2": 2, "bf16x3": 3, "bf16x6": 6}
+# fp32 operations per output bin of the untangle pair (adds, products and
+# the final scale of _untangle_kernel / _retangle_kernel).
+UNTANGLE_OPS = 14
+# A buffer larger than the 50 MB L2, overwritten before each timed epilogue
+# call, so every call reads its inputs from device memory.
+FLUSH_BYTES = 256 << 20
+
+# Every kernel of the two paths: its source and the TPU kernel it replaces
+# (the pallas_call of the JAX package).
+KERNELS = {
+    "fused_fft": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
+                  "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "four_step_col": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+                      "tensorfft_tpu/ops/four_step_pallas.py:465"),
+    "four_step_row": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+                      "tensorfft_tpu/ops/four_step_pallas.py:551"),
+    "pack_split": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
+                   "tensorfft_tpu/ops/rfft_pallas.py:236"),
+    "interleave_split": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
+                         "tensorfft_tpu/ops/rfft_pallas.py:288"),
+    "untangle_fwd": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
+                     "tensorfft_tpu/ops/rfft_pallas.py:421"),
+    "retangle_inv": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
+                     "tensorfft_tpu/ops/rfft_pallas.py:513"),
+    "four_step_col_packed": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
+                             "tensorfft_tpu/ops/four_step_pallas.py:943"),
+    "four_step_row_interleave": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
+                                 "tensorfft_tpu/ops/four_step_pallas.py:1229"),
+}
 
 
 def log(msg: str) -> None:
@@ -97,16 +155,22 @@ def ptxas_summary(build_log: str) -> list[str]:
             for name, e in zip(names, entries)]
 
 
+def pass_flops(plan, radices, elems: int) -> int:
+    """fp32 FLOPs of one pass's stage products (each a bf16 x bf16 product
+    accumulated in fp32) over ``elems`` complex elements."""
+    alg = plan.precision.dot_algorithm
+    first = plan.first_dot if (plan.first_dot != "default" and alg == "bf16") else alg
+    return sum(8 * r * elems * PRODUCTS[first if i == 0 else alg]
+               for i, r in enumerate(radices))
+
+
 def kernel_work(plan, batch: int):
     """(fp32 FLOPs the scalar-FMA kernels execute, HBM bytes at one read and
     one write of both planes per pass) of one ``fft_split`` under ``plan``."""
-    alg = plan.precision.dot_algorithm
-    first = plan.first_dot if (plan.first_dot != "default" and alg == "bf16") else alg
     elems = plan.fft_length * batch
     passes = ([plan.radices] if plan.four_step_split is None
               else [plan.col_radices, plan.row_radices])
-    flops = sum(8 * r * elems * PRODUCTS[first if i == 0 else alg]
-                for radices in passes for i, r in enumerate(radices))
+    flops = sum(pass_flops(plan, radices, elems) for radices in passes)
     item = plan.precision.storage_dtype.itemsize
     return flops, 2 * 2 * item * elems * len(passes)
 
@@ -114,6 +178,7 @@ def kernel_work(plan, batch: int):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "runs on a CUDA device", file=sys.stderr)
@@ -121,7 +186,9 @@ def main() -> int:
 
     import tensorfft_tpu_torch as tt
     from tensorfft_tpu_torch.fft import four_step_call_kwargs, stage_scales
-    from tensorfft_tpu_torch.ops import _build, four_step_cuda, fused_cuda
+    from tensorfft_tpu_torch.ops import (_build, four_step_cuda, fused_cuda,
+                                         rfft_cuda)
+    from tensorfft_tpu_torch.rfft import _inverse_pre_scale, _output_scale
     from tensorfft_tpu_torch.testing import (agreement, deviation, fft_oracle,
                                              make_test_signal, measure)
     from tensorfft_tpu_torch.testing.metrics import (FOUR_STEP_MAX_FRAC,
@@ -148,47 +215,103 @@ def main() -> int:
     for line in ptxas_summary(_build.build_log()):
         log(line)
 
-    def inputs(n, b, dtype, seed):
+    def inputs(n, b, dtype, seed, planes=2):
         rng = np.random.default_rng(seed)
-        planes = rng.standard_normal((2, b, n), dtype=np.float32)
-        return (torch.from_numpy(planes[0]).to(dev, dtype),
-                torch.from_numpy(planes[1]).to(dev, dtype))
+        x = rng.standard_normal((planes, b, n), dtype=np.float32)
+        return tuple(torch.from_numpy(p).to(dev, dtype) for p in x)
 
-    # -- 2. main path, counted ---------------------------------------------
+    wrappers = {
+        "fused_fft": fused_cuda.fused_fft,
+        "four_step_col": four_step_cuda.column_pass,
+        "four_step_row": four_step_cuda.row_pass,
+        "pack_split": rfft_cuda.pack_split,
+        "interleave_split": rfft_cuda.interleave_split,
+        "untangle_fwd": rfft_cuda.untangle_fwd,
+        "retangle_inv": rfft_cuda.retangle_inv,
+        "four_step_col_packed": four_step_cuda.column_pass_packed,
+        "four_step_row_interleave": four_step_cuda.row_pass_interleave,
+    }
+    launches_by_path = {}
+
+    def counted(path, required, drive):
+        """Run ``drive`` with every counter set to 0 just before and read
+        just after; fail unless each kernel in ``required`` was launched."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        result = drive()
+        torch.cuda.synchronize()
+        counts = {name: w.launches for name, w in wrappers.items()}
+        launches_by_path[path] = counts
+        log(f"[main path {path}] launches {counts}")
+        for name in required:
+            if counts[name] < 1:
+                raise RuntimeError(f"kernel {name} was not launched on the {path} path")
+        return result
+
+    def finite(label, tensors, shape, dtype):
+        for t in tensors:
+            if not torch.isfinite(t.float()).all():
+                raise RuntimeError(f"{label}: non-finite output")
+            if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+                raise RuntimeError(f"{label}: output {tuple(t.shape)} {t.dtype}")
+
+    # -- 2. main paths, counted --------------------------------------------
     data = {}
     for label, n, b in FLAGSHIP:
         data[label] = (tt.create_plan(n), *inputs(n, b, torch.bfloat16,
                                                   SEED + n + b))
-    torch.cuda.synchronize()
-    wrappers = {"fused_fft": fused_cuda.fused_fft,
-                "four_step_col": four_step_cuda.column_pass,
-                "four_step_row": four_step_cuda.row_pass}
-    for w in wrappers.values():
-        w.launches = 0
-    outputs = {label: tt.fft_split(re_, im_, plan)
-               for label, (plan, re_, im_) in data.items()}
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    log(f"[main path] launches {launches}")
-    for name, count in launches.items():
-        if count < 1:
-            raise RuntimeError(f"kernel {name} was not launched on the main path")
+    outputs = counted(
+        "c2c", ("fused_fft", "four_step_col", "four_step_row"),
+        lambda: {label: tt.fft_split(re_, im_, plan)
+                 for label, (plan, re_, im_) in data.items()})
     for label, (o_re, o_im) in outputs.items():
-        if not (torch.isfinite(o_re.float()).all() and torch.isfinite(o_im.float()).all()):
-            raise RuntimeError(f"{label}: non-finite output")
-        if o_re.shape != data[label][1].shape or o_re.dtype != torch.bfloat16:
-            raise RuntimeError(f"{label}: output {o_re.shape} {o_re.dtype}")
+        finite(label, (o_re, o_im), data[label][1].shape, torch.bfloat16)
+
+    r2c = {}
+    for label, n, b in R2C_FLAGSHIP:
+        r2c[label] = (tt.create_plan(n // 2),
+                      inputs(n, b, torch.bfloat16, SEED + n + b, planes=1)[0])
+
+    def drive_r2c():
+        out = {}
+        for label, (plan, x) in r2c.items():
+            spec = tt.rfft_split(x, plan)
+            out[label] = (spec, tt.irfft_split(*spec, plan))
+        return out
+
+    r2c_out = counted("r2c", tuple(wrappers), drive_r2c)
+    for label, ((s_re, s_im), back) in r2c_out.items():
+        plan, x = r2c[label]
+        b, n = x.shape
+        finite(label, (s_re, s_im), (b, n // 2 + 1), torch.bfloat16)
+        finite(label, (back,), (b, n), torch.bfloat16)
 
     # -- 3. kernels against their plain versions ---------------------------
     errs = {name: 0.0 for name in wrappers}
 
-    def hold(name, label, got, want, max_frac, bf16=True):
+    def hold(name, label, got, want, max_frac=FUSED_MAX_FRAC, bf16=True):
         a = agreement([g.float().cpu() for g in got],
                       [w.float().cpu() for w in want], bf16=bf16)
         log(f"[kernel vs plain] {name} {label}: {a}")
         if not a.within(max_frac):
             raise RuntimeError(f"{name} disagrees with its plain version at {label}: {a}")
         errs[name] = max(errs[name], a.max_abs_err)
+
+    def bitwise(name, label, got, want):
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise RuntimeError(f"{name} is not bit-identical to its plain version at {label}")
+        log(f"[kernel vs plain] {name} {label}: bit-identical")
+
+    def pass_kwargs(plan, forward):
+        kw = four_step_call_kwargs(plan, forward)
+        common = dict(n1=kw["n1"], n2=kw["n2"], sign=kw["sign"],
+                      algorithm=kw["algorithm"], first_dot=kw["first_dot"])
+        col = dict(radices1=kw["radices1"], scales1=kw["scales1"],
+                   lane_tile=kw["lane_tile"], **common)
+        row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
+        return kw, common, col, row
 
     for label, (plan, re_, im_) in data.items():
         if plan.resolve_strategy() is tt.Strategy.FUSED:
@@ -199,12 +322,7 @@ def main() -> int:
                 first_dot=plan.first_dot)
             hold("fused_fft", label, outputs[label], want, FUSED_MAX_FRAC)
             continue
-        kw = four_step_call_kwargs(plan, True)
-        common = dict(n1=kw["n1"], n2=kw["n2"], sign=kw["sign"],
-                      algorithm=kw["algorithm"], first_dot=kw["first_dot"])
-        col = dict(radices1=kw["radices1"], scales1=kw["scales1"],
-                   lane_tile=kw["lane_tile"], **common)
-        row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
+        kw, common, col, row = pass_kwargs(plan, True)
         mid_plain = four_step_cuda.column_pass_reference(re_, im_, **col)
         hold("four_step_col", label,
              four_step_cuda.column_pass(re_, im_, **col), mid_plain,
@@ -222,9 +340,91 @@ def main() -> int:
         log(f"[kernel vs plain] four-step end to end {label}: {a}")
         if not a.within(FOUR_STEP_MAX_FRAC):
             raise RuntimeError(f"four-step disagrees with its plain version: {a}")
+
+    # The R2C kernels, each on the inputs the main path gave it.
+    r2c_args = {}
+    for label, (plan, x) in r2c.items():
+        b, n = x.shape
+        m = n // 2
+        (s_re, s_im), _ = r2c_out[label]
+        fwd_scale = float(_output_scale(plan, True))
+        inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
+                   out_dtype=torch.bfloat16)
+        z = rfft_cuda.retangle_inv(s_re, s_im, **inv)
+        hold("retangle_inv", label, z,
+             rfft_cuda.retangle_inv_reference(s_re, s_im, **inv), FUSED_MAX_FRAC)
+        if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
+            _, _, col, _ = pass_kwargs(plan, True)
+            _, _, _, row = pass_kwargs(plan, False)
+            Z = four_step_cuda.four_step_fft_packed_real(
+                x, **four_step_call_kwargs(plan, True))
+            hold("four_step_col_packed", label,
+                 four_step_cuda.column_pass_packed(x, **col),
+                 four_step_cuda.column_pass_packed_reference(x, **col),
+                 FOUR_STEP_MAX_FRAC)
+            mid = four_step_cuda.column_pass(*z, **pass_kwargs(plan, False)[2])
+            hold("four_step_row_interleave", label,
+                 [four_step_cuda.row_pass_interleave(*mid, **row)],
+                 [four_step_cuda.row_pass_interleave_reference(*mid, **row)],
+                 FOUR_STEP_MAX_FRAC)
+            r2c_args[label] = dict(x=x, Z=Z, spec=(s_re, s_im), mid=mid,
+                                   col=col, row=row)
+        else:
+            zp = rfft_cuda.pack_split(x)
+            bitwise("pack_split", label, zp, rfft_cuda.pack_split_reference(x))
+            Z = tt.fft_split(*zp, plan)
+            o = tt.ifft_split(*z, plan)
+            bitwise("interleave_split", label, [rfft_cuda.interleave_split(*o)],
+                    [rfft_cuda.interleave_split_reference(*o)])
+            r2c_args[label] = dict(x=x, Z=Z, spec=(s_re, s_im), planes=o)
+        hold("untangle_fwd", label,
+             rfft_cuda.untangle_fwd(*Z, n=n, scale=fwd_scale),
+             rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fwd_scale),
+             FUSED_MAX_FRAC)
+        r2c_args[label]["fwd_scale"] = fwd_scale
+        r2c_args[label]["inv"] = inv
+        # fp32 storage in, bf16 out: K10's input need not be the storage dtype.
+        f_re, f_im = s_re.float(), s_im.float()
+        hold("retangle_inv", f"{label} fp32-in",
+             rfft_cuda.retangle_inv(f_re, f_im, **inv),
+             rfft_cuda.retangle_inv_reference(f_re, f_im, **inv), FUSED_MAX_FRAC)
+
+    # The same kernels under the float32 policy (fp32 storage, bf16x3).
+    for label, n, b in R2C_FP32:
+        plan = tt.create_plan(n // 2, precision="float32")
+        (x,) = inputs(n, b, torch.float32, SEED + n, planes=1)
+        tag = f"{label} float32 B={b}"
+        s_re, s_im = tt.rfft_split(x, plan)
+        inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
+                   out_dtype=torch.float32)
+        z = rfft_cuda.retangle_inv(s_re, s_im, **inv)
+        hold("retangle_inv", tag, z,
+             rfft_cuda.retangle_inv_reference(s_re, s_im, **inv), bf16=False)
+        if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
+            _, _, col, _ = pass_kwargs(plan, True)
+            _, _, inv_col, row = pass_kwargs(plan, False)
+            Z = four_step_cuda.column_pass_packed(x, **col)
+            hold("four_step_col_packed", tag, Z,
+                 four_step_cuda.column_pass_packed_reference(x, **col), bf16=False)
+            Z = four_step_cuda.row_pass(*Z, **pass_kwargs(plan, True)[3])
+            mid = four_step_cuda.column_pass(*z, **inv_col)
+            hold("four_step_row_interleave", tag,
+                 [four_step_cuda.row_pass_interleave(*mid, **row)],
+                 [four_step_cuda.row_pass_interleave_reference(*mid, **row)],
+                 bf16=False)
+        else:
+            zp = rfft_cuda.pack_split(x)
+            bitwise("pack_split", tag, zp, rfft_cuda.pack_split_reference(x))
+            Z = tt.fft_split(*zp, plan)
+            o = tt.ifft_split(*z, plan)
+            bitwise("interleave_split", tag, [rfft_cuda.interleave_split(*o)],
+                    [rfft_cuda.interleave_split_reference(*o)])
+        fs = float(_output_scale(plan, True))
+        hold("untangle_fwd", tag, rfft_cuda.untangle_fwd(*Z, n=n, scale=fs),
+             rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fs), bf16=False)
     torch.cuda.synchronize()
 
-    # -- 4. reference gate and round trip ----------------------------------
+    # -- 4. reference gates and round trips --------------------------------
     for precision, lengths in (("bfloat16", GATE_BF16), ("float32", GATE_F32)):
         for n in lengths:
             seeds = range(1, 5 if n <= 16384 else 3)
@@ -248,15 +448,64 @@ def main() -> int:
             if not ok:
                 raise RuntimeError(f"accuracy gate failed at {precision} N={n}")
 
+    for precision, lengths in (("bfloat16", R2C_GATE_BF16),
+                               ("float32", R2C_GATE_F32)):
+        for n in lengths:
+            seeds = range(1, 3)
+            sig = [make_test_signal(n, 42 * s, 42 * 42 * s) for s in seeds]
+            x64 = np.stack([p for s in sig for p in s])  # 4 real rows
+            plan = tt.create_plan(n // 2, precision=precision)
+            x = torch.from_numpy(x64).to(dev)
+            o_re, o_im = tt.rfft_split(x, plan)
+            want = np.fft.rfft(x64, axis=-1) / n
+            d = deviation((o_re.double().cpu().numpy(), o_im.double().cpu().numpy()),
+                          (want.real, want.imag))
+            x_s = x.to(plan.precision.storage_dtype).double()
+            back = tt.irfft_split(o_re, o_im, plan).double()
+            rt = float((back - x_s).abs().max() / x_s.abs().max())
+            ok = d.passes_reference_gate() and rt <= ROUNDTRIP_TOL[precision]
+            log(f"[r2c gate] {precision} N={n} rows={x64.shape[0]} "
+                f"{plan.resolve_strategy().value}: {d} roundtrip_rel={rt:.3e} "
+                f"{'PASS' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"R2C accuracy gate failed at {precision} N={n}")
+
+    n_conv = 1 << 16
+    rng = np.random.default_rng(SEED + 7)
+    a64, b64 = rng.standard_normal((2, 2, n_conv))
+    conv = tt.fft_convolve_real(torch.from_numpy(a64).to(dev),
+                                torch.from_numpy(b64).to(dev))
+    want = np.fft.irfft(np.fft.rfft(a64) * np.fft.rfft(b64), n_conv)
+    rel = float(np.abs(conv.double().cpu().numpy() - want).max() / np.abs(want).max())
+    log(f"[convolve] fft_convolve_real float32 N={n_conv} rows=2: "
+        f"max_rel={rel:.3e} {'PASS' if rel <= CONVOLVE_TOL else 'FAIL'}")
+    if rel > CONVOLVE_TOL:
+        raise RuntimeError(f"fft_convolve_real off by {rel:.3e}")
+
     # -- 5. timing ---------------------------------------------------------
     log(f"[card] {smi}; shares against the {H100.kind} data sheet: "
         f"{H100.fp32_flops / 1e12:g} TFLOP/s fp32, "
+        f"{H100.bf16_flops / 1e12:g} TFLOP/s bf16, "
         f"{H100.hbm_bandwidth / 1e12:g} TB/s HBM")
 
     def shares(plan, b, ms):
         flops, nbytes = kernel_work(plan, b)
         return (f"fp32 share {flops / (H100.fp32_flops * ms / 1e3):.1%}, "
                 f"HBM share {nbytes / (H100.hbm_bandwidth * ms / 1e3):.1%}")
+
+    def bound(nbytes, ops, peak):
+        """(least ms the card could take, what bounds it)."""
+        t_bytes = nbytes / H100.hbm_bandwidth * 1e3
+        t_ops = ops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def table_bytes(plan, radices, scales, sign):
+        tables, _ = fused_cuda.kernel_tables(
+            tuple(radices), tuple(map(float, scales)), int(sign),
+            plan.precision.dot_algorithm, plan.first_dot, dev)
+        return tables.numel() * 4
+
+    timing = {}  # name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by, shape)
 
     kernel_ms = {}
     for label, (plan, re_, im_) in data.items():
@@ -289,9 +538,17 @@ def main() -> int:
             f"{t_kern2.average_time_ms:.4f}) | plain {p_ms:.4f} ms "
             f"({flops / p_ms / 1e6:.1f}) | torch.fft c64 {c_ms:.4f} ms "
             f"({flops / c_ms / 1e6:.1f}) | kernel {shares(plan, b, k_ms)} | {smi}")
+        item = plan.precision.storage_dtype.itemsize
+        elems = n * b
         if plan.resolve_strategy() is tt.Strategy.FUSED:
             if label == "bench-headline":
-                kernel_ms["fused_fft"] = (k_ms, p_ms)
+                nbytes = 4 * item * elems + table_bytes(
+                    plan, plan.radices, kwargs["scales"], -1)
+                b_ms, b_by = bound(nbytes, pass_flops(plan, plan.radices, elems),
+                                   H100.bf16_flops)
+                timing["fused_fft"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=c_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           shape=f"N={n} x B={b} bf16")
             continue
         # Each four-step pass alone, on the same inputs.
         col = {k: kwargs[k] for k in ("n1", "n2", "radices1", "scales1", "sign",
@@ -299,17 +556,26 @@ def main() -> int:
         row = {k: kwargs[k] for k in ("n1", "n2", "radices2", "scales2", "sign",
                                       "algorithm", "first_dot")}
         mid = four_step_cuda.column_pass(re_, im_, **col)
-        for name, fn, ref, args in (
+        pq = 2 * 4 * (kwargs["n1"] * kwargs["n2"] // min(kwargs["lane_tile"], kwargs["n2"])
+                      + kwargs["n1"] * min(kwargs["lane_tile"], kwargs["n2"]))
+        for name, fn, ref, args, kw_pass, radices, scales, extra in (
                 ("four_step_col", four_step_cuda.column_pass,
-                 four_step_cuda.column_pass_reference, (re_, im_)),
+                 four_step_cuda.column_pass_reference, (re_, im_), col,
+                 kwargs["radices1"], kwargs["scales1"], pq),
                 ("four_step_row", four_step_cuda.row_pass,
-                 four_step_cuda.row_pass_reference, mid)):
-            kw_pass = col if name == "four_step_col" else row
+                 four_step_cuda.row_pass_reference, mid, row,
+                 kwargs["radices2"], kwargs["scales2"], 0)):
             tk = measure(lambda r, i: fn(r, i, **kw_pass), args, iters=10)
             tp = measure(lambda r, i: ref(r, i, **kw_pass), args, iters=5)
             kernel_ms[name] = (tk.average_time_ms, tp.average_time_ms)
+            nbytes = 4 * item * elems + extra + table_bytes(plan, radices, scales, -1)
+            b_ms, b_by = bound(nbytes, pass_flops(plan, radices, elems), H100.bf16_flops)
+            timing[name] = dict(ms=tk.average_time_ms, plain_ms=tp.average_time_ms,
+                                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                                shape=f"N={n} x B={b} bf16")
             log(f"[time] {name} N={n} B={b}: kernel {tk.average_time_ms:.4f} ms "
-                f"| plain {tp.average_time_ms:.4f} ms | {smi}")
+                f"| plain {tp.average_time_ms:.4f} ms | bound {b_ms:.4f} ms "
+                f"({b_by}) | {smi}")
 
     # The float32 policy at the headline shape (kernel A, bf16x3).
     plan32 = tt.create_plan(16384, precision="float32")
@@ -319,22 +585,123 @@ def main() -> int:
     log(f"[time] float32 policy N=16384 B=4096: kernel "
         f"{t32.average_time_ms:.4f} ms ({flops / t32.average_time_ms / 1e6:.1f} "
         f"GFLOP/s) | {shares(plan32, 4096, t32.average_time_ms)} | {smi}")
+    del r32, i32
 
-    replaces = {
-        "fused_fft": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
-                      "tensorfft_tpu/ops/fused_pallas.py:971"),
-        "four_step_col": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
-                          "tensorfft_tpu/ops/four_step_pallas.py:465"),
-        "four_step_row": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
-                          "tensorfft_tpu/ops/four_step_pallas.py:551"),
-    }
-    kernels = [
-        {"name": name, "route": "cuda", "source": replaces[name][0],
-         "replaces": replaces[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": kernel_ms[name][0],
-         "plain_ms": kernel_ms[name][1]}
-        for name in wrappers
-    ]
+    # The R2C kernels at both main-path shapes, each call on a cold L2.
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def time_r2c(name, label, fn, plain, library, args, nbytes, ops, peak):
+        tp1 = measure(plain, args, iters=5, flush=flush)
+        tk1 = measure(fn, args, iters=20, flush=flush)
+        tk2 = measure(fn, args, iters=20, flush=flush)
+        tp2 = measure(plain, args, iters=5, flush=flush)
+        k_ms = min(tk1.average_time_ms, tk2.average_time_ms)
+        p_ms = min(tp1.average_time_ms, tp2.average_time_ms)
+        l_ms = (measure(library, args, iters=20, flush=flush).average_time_ms
+                if library is not None else None)
+        b_ms, b_by = bound(nbytes, ops, peak)
+        log(f"[time] {name} {R2C_SHAPE[label]}: kernel {k_ms:.4f} ms (runs "
+            f"{tk1.average_time_ms:.4f}, {tk2.average_time_ms:.4f}) | plain "
+            f"{p_ms:.4f} ms | library "
+            f"{'none' if l_ms is None else f'{l_ms:.4f} ms'} | bound "
+            f"{b_ms:.4f} ms ({b_by}) | {b_ms / k_ms:.1%} of bound | {smi}")
+        # The JSON line keeps config 4's shape for the kernels that route
+        # runs, the fused route's for pack and interleave; PERF.md has both.
+        if name not in timing or (label == "r2c-config4" and name not in
+                                  ("pack_split", "interleave_split")):
+            timing[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                shape=R2C_SHAPE[label])
+
+    for label, (plan, x) in r2c.items():
+        b, n = x.shape
+        m = n // 2
+        s = 2  # bf16 bytes
+        a = r2c_args[label]
+        fs, inv = a["fwd_scale"], a["inv"]
+        Z, spec = a["Z"], a["spec"]
+        table = 2 * 4 * m
+        time_r2c("untangle_fwd", label,
+                 lambda r, i: rfft_cuda.untangle_fwd(r, i, n=n, scale=fs),
+                 lambda r, i: rfft_cuda.untangle_fwd_reference(r, i, n=n, scale=fs),
+                 None, Z, 2 * s * b * m + table + 2 * s * b * (m + 1),
+                 UNTANGLE_OPS * b * m, H100.fp32_flops)
+        time_r2c("retangle_inv", label,
+                 lambda r, i: rfft_cuda.retangle_inv(r, i, **inv),
+                 lambda r, i: rfft_cuda.retangle_inv_reference(r, i, **inv),
+                 None, spec, 2 * s * b * (m + 1) + table + 2 * s * b * m,
+                 UNTANGLE_OPS * b * m, H100.fp32_flops)
+        if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
+            col, row = a["col"], a["row"]
+            elems = m * b
+            n1, n2 = col["n1"], col["n2"]
+            t = min(col["lane_tile"], n2)
+            pq = 2 * 4 * (n1 * n2 // t + n1 * t)
+            time_r2c("four_step_col_packed", label,
+                     lambda v: four_step_cuda.column_pass_packed(v, **col),
+                     lambda v: four_step_cuda.column_pass_packed_reference(v, **col),
+                     None, (x,),
+                     4 * s * elems + pq + table_bytes(plan, col["radices1"],
+                                                      col["scales1"], col["sign"]),
+                     pass_flops(plan, col["radices1"], elems), H100.bf16_flops)
+            time_r2c("four_step_row_interleave", label,
+                     lambda r, i: four_step_cuda.row_pass_interleave(r, i, **row),
+                     lambda r, i: four_step_cuda.row_pass_interleave_reference(r, i, **row),
+                     None, a["mid"],
+                     4 * s * elems + table_bytes(plan, row["radices2"],
+                                                 row["scales2"], row["sign"]),
+                     pass_flops(plan, row["radices2"], elems), H100.bf16_flops)
+            # What the fused load and store maps cost: kernels B and C on the
+            # same shape, with the planes already packed.
+            t_b = measure(lambda r, i: four_step_cuda.column_pass(r, i, **col),
+                          rfft_cuda.pack_split(x), iters=20, flush=flush)
+            t_c = measure(lambda r, i: four_step_cuda.row_pass(r, i, **row),
+                          a["mid"], iters=20, flush=flush)
+            log(f"[time] unfused passes {R2C_SHAPE[label]}: kernel B "
+                f"{t_b.average_time_ms:.4f} ms | kernel C "
+                f"{t_c.average_time_ms:.4f} ms | split ({n1}, {n2}) | {smi}")
+        # pack and interleave at both shapes (the fused route runs them).
+        time_r2c("pack_split", label, rfft_cuda.pack_split,
+                 rfft_cuda.pack_split_reference,
+                 lambda v: v.view(b, m, 2).permute(2, 0, 1).contiguous(),
+                 (x,), 4 * s * b * m, 0, H100.fp32_flops)
+        planes = a.get("planes") or rfft_cuda.pack_split(x)
+        time_r2c("interleave_split", label, rfft_cuda.interleave_split,
+                 rfft_cuda.interleave_split_reference,
+                 lambda r, i: torch.stack([r, i], -1).reshape(b, 2 * m),
+                 planes, 4 * s * b * m, 0, H100.fp32_flops)
+        # The whole R2C pair against torch.fft on float32 of the same shape.
+        x32 = x.float()
+        spec32 = torch.complex(spec[0].float(), spec[1].float())
+        t_rf = measure(lambda v: tt.rfft_split(v, plan), (x,), iters=10, flush=flush)
+        t_irf = measure(lambda r, i: tt.irfft_split(r, i, plan), spec, iters=10,
+                        flush=flush)
+        t_trf = measure(lambda v: torch.fft.rfft(v, dim=-1), (x32,), iters=10,
+                        flush=flush)
+        t_tirf = measure(lambda v: torch.fft.irfft(v, n=n, dim=-1), (spec32,),
+                         iters=10, flush=flush)
+        c2c = (data["bench-headline"] if label == "r2c-fused" else data["four-step"])
+        log(f"[time] {label} N={n} B={b} bf16: rfft_split "
+            f"{t_rf.average_time_ms:.4f} ms | irfft_split "
+            f"{t_irf.average_time_ms:.4f} ms | torch.fft.rfft f32 "
+            f"{t_trf.average_time_ms:.4f} ms | torch.fft.irfft c64 "
+            f"{t_tirf.average_time_ms:.4f} ms | half-length C2C plan "
+            f"{c2c[0].resolve_strategy().value} | {smi}")
+        del x32, spec32
+
+    kernels = []
+    for name in wrappers:
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": sum(c[name] for c in launches_by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
+            "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"],
+        })
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

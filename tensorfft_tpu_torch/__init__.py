@@ -11,6 +11,9 @@ Public API:
     create_plan, FFTPlan, Precision, Strategy   — planning
     fft_split, ifft_split                       — 1D C2C on split planes
     fft, ifft                                   — complex convenience wrappers
+    rfft_split, irfft_split                     — 1D R2C / C2R on real rows
+    rfft, irfft                                 — their host-array wrappers
+    fft_convolve_real                           — circular convolution via R2C
     plan_works_on_device                        — device check
 """
 
@@ -22,6 +25,8 @@ from tensorfft_tpu_torch.plan import (
     plan_works_on_device,
 )
 from tensorfft_tpu_torch.fft import fft, fft_split, ifft, ifft_split
+from tensorfft_tpu_torch.rfft import irfft, irfft_split, rfft, rfft_split
+from tensorfft_tpu_torch.models.fft_conv import fft_convolve_real
 
 __version__ = "0.1.0"
 
@@ -35,5 +40,10 @@ __all__ = [
     "ifft",
     "fft_split",
     "ifft_split",
+    "rfft",
+    "irfft",
+    "rfft_split",
+    "irfft_split",
+    "fft_convolve_real",
     "__version__",
 ]

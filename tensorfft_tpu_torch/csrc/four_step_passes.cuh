@@ -1,0 +1,209 @@
+// Kernels B and C: the two passes of the Bailey four-step FFT on batch-major
+// (B, N) planes, N = n1 * n2, viewed as (B, n1, n2).  Templates shared by
+// the C2C entry points (four_step_fft.cu) and the R2C ones
+// (four_step_real.cu), which nvcc compiles in parallel.
+//
+// Kernel B (column pass) replaces K2c, tensorfft_tpu/ops/four_step_pallas.py
+// _col_kernel (pallas_call at :465): n1-point FFTs down the columns, then the
+// four-step twiddle w[k1, j2] = P[k1, j2 / t] * Q[k1, j2 % t] rebuilt from the
+// same rank-separated fp32 tables, and a store of `mid` in the STORAGE dtype
+// (bf16 under the bf16 policy), exactly where the TPU kernel rounds it.
+//
+// Kernel C (row pass) replaces K2r, _row_kernel (pallas_call at :551):
+// n2-point FFTs of each k1 row of `mid`, stored transposed at
+// out[b, k2, k1], so the output (B, n2, n1) is the natural-order spectrum
+// with no third pass.
+//
+// The real-to-complex path adds one variant of each, differing only in a
+// load or a store map (the `kPacked` / `kInterleave` template flags):
+//   K5 (four_step_pallas.py:four_step_fft_packed_real, pallas_call at :943,
+//   _col_kernel_packed) is kernel B reading the half-length packed view of
+//   a real (B, 2N) row: element (j1, j2) of the even and odd planes is
+//   x[b, j1*2*n2 + 2*j2 + {0, 1}].  Its row pass is kernel C unchanged.
+//   K6 (four_step_fft_to_real, pallas_call at :1229, _row_kernel_interleave)
+//   is kernel C storing output bin (k2, k1) interleaved into a real (B, 2N)
+//   row at x[b, k2*2*n1 + 2*k1 + {0, 1}], rounded to the storage dtype where
+//   kernel C rounds it.  Its column pass is kernel B unchanged.
+// The TPU kernels deinterleave and interleave with a permutation matmul per
+// panel; here the map is folded into the addresses, so neither costs a pass.
+//
+// What bounds them on the H100: as kernel A, scalar-FMA stage matmuls bound
+// by load-instruction throughput; beyond that, kernel B reads columns
+// strided by n2 and kernel C writes strided by n1.  Each CTA therefore takes
+// T adjacent columns (B) or rows (C), as many as one CTA's n*T <= 16384
+// elements allow (capped at 64), so the strided side moves T contiguous
+// elements per row.
+#pragma once
+
+#include "fft_stages.cuh"
+
+namespace tfft {
+
+template <typename S, int BT, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+    col_pass_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
+                    S* __restrict__ mid_re, S* __restrict__ mid_im, int n1,
+                    int n2, int T, StagePlan plan,
+                    const float* __restrict__ tables,
+                    const float* __restrict__ p, const float* __restrict__ q,
+                    int t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int tiles = n2 / T;
+  const long long b = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - static_cast<int>(b) * tiles) * T;
+  const long long base = b * n1 * n2 + c0;
+  auto load = [&](int qi, int& idx, float& re, float& im) {
+    const int i = qi / T, lane = qi - i * T;
+    idx = qi;
+    const long long at = base + static_cast<long long>(i) * n2 + lane;
+    if constexpr (kPacked) {
+      // in_re is the real (B, 2N) row; half-length element `at` is a pair.
+      re = to_float(in_re[2 * at]);
+      im = to_float(in_re[2 * at + 1]);
+    } else {
+      re = to_float(in_re[at]);
+      im = to_float(in_im[at]);
+    }
+  };
+  auto store = [&](int k1, int lane, float re, float im) {
+    const int j2 = c0 + lane;
+    const int a = j2 / t, bb = j2 - a * t;
+    float w_re, w_im, o_re, o_im;
+    cmul(__ldg(p + (2 * a) * n1 + k1), __ldg(p + (2 * a + 1) * n1 + k1),
+         __ldg(q + k1 * t + bb), __ldg(q + (n1 + k1) * t + bb), w_re, w_im);
+    cmul(re, im, w_re, w_im, o_re, o_im);
+    const long long at = base + static_cast<long long>(k1) * n2 + lane;
+    mid_re[at] = from_float<S>(o_re);
+    mid_im[at] = from_float<S>(o_im);
+  };
+  run_fft<BT>(op, n1, T, plan, tables, load, store);
+}
+
+template <typename S, int BT, bool kInterleave>
+__global__ void __launch_bounds__(kThreads)
+    row_pass_kernel(const S* __restrict__ mid_re, const S* __restrict__ mid_im,
+                    S* __restrict__ out_re, S* __restrict__ out_im, int n1,
+                    int n2, int T, StagePlan plan,
+                    const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int tiles = n1 / T;
+  const long long b = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x - static_cast<int>(b) * tiles) * T;
+  const long long base = b * n1 * n2;
+  auto load = [&](int qi, int& idx, float& re, float& im) {
+    // q runs along the row (i fastest) so the global read is contiguous.
+    const int lane = qi / n2, i = qi - lane * n2;
+    idx = i * T + lane;
+    const long long at = base + static_cast<long long>(r0 + lane) * n2 + i;
+    re = to_float(mid_re[at]);
+    im = to_float(mid_im[at]);
+  };
+  auto store = [&](int k2, int lane, float re, float im) {
+    const long long at = base + static_cast<long long>(k2) * n1 + r0 + lane;
+    if constexpr (kInterleave) {
+      // out_re is the real (B, 2N) row; natural bin `at` is a pair.
+      out_re[2 * at] = from_float<S>(re);
+      out_re[2 * at + 1] = from_float<S>(im);
+    } else {
+      out_re[at] = from_float<S>(re);
+      out_im[at] = from_float<S>(im);
+    }
+  };
+  run_fft<BT>(op, n2, T, plan, tables, load, store);
+}
+
+template <typename S, int BT, bool kPacked>
+cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
+                       void* mid_im, long long batch, int n1, int n2, int T,
+                       const StagePlan& plan, const float* tables,
+                       const float* p, const float* q, int t,
+                       cudaStream_t stream) {
+  const int elems = n1 * T;
+  const int threads = elems < kThreads ? elems : kThreads;
+  const size_t smem = operand_bytes(elems, BT);
+  auto kern = col_pass_kernel<S, BT, kPacked>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = batch * (n2 / T);
+  kern<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const S*>(in_re), static_cast<const S*>(in_im),
+      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan,
+      tables, p, q, t);
+  return cudaGetLastError();
+}
+
+template <typename S, int BT, bool kInterleave>
+cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
+                       void* out_im, long long batch, int n1, int n2, int T,
+                       const StagePlan& plan, const float* tables,
+                       cudaStream_t stream) {
+  const int elems = n2 * T;
+  const int threads = elems < kThreads ? elems : kThreads;
+  const size_t smem = operand_bytes(elems, BT);
+  auto kern = row_pass_kernel<S, BT, kInterleave>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = batch * (n1 / T);
+  kern<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      static_cast<const S*>(mid_re), static_cast<const S*>(mid_im),
+      static_cast<S*>(out_re), static_cast<S*>(out_im), n1, n2, T, plan,
+      tables);
+  return cudaGetLastError();
+}
+
+inline bool lanes_ok(int n, int other, int T) {
+  return T >= 1 && other % T == 0 && static_cast<long long>(n) * T <= kMaxCtaElems;
+}
+
+// Launch a column pass for the storage/operand pair of a policy: dtype 0
+// bf16 (with 1 data term), 1 fp32 (with 2 or 3).
+template <bool kPacked>
+int col_pass(const void* in_re, const void* in_im, void* mid_re,
+             void* mid_im, int dtype, int data_terms, long long batch, int n1,
+             int n2, int T, const void* tables, const long long* meta,
+             const void* p, const void* q, int t, void* stream) {
+  StagePlan plan;
+  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T) || batch < 1 || t < 1 ||
+      n2 % t != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* tab = static_cast<const float*>(tables);
+  const float* pp = static_cast<const float*>(p);
+  const float* qq = static_cast<const float*>(q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TFFT_COL(S, BT)                                                   \
+  return static_cast<int>(launch_col<S, BT, kPacked>(                    \
+      in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tab, pp, qq, \
+      t, s))
+  if (dtype == 0 && data_terms == 1) TFFT_COL(__nv_bfloat16, 1);
+  if (dtype == 1 && data_terms == 2) TFFT_COL(float, 2);
+  if (dtype == 1 && data_terms == 3) TFFT_COL(float, 3);
+#undef TFFT_COL
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kInterleave>
+int row_pass(const void* mid_re, const void* mid_im, void* out_re,
+             void* out_im, int dtype, int data_terms, long long batch, int n1,
+             int n2, int T, const void* tables, const long long* meta,
+             void* stream) {
+  StagePlan plan;
+  if (!read_plan(meta, &plan) || !lanes_ok(n2, n1, T) || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* tab = static_cast<const float*>(tables);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define TFFT_ROW(S, BT)                                                      \
+  return static_cast<int>(launch_row<S, BT, kInterleave>(                   \
+      mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tab, s))
+  if (dtype == 0 && data_terms == 1) TFFT_ROW(__nv_bfloat16, 1);
+  if (dtype == 1 && data_terms == 2) TFFT_ROW(float, 2);
+  if (dtype == 1 && data_terms == 3) TFFT_ROW(float, 3);
+#undef TFFT_ROW
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tfft
+

@@ -158,18 +158,19 @@ def _to_complex(re, im):
             + 1j * im.to(torch.float32).cpu().numpy()).astype(np.complex64)
 
 
-def fft(x, plan: Optional[FFTPlan] = None, *, device, **plan_kwargs):
+def fft(x, plan: Optional[FFTPlan] = None, *, device="cuda", **plan_kwargs):
     """Forward FFT of a complex (or real) array along the last axis.
 
     Host-boundary convenience wrapper over :func:`fft_split`: splits the
-    array on the host, runs on ``device``, and returns a NumPy complex64
-    array.  Use :func:`fft_split` to stay on the device.
+    array on the host, runs on ``device`` (the card unless the caller asks
+    for the CPU), and returns a NumPy complex64 array.  Use
+    :func:`fft_split` to stay on the device.
     """
     re, im = _to_split(x, device)
     return _to_complex(*fft_split(re, im, plan, **plan_kwargs))
 
 
-def ifft(x, plan: Optional[FFTPlan] = None, *, device, **plan_kwargs):
+def ifft(x, plan: Optional[FFTPlan] = None, *, device="cuda", **plan_kwargs):
     """Inverse of :func:`fft` (same host-boundary contract)."""
     re, im = _to_split(x, device)
     return _to_complex(*ifft_split(re, im, plan, **plan_kwargs))

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # name -> argtypes; every function returns a cudaError_t code as int.
 _SIGNATURES = {
@@ -41,6 +42,14 @@ _SIGNATURES = {
                            _P, _P, _I, _P],
     "tfft_four_step_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
                            _P],
+    "tfft_four_step_col_packed": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
+                                  _P, _P, _I, _P],
+    "tfft_four_step_row_interleave": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _P,
+                                      _P, _P],
+    "tfft_pack_split": [_P, _P, _P, _I, _L, _I, _P],
+    "tfft_interleave_split": [_P, _P, _P, _I, _L, _I, _P],
+    "tfft_untangle_fwd": [_P, _P, _P, _P, _I, _L, _I, _P, _F, _P],
+    "tfft_retangle_inv": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _F, _P],
 }
 
 

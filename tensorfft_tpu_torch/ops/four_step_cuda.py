@@ -13,8 +13,18 @@ N = n1 * n2 on batch-major (B, N) planes viewed as (B, n1, n2):
       order.
 
 Counterpart of ``tensorfft_tpu/ops/four_step_pallas.py:four_step_fft``
-(the stacked column and row kernels).  A CPU tensor takes the plain
-version; a CUDA tensor launches the kernels, and anything else raises.
+(the stacked column and row kernels).  The real-to-complex path adds one
+variant of each pass (K5 and K6 of the TPU package):
+
+  four_step_fft_packed_real  the column pass reads the half-length packed
+      view of a real (B, 2N) row (``column_pass_packed``), then kernel C;
+  four_step_fft_to_real      kernel B, then the row pass stores its output
+      interleaved into a real (B, 2N) row (``row_pass_interleave``).
+
+Their plain versions are the plain passes composed with the plain pack and
+interleave of ``rfft_cuda``: exact permutations, so the composition is
+bit-identical to fusing them.  A CPU tensor takes the plain version; a CUDA
+tensor launches the kernels, and anything else raises.
 """
 from __future__ import annotations
 
@@ -31,9 +41,14 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     check_planes,
     kernel_tables,
     launch,
+    policy_codes,
     require_default_knobs,
     run_stages,
     stage_table_arrays,
+)
+from tensorfft_tpu_torch.ops.rfft_cuda import (
+    interleave_split_reference,
+    pack_split_reference,
 )
 
 __all__ = [
@@ -43,6 +58,14 @@ __all__ = [
     "column_pass_reference",
     "row_pass",
     "row_pass_reference",
+    "four_step_fft_packed_real",
+    "four_step_fft_packed_real_reference",
+    "four_step_fft_to_real",
+    "four_step_fft_to_real_reference",
+    "column_pass_packed",
+    "column_pass_packed_reference",
+    "row_pass_interleave",
+    "row_pass_interleave_reference",
     "four_step_tables",
     "pass_lanes",
 ]
@@ -134,8 +157,8 @@ def _check_split(re, n1, n2, what):
         raise ValueError(f"{what}: N={re.shape[1]} != n1*n2 = {n1}*{n2}")
 
 
-def _kernel_pass(re, im, n, other, algorithm, what):
-    """Shared launcher checks; returns (lanes, empty outputs)."""
+def _pass_lanes(re, im, n, other, algorithm, what):
+    """Shared launcher checks; returns the pass's lanes per CTA."""
     check_kernel_operands(re, im, algorithm, what)
     lanes = pass_lanes(n, other)
     if n * lanes > MAX_CTA_ELEMS:
@@ -143,7 +166,34 @@ def _kernel_pass(re, im, n, other, algorithm, what):
             f"{what}: length {n} exceeds one CTA ({MAX_CTA_ELEMS}); lower "
             f"max_fused_length"
         )
-    return lanes, torch.empty_like(re), torch.empty_like(im)
+    return lanes
+
+
+def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
+                sign, lane_tile, first_dot):
+    """Launch column pass ``symbol`` from ``src`` (planes or one real row
+    tensor) into the ``mid`` planes; ``lanes`` columns per CTA."""
+    lanes = _pass_lanes(src[0], src[-1], n1, n2, algorithm, symbol)
+    tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
+                                 int(sign), algorithm, first_dot,
+                                 src[0].device)
+    p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
+    launch(symbol, (*src, *mid), policy_codes(src[0], algorithm),
+           src[0].shape[0], n1, n2, lanes, tables.data_ptr(),
+           meta.ctypes.data, p.data_ptr(), q.data_ptr(), t)
+
+
+def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
+                first_dot):
+    """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
+    (planes or one real row tensor); ``lanes`` rows per CTA."""
+    lanes = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, symbol)
+    tables, meta = kernel_tables(tuple(radices2), tuple(map(float, scales2)),
+                                 int(sign), algorithm, first_dot,
+                                 mid[0].device)
+    launch(symbol, (*mid, *dst), policy_codes(mid[0], algorithm),
+           mid[0].shape[0], n1, n2, lanes, tables.data_ptr(),
+           meta.ctypes.data)
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
@@ -157,16 +207,12 @@ def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
             re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1,
             sign=sign, lane_tile=lane_tile, algorithm=algorithm,
             first_dot=first_dot)
-    lanes, mid_re, mid_im = _kernel_pass(re, im, n1, n2, algorithm,
-                                         "column_pass")
+    mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
     if re.shape[0] == 0:
+        check_kernel_operands(re, im, algorithm, "column_pass")
         return mid_re, mid_im
-    tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
-                                 int(sign), algorithm, first_dot, re.device)
-    p, q, t = _device_pq(n1, n2, lane_tile, int(sign), re.device)
-    launch("tfft_four_step_col", re, im, mid_re, mid_im, algorithm,
-           re.shape[0], n1, n2, lanes, tables.data_ptr(), meta.ctypes.data,
-           p.data_ptr(), q.data_ptr(), t)
+    _col_launch("tfft_four_step_col", (re, im), (mid_re, mid_im), algorithm,
+                n1, n2, radices1, scales1, sign, lane_tile, first_dot)
     column_pass.launches += 1
     return mid_re, mid_im
 
@@ -181,21 +227,89 @@ def row_pass(mid_re, mid_im, *, n1, n2, radices2, scales2, sign=dft.FORWARD,
         return row_pass_reference(
             mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
             sign=sign, algorithm=algorithm, first_dot=first_dot)
-    lanes, out_re, out_im = _kernel_pass(mid_re, mid_im, n2, n1, algorithm,
-                                         "row_pass")
+    out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
     if mid_re.shape[0] == 0:
+        check_kernel_operands(mid_re, mid_im, algorithm, "row_pass")
         return out_re, out_im
-    tables, meta = kernel_tables(tuple(radices2), tuple(map(float, scales2)),
-                                 int(sign), algorithm, first_dot,
-                                 mid_re.device)
-    launch("tfft_four_step_row", mid_re, mid_im, out_re, out_im, algorithm,
-           mid_re.shape[0], n1, n2, lanes, tables.data_ptr(), meta.ctypes.data)
+    _row_launch("tfft_four_step_row", (mid_re, mid_im), (out_re, out_im),
+                algorithm, n1, n2, radices2, scales2, sign, first_dot)
     row_pass.launches += 1
     return out_re, out_im
 
 
+def column_pass_packed_reference(x, *, n1, n2, radices1, scales1,
+                                 sign=dft.FORWARD, lane_tile=128,
+                                 algorithm="bf16", first_dot="default"):
+    """Plain-torch K5 column pass: plain pack, then the plain column pass."""
+    re, im = pack_split_reference(x)
+    return column_pass_reference(
+        re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
+        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+
+
+def row_pass_interleave_reference(mid_re, mid_im, *, n1, n2, radices2,
+                                  scales2, sign=dft.FORWARD, algorithm="bf16",
+                                  first_dot="default"):
+    """Plain-torch K6 row pass: the plain row pass, then the plain
+    interleave."""
+    return interleave_split_reference(*row_pass_reference(
+        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
+        sign=sign, algorithm=algorithm, first_dot=first_dot))
+
+
+def column_pass_packed(x, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
+                       lane_tile=128, algorithm="bf16", first_dot="default"):
+    """Column pass on the half-length packed view of real (B, 2N) rows ->
+    ``mid`` (B, N) planes in x's dtype; CUDA tensors launch the packed
+    kernel B, counted in ``column_pass_packed.launches``."""
+    if not isinstance(x, torch.Tensor) or x.ndim != 2 or x.shape[1] != 2 * n1 * n2:
+        raise ValueError(
+            f"column_pass_packed expects (B, 2*n1*n2) real rows, got "
+            f"{getattr(x, 'shape', None)} for n1*n2 = {n1 * n2}")
+    if x.device.type == "cpu":
+        return column_pass_packed_reference(
+            x, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
+            lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+    b = x.shape[0]
+    mid_re = torch.empty((b, n1 * n2), dtype=x.dtype, device=x.device)
+    mid_im = torch.empty_like(mid_re)
+    if b == 0:
+        check_kernel_operands(x, x, algorithm, "column_pass_packed")
+        return mid_re, mid_im
+    _col_launch("tfft_four_step_col_packed", (x,), (mid_re, mid_im),
+                algorithm, n1, n2, radices1, scales1, sign, lane_tile,
+                first_dot)
+    column_pass_packed.launches += 1
+    return mid_re, mid_im
+
+
+def row_pass_interleave(mid_re, mid_im, *, n1, n2, radices2, scales2,
+                        sign=dft.FORWARD, algorithm="bf16",
+                        first_dot="default"):
+    """Row pass on ``mid`` (B, N) planes with the natural-order output
+    interleaved into real (B, 2N) rows; CUDA tensors launch the interleaving
+    kernel C, counted in ``row_pass_interleave.launches``."""
+    check_planes(mid_re, mid_im, "row_pass_interleave")
+    _check_split(mid_re, n1, n2, "row_pass_interleave")
+    if mid_re.device.type == "cpu":
+        return row_pass_interleave_reference(
+            mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
+            sign=sign, algorithm=algorithm, first_dot=first_dot)
+    b = mid_re.shape[0]
+    x = torch.empty((b, 2 * n1 * n2), dtype=mid_re.dtype, device=mid_re.device)
+    if b == 0:
+        check_kernel_operands(mid_re, mid_im, algorithm, "row_pass_interleave")
+        return x
+    _row_launch("tfft_four_step_row_interleave", (mid_re, mid_im), (x,),
+                algorithm, n1, n2, radices2, scales2, sign, first_dot)
+    row_pass_interleave.launches += 1
+    return x
+
+
 column_pass.launches = 0
 row_pass.launches = 0
+column_pass_packed.launches = 0
+row_pass_interleave.launches = 0
 
 
 def four_step_fft(
@@ -238,3 +352,77 @@ def four_step_fft_reference(re, im, *, n1, n2, radices1, radices2, scales1,
     return row_pass_reference(
         mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
         sign=sign, algorithm=algorithm, first_dot=first_dot)
+
+
+def four_step_fft_packed_real(
+    x: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    radices1: Tuple[int, ...],
+    radices2: Tuple[int, ...],
+    scales1: Tuple[float, ...],
+    scales2: Tuple[float, ...],
+    sign: int = dft.FORWARD,
+    lane_tile: int = 128,
+    algorithm: str = "bf16",
+    grouped: bool = False,
+    state_dtype: str = "float32",
+    complex_mult: str = "block",
+    first_dot: str = "default",
+    engine: str = "stacked",
+):
+    """Four-step FFT of the half-length packed view of real (B, 2N) rows,
+    N = n1*n2: ``four_step_fft(x[:, 0::2], x[:, 1::2])`` with the
+    deinterleave folded into the column pass's loads.  Returns (B, N) planes
+    in x's dtype.  As in the JAX package, a gridslice engine runs the
+    stacked passes (the outputs are bit-identical)."""
+    require_default_knobs(grouped, complex_mult, state_dtype,
+                          "stacked" if engine.startswith("gridslice") else engine)
+    mid_re, mid_im = column_pass_packed(
+        x, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
+        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+    return row_pass(
+        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
+        sign=sign, algorithm=algorithm, first_dot=first_dot)
+
+
+def four_step_fft_to_real(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    *,
+    n1: int,
+    n2: int,
+    radices1: Tuple[int, ...],
+    radices2: Tuple[int, ...],
+    scales1: Tuple[float, ...],
+    scales2: Tuple[float, ...],
+    sign: int = dft.INVERSE,
+    lane_tile: int = 128,
+    algorithm: str = "bf16",
+    grouped: bool = False,
+    state_dtype: str = "float32",
+    complex_mult: str = "block",
+    first_dot: str = "default",
+    engine: str = "stacked",
+):
+    """Four-step FFT of (B, N) planes whose natural-order output is
+    interleaved into real (B, 2N) rows inside the row pass's store
+    (``interleave_split(*four_step_fft(re, im))``), in the input dtype."""
+    require_default_knobs(grouped, complex_mult, state_dtype, engine)
+    mid_re, mid_im = column_pass(
+        re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
+        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+    return row_pass_interleave(
+        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
+        sign=sign, algorithm=algorithm, first_dot=first_dot)
+
+
+def four_step_fft_packed_real_reference(x, **kwargs):
+    """Plain-torch K5: plain pack, then the plain four-step."""
+    return four_step_fft_reference(*pack_split_reference(x), **kwargs)
+
+
+def four_step_fft_to_real_reference(re, im, **kwargs):
+    """Plain-torch K6: the plain four-step, then the plain interleave."""
+    return interleave_split_reference(*four_step_fft_reference(re, im, **kwargs))

@@ -40,6 +40,8 @@ __all__ = [
     "check_kernel_operands",
     "require_default_knobs",
     "launch",
+    "policy_codes",
+    "KERNEL_DTYPES",
     "MAX_CTA_ELEMS",
 ]
 
@@ -50,7 +52,7 @@ MAX_CTA_ELEMS = 16384
 # bf16 terms per data operand, and per matrix operand, of each algorithm.
 DATA_TERMS = {"bf16": 1, "bf16ax2": 1, "bf16x3": 2, "bf16x6": 3}
 _MATRIX_TERMS = {"bf16": 1, "bf16ax2": 2, "bf16x3": 2, "bf16x6": 3}
-_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
 def block_dft_tables(
@@ -179,7 +181,7 @@ def check_kernel_operands(re: torch.Tensor, im: torch.Tensor, algorithm: str,
             f"{what}: algorithm {algorithm!r} has no CUDA kernel "
             f"(the float64 policy runs on CPU tensors)"
         )
-    if re.dtype not in _KERNEL_DTYPES:
+    if re.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{what}: kernel takes bfloat16 or float32, got {re.dtype}")
     if (re.dtype is torch.bfloat16) != (DATA_TERMS[algorithm] == 1):
         raise NotImplementedError(
@@ -199,16 +201,21 @@ def cta_smem_bytes(n: int, lanes: int, algorithm: str):
     return n * lanes * 2 * 2 * DATA_TERMS[algorithm]
 
 
-def launch(symbol: str, re, im, out_re, out_im, algorithm: str, *args) -> None:
-    """Call C launcher ``symbol`` on the current stream of the planes'
-    device: (in_re, in_im, out_re, out_im, dtype, data terms, *args, stream)."""
-    with torch.cuda.device(re.device):
+def launch(symbol: str, tensors, dtype_codes, *args) -> None:
+    """Call C launcher ``symbol`` on the current stream of the tensors'
+    device: (*tensor pointers, *dtype_codes, *args, stream)."""
+    device = tensors[0].device
+    with torch.cuda.device(device):
         err = getattr(_build.library(), symbol)(
-            re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            _KERNEL_DTYPES[re.dtype], DATA_TERMS[algorithm], *args,
-            torch.cuda.current_stream(re.device).cuda_stream,
+            *(t.data_ptr() for t in tensors), *dtype_codes, *args,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     _build.check(err, symbol)
+
+
+def policy_codes(t: torch.Tensor, algorithm: str):
+    """The (storage dtype, data terms) codes the stage-engine launchers take."""
+    return KERNEL_DTYPES[t.dtype], DATA_TERMS[algorithm]
 
 
 @functools.lru_cache(maxsize=64)
@@ -298,8 +305,9 @@ def fused_fft(
         return out_re, out_im
     tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
                                  int(sign), algorithm, first_dot, re.device)
-    launch("tfft_fused_fft", re, im, out_re, out_im, algorithm, b, n,
-           tables.data_ptr(), meta.ctypes.data)
+    launch("tfft_fused_fft", (re, im, out_re, out_im),
+           policy_codes(re, algorithm), b, n, tables.data_ptr(),
+           meta.ctypes.data)
     fused_fft.launches += 1
     return out_re, out_im
 

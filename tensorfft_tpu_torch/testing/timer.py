@@ -4,12 +4,15 @@
 pair of CUDA events around each timed call on the current stream, and one
 synchronize at the end, so the host clock never stands in for device time.
 It raises when the tensors are not on a CUDA device: a CPU run has no device
-time to report.
+time to report.  With ``flush``, a buffer larger than the L2 cache is
+overwritten before each timed call (outside its events), so every call finds
+its inputs in device memory rather than in L2, as a caller that has just
+moved on from other work would.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,8 +34,10 @@ class BenchResult:
 
 
 def measure(fn: Callable, args: Sequence = (), warmup: int = 3,
-            iters: int = 20) -> BenchResult:
-    """Per-call device time of ``fn(*args)`` from CUDA events."""
+            iters: int = 20,
+            flush: Optional[torch.Tensor] = None) -> BenchResult:
+    """Per-call device time of ``fn(*args)`` from CUDA events; ``flush`` is
+    zeroed before each timed call when given."""
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     if not tensors or any(t.device.type != "cuda" for t in tensors):
         raise ValueError("measure() times CUDA work: pass CUDA tensors")
@@ -44,6 +49,8 @@ def measure(fn: Callable, args: Sequence = (), warmup: int = 3,
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
         for start, end in events:
+            if flush is not None:
+                flush.zero_()
             start.record()
             fn(*args)
             end.record()

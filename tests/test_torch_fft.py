@@ -1,5 +1,7 @@
 """The port's public 1D path (fft_split / ifft_split) against the JAX package
 and the fp64 oracle, at fused and four-step lengths."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -104,8 +106,9 @@ def test_complex_wrappers_take_device():
     n = 1024
     rng = np.random.default_rng(4)
     x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64)
-    with pytest.raises(TypeError):
-        tt.fft(x)  # the device is explicit
+    # They run on the card unless the caller asks for the CPU.
+    for fn in (tt.fft, tt.ifft):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     got = tt.fft(x, device="cpu", precision="float32")
     assert got.dtype == np.complex64
     want = tfft.fft(x, precision="float32")

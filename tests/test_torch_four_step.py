@@ -53,6 +53,48 @@ def test_four_step_matches_jax(n, b, max_fused, forward, precision):
     assert a.within(FOUR_STEP_MAX_FRAC), a
 
 
+# K5/K6 cases (n, batch, max_fused_length): split (64, 64), odd batch.
+REAL_CASES = [(4096, 3, 64)]
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,b,max_fused", REAL_CASES)
+def test_packed_real_matches_jax(n, b, max_fused, precision):
+    # K5: the four-step of the half-length packed view of real (B, 2N) rows.
+    tplan = tt.create_plan(n, precision=precision, max_fused_length=max_fused)
+    jplan = tfft.create_plan(n, precision=precision, max_fused_length=max_fused)
+    (x, _), (jx, _) = _inputs(b, 2 * n, precision, seed=3)
+    got = four_step_cuda.four_step_fft_packed_real(x, **t_kwargs(tplan, True))
+    want = four_step_pallas.four_step_fft_packed_real(
+        jx, **j_kwargs(jplan, True), interpret=True)
+    assert got[0].dtype is x.dtype and got[0].shape == (b, n)
+    a = agreement(_numpy(got), _numpy(want), bf16=precision == "bfloat16")
+    assert a.within(FOUR_STEP_MAX_FRAC), a
+    # The plain K5 is the plain pack composed with the plain four-step.
+    plain = four_step_cuda.four_step_fft(x[:, 0::2].contiguous(),
+                                         x[:, 1::2].contiguous(),
+                                         **t_kwargs(tplan, True))
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,b,max_fused", REAL_CASES)
+def test_to_real_matches_jax(n, b, max_fused, precision):
+    # K6: the four-step with its output interleaved into real (B, 2N) rows.
+    tplan = tt.create_plan(n, precision=precision, max_fused_length=max_fused)
+    jplan = tfft.create_plan(n, precision=precision, max_fused_length=max_fused)
+    (re, im), (jre, jim) = _inputs(b, n, precision, seed=4)
+    got = four_step_cuda.four_step_fft_to_real(re, im, **t_kwargs(tplan, False))
+    want = four_step_pallas.four_step_fft_to_real(
+        jre, jim, **j_kwargs(jplan, False), interpret=True)
+    assert got.dtype is re.dtype and got.shape == (b, 2 * n)
+    a = agreement(_numpy([got]), _numpy([want]), bf16=precision == "bfloat16")
+    assert a.within(FOUR_STEP_MAX_FRAC), a
+    o_re, o_im = four_step_cuda.four_step_fft(re, im, **t_kwargs(tplan, False))
+    assert torch.equal(got[:, 0::2], o_re) and torch.equal(got[:, 1::2], o_im)
+
+
 def _pass_kwargs(plan, forward):
     kw = t_kwargs(plan, forward)
     return kw, dict(n1=kw["n1"], n2=kw["n2"], sign=kw["sign"],

@@ -1,4 +1,6 @@
-"""CUDA kernels A, B and C against their plain-torch versions on the card.
+"""The port's CUDA kernels against their plain-torch versions on the card:
+kernels A, B and C, the packed/interleaving four-step variants (K5, K6) and
+the R2C epilogue kernels (K7-K10).
 
 Run on a machine with a CUDA device:
 
@@ -13,7 +15,8 @@ import torch
 
 import tensorfft_tpu_torch as tt
 from tensorfft_tpu_torch.fft import four_step_call_kwargs, stage_scales
-from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda
+from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, rfft_cuda
+from tensorfft_tpu_torch.rfft import _inverse_pre_scale, _output_scale
 from tensorfft_tpu_torch.testing import (
     agreement,
     deviation,
@@ -120,3 +123,107 @@ def test_kernel_rejects_bad_operands(cuda):
     with pytest.raises(NotImplementedError, match="pairs"):
         fused_cuda.fused_fft(re.float(), im.float(), algorithm="bf16",
                              **kwargs)
+
+
+def _bitwise(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 64, 16384, 1 << 19])
+def test_pack_interleave_kernels_match_plain(cuda, m, dtype):
+    (x,) = _planes(3, 2 * m, dtype, cuda, seed=m)[:1]
+    before = (rfft_cuda.pack_split.launches, rfft_cuda.interleave_split.launches)
+    planes = rfft_cuda.pack_split(x)
+    _bitwise(planes, rfft_cuda.pack_split_reference(x))
+    _bitwise([rfft_cuda.interleave_split(*planes)], [x])
+    torch.cuda.synchronize()
+    assert (rfft_cuda.pack_split.launches, rfft_cuda.interleave_split.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("scaling", ["forward", "none", "ortho"])
+@pytest.mark.parametrize("dtype,out", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.float32, torch.float32),
+                                       (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("m", [1, 2, 64, 16384, 1 << 19])
+def test_untangle_retangle_kernels_match_plain(cuda, m, dtype, out, scaling):
+    plan = tt.create_plan(2, scaling=scaling)
+    z_re, z_im = _planes(3, m, dtype, cuda, seed=m + 1)
+    scale = float(_output_scale(plan, True))
+    got = rfft_cuda.untangle_fwd(z_re, z_im, n=2 * m, scale=scale)
+    assert not got[1][:, -1].any()
+    _hold(got, rfft_cuda.untangle_fwd_reference(z_re, z_im, n=2 * m, scale=scale),
+          bf16=dtype is torch.bfloat16)
+    x_re, x_im = _planes(3, m + 1, dtype, cuda, seed=m + 2)
+    kw = dict(n=2 * m, scale=float(_inverse_pre_scale(plan)), out_dtype=out)
+    got = rfft_cuda.retangle_inv(x_re, x_im, **kw)
+    assert got[0].dtype is out
+    _hold(got, rfft_cuda.retangle_inv_reference(x_re, x_im, **kw),
+          bf16=out is torch.bfloat16)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [1 << 15, 1 << 19])
+def test_packed_and_interleaving_passes_match_plain(cuda, n, precision):
+    plan = tt.create_plan(n, precision=precision)
+    bf16 = precision == "bfloat16"
+    dtype = plan.precision.storage_dtype
+    fwd, inv = four_step_call_kwargs(plan, True), four_step_call_kwargs(plan, False)
+    col = {k: fwd[k] for k in ("n1", "n2", "radices1", "scales1", "sign",
+                               "lane_tile", "algorithm", "first_dot")}
+    row = {k: inv[k] for k in ("n1", "n2", "radices2", "scales2", "sign",
+                               "algorithm", "first_dot")}
+    (x,) = _planes(3, 2 * n, dtype, cuda, seed=n)[:1]
+    _hold(four_step_cuda.column_pass_packed(x, **col),
+          four_step_cuda.column_pass_packed_reference(x, **col), bf16,
+          FOUR_STEP_MAX_FRAC)
+    mid = _planes(3, n, dtype, cuda, seed=n + 1)
+    _hold([four_step_cuda.row_pass_interleave(*mid, **row)],
+          [four_step_cuda.row_pass_interleave_reference(*mid, **row)], bf16,
+          FOUR_STEP_MAX_FRAC)
+    # The fused maps agree bit for bit with the unfused kernels.
+    _bitwise(four_step_cuda.column_pass_packed(x, **col),
+             four_step_cuda.column_pass(*rfft_cuda.pack_split(x), **col))
+    _bitwise([four_step_cuda.row_pass_interleave(*mid, **row)],
+             [rfft_cuda.interleave_split(*four_step_cuda.row_pass(*mid, **row))])
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n", [512, 32768, 1 << 18])
+def test_rfft_split_on_card_passes_gate(cuda, n, precision):
+    sig = [make_test_signal(n, 42 * s, 42 * 42 * s) for s in (1, 2)]
+    x64 = np.stack([s[0] for s in sig] + [s[1] for s in sig])
+    plan = tt.create_plan(n // 2, precision=precision)
+    o_re, o_im = tt.rfft_split(torch.from_numpy(x64).to(cuda), plan)
+    assert o_re.is_cuda and o_re.shape == (4, n // 2 + 1)
+    want = np.fft.rfft(x64, axis=-1) / n
+    d = deviation((o_re.double().cpu().numpy(), o_im.double().cpu().numpy()),
+                  (want.real, want.imag))
+    assert d.passes_reference_gate(), d
+    back = tt.irfft_split(o_re, o_im, plan).double().cpu().numpy()
+    tol = 2e-2 if precision == "bfloat16" else 3e-4
+    assert np.abs(back - x64).max() <= tol * np.abs(x64).max()
+
+
+def test_fft_convolve_real_on_card(cuda):
+    n = 1 << 12
+    rng = np.random.default_rng(8)
+    a, b = rng.standard_normal((2, 3, n))
+    got = tt.fft_convolve_real(torch.from_numpy(a).to(cuda),
+                               torch.from_numpy(b).to(cuda))
+    want = np.fft.irfft(np.fft.rfft(a) * np.fft.rfft(b), n)
+    assert np.abs(got.double().cpu().numpy() - want).max() <= 1e-3 * np.abs(want).max()
+
+
+def test_epilogue_kernels_reject_bad_operands(cuda):
+    x = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        rfft_cuda.pack_split(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        rfft_cuda.untangle_fwd(x[:, ::2], x[:, ::2], n=64, scale=0.25)
+    with pytest.raises(TypeError):
+        spec = x[:, :33].contiguous()
+        rfft_cuda.retangle_inv(spec, spec, n=64, scale=1.0,
+                               out_dtype=torch.float16)
