@@ -7,18 +7,25 @@ Builds the port's CUDA kernels from ``tensorfft_tpu_torch/csrc`` (nvcc, at
 first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills);
-  2. drives the two main paths, each with every launch counter reset just
-     before and read just after, and fails unless each kernel of the path
-     was launched:
+  2. drives the three main paths, each with every launch counter reset
+     just before and read just after, and fails unless each kernel of the
+     path was launched:
        C2C: ``fft_split`` with the default bf16 plans over the flagship
             configurations (N=4096 x 256, N=4096 x 4096, N=16384 x 4096
             through kernel A; N=2^20 x 16 through kernels B and C);
        R2C: ``rfft_split`` then ``irfft_split`` with the default bf16 plans
             at real N=32768 x 4096 (fused route) and real N=2^20 x 16
-            (four-step route), which launch all nine kernels;
+            (four-step route), which launch the nine 1D kernels;
+       N-D: config 3 at full width, ``fft_convolve_2d`` of a 4096 x 4096
+            float32 image and ``fftn_split`` + ``ifftn_split`` over the last
+            two axes of 4096 x 4096 bf16 planes (the K4 column and row
+            kernels), and ``fftn_split`` of a 512^3 bf16 volume (K4 on the
+            trailing axes, then kernel A along axis 0);
   3. holds each kernel's output against its plain-torch version on the same
-     card and inputs, first on the inputs the main paths gave it, then the
-     R2C kernels again under the float32 policy at a cut batch
+     card and inputs, first on the inputs the main paths gave it (K4 on
+     the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
+     kernel A on the volume's axis-0 rows), then the R2C kernels again
+     under the float32 policy at a cut size
      (``testing.metrics.agreement``: one bf16 ulp of the
      output scale, on at most 0.1% of elements for kernel A and the untangle
      pair and 1% for the four-step passes; fp32 within 1e-5 relative; pack
@@ -27,13 +34,17 @@ first use, one process per source), then:
      max <= 0.5 against the numpy fp64 oracle) for the C2C path at
      N = 256 ... 2^20 (bf16) and N = 4096, 16384, 2^20 (float32), and for
      the R2C path against ``np.fft.rfft(x)/N`` at real N = 512 ... 2^21
-     (bf16) and N = 8192, 32768, 2^21 (float32); checks that each inverse
-     returns its input, and ``fft_convolve_real`` against an fp64 circular
-     convolution;
+     (bf16) and N = 8192, 32768, 2^21 (float32), for the 2D path against
+     ``np.fft.fft2(x)/(H*W)`` at 4096 x 4096, 8 x 16384 and 16384 x 8 (both
+     policies), for the 3-D path against ``np.fft.fftn(x)/x.size`` at
+     256^3 (bf16) and for ``rfftn_split`` at a real 4096 x 4096; checks that
+     each inverse returns its input, and ``fft_convolve_real`` and
+     ``fft_convolve_2d`` against fp64 circular convolutions;
   5. times each kernel, its plain version and, where one exists, the one
      PyTorch call that computes the same function, with CUDA events, beside
      the least time the card could take (compulsory bytes at the HBM rate or
-     operations at the peak rate of their type, whichever is larger).
+     operations at the peak rate of their type, whichever is larger), and
+     the N-D entry points against their ``torch.fft`` counterparts.
 
 The second-to-last lines are a JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -71,6 +82,12 @@ R2C_SHAPE = {label: f"real N={n} x B={b} bf16" for label, n, b in R2C_FLAGSHIP}
 # The float32 variants of the R2C kernels against their plain versions: the
 # main path's lengths, with the batch cut.
 R2C_FP32 = [("r2c-fused", 32768, 256), ("r2c-config4", 1 << 20, 2)]
+# The N-D path: the JAX package's config 3 (BASELINE.md:29, a 4096 x 4096
+# 2D FFT and fft_convolve_2d) and config 5's 512^3 grid on one card.
+ND_IMAGE = (4096, 4096)
+ND_VOLUME = (512, 512, 512)
+ND_GATE_2D = [(4096, 4096), (8, 16384), (16384, 8)]
+ND_GATE_3D = (256, 256, 256)
 GATE_BF16 = [256, 1024, 4096, 16384, 1 << 17, 1 << 20]
 GATE_F32 = [4096, 16384, 1 << 20]
 R2C_GATE_BF16 = [512, 8192, 32768, 1 << 18, 1 << 21]
@@ -113,7 +130,14 @@ KERNELS = {
                              "tensorfft_tpu/ops/four_step_pallas.py:943"),
     "four_step_row_interleave": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
                                  "tensorfft_tpu/ops/four_step_pallas.py:1229"),
+    "fft2_col": ("tensorfft_tpu_torch/csrc/fft2.cu",
+                 "tensorfft_tpu/ops/four_step_pallas.py:646"),
+    "fft2_row": ("tensorfft_tpu_torch/csrc/fft2.cu",
+                 "tensorfft_tpu/ops/four_step_pallas.py:677"),
 }
+R2C_KERNELS = ("fused_fft", "four_step_col", "four_step_row", "pack_split",
+               "interleave_split", "untangle_fwd", "retangle_inv",
+               "four_step_col_packed", "four_step_row_interleave")
 
 
 def log(msg: str) -> None:
@@ -155,11 +179,13 @@ def ptxas_summary(build_log: str) -> list[str]:
             for name, e in zip(names, entries)]
 
 
-def pass_flops(plan, radices, elems: int) -> int:
+def pass_flops(plan, radices, elems: int, first_dot=None) -> int:
     """fp32 FLOPs of one pass's stage products (each a bf16 x bf16 product
-    accumulated in fp32) over ``elems`` complex elements."""
+    accumulated in fp32) over ``elems`` complex elements; ``first_dot``
+    defaults to the plan's."""
     alg = plan.precision.dot_algorithm
-    first = plan.first_dot if (plan.first_dot != "default" and alg == "bf16") else alg
+    first_dot = plan.first_dot if first_dot is None else first_dot
+    first = first_dot if (first_dot != "default" and alg == "bf16") else alg
     return sum(8 * r * elems * PRODUCTS[first if i == 0 else alg]
                for i, r in enumerate(radices))
 
@@ -230,6 +256,8 @@ def main() -> int:
         "retangle_inv": rfft_cuda.retangle_inv,
         "four_step_col_packed": four_step_cuda.column_pass_packed,
         "four_step_row_interleave": four_step_cuda.row_pass_interleave,
+        "fft2_col": four_step_cuda.fft2_column_pass,
+        "fft2_row": four_step_cuda.fft2_row_pass,
     }
     launches_by_path = {}
 
@@ -280,12 +308,36 @@ def main() -> int:
             out[label] = (spec, tt.irfft_split(*spec, plan))
         return out
 
-    r2c_out = counted("r2c", tuple(wrappers), drive_r2c)
+    r2c_out = counted("r2c", R2C_KERNELS, drive_r2c)
     for label, ((s_re, s_im), back) in r2c_out.items():
         plan, x = r2c[label]
         b, n = x.shape
         finite(label, (s_re, s_im), (b, n // 2 + 1), torch.bfloat16)
         finite(label, (back,), (b, n), torch.bfloat16)
+
+    h, w = ND_IMAGE
+    img_np, ker_np = np.random.default_rng(SEED + 3).standard_normal(
+        (2, h, w), dtype=np.float32)
+    image = torch.from_numpy(img_np).to(dev)
+    conv_kernel = torch.from_numpy(ker_np).to(dev)
+    planes2d = tuple(p.reshape(h, w) for p in inputs(h * w, 1, torch.bfloat16,
+                                                     SEED + 4))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    volume = tuple(torch.randn(ND_VOLUME, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(2))
+
+    def drive_nd():
+        conv = tt.fft_convolve_2d(image, conv_kernel)
+        spec = tt.fftn_split(*planes2d, axes=(-2, -1))
+        back = tt.ifftn_split(*spec, axes=(-2, -1))
+        return conv, spec, back, tt.fftn_split(*volume)
+
+    conv2d, spec2d, back2d, vol_spec = counted(
+        "nd", ("fft2_col", "fft2_row", "fused_fft"), drive_nd)
+    finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
+    finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
+    finite("fftn_split 3-D", vol_spec, ND_VOLUME, torch.bfloat16)
+    del vol_spec
 
     # -- 3. kernels against their plain versions ---------------------------
     errs = {name: 0.0 for name in wrappers}
@@ -422,6 +474,58 @@ def main() -> int:
         fs = float(_output_scale(plan, True))
         hold("untangle_fwd", tag, rfft_cuda.untangle_fwd(*Z, n=n, scale=fs),
              rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fs), bf16=False)
+
+    def fft2_kwargs(hh, ww, precision):
+        """The K4 pass arguments of fftn_split's 2D branch (forward): the
+        plain first stage, whatever the plans' first_dot."""
+        ph = tt.create_plan(hh, precision=precision)
+        pw = tt.create_plan(ww, precision=precision)
+        common = dict(sign=-1, algorithm=ph.precision.dot_algorithm)
+        return (ph, pw,
+                dict(radices1=ph.radices,
+                     scales1=stage_scales(ph.radices, ph.scaling, True), **common),
+                dict(radices2=pw.radices,
+                     scales2=stage_scales(pw.radices, pw.scaling, True), **common))
+
+    def hold_fft2(label, x, col_kw, row_kw, bf16=True):
+        """Both K4 passes on ``x``, the row pass on the plain column pass's
+        output; returns that output."""
+        mid = four_step_cuda.fft2_column_pass_reference(*x, **col_kw)
+        hold("fft2_col", label, four_step_cuda.fft2_column_pass(*x, **col_kw),
+             mid, FOUR_STEP_MAX_FRAC, bf16)
+        hold("fft2_row", label, four_step_cuda.fft2_row_pass(*mid, **row_kw),
+             four_step_cuda.fft2_row_pass_reference(*mid, **row_kw),
+             FOUR_STEP_MAX_FRAC, bf16)
+        return mid
+
+    # K4 on each input the N-D path gave it: the 4096 x 4096 bf16 planes,
+    # the float32 image of fft_convolve_2d (imaginary plane 0) and the
+    # 512 x 512 planes of the 512^3 volume.
+    nd_plans = fft2_kwargs(h, w, "bfloat16")
+    _, _, k4_col, k4_row = nd_plans
+    k4_mid = hold_fft2(f"{h}x{w} bf16",
+                       tuple(p.reshape(1, h, w) for p in planes2d), k4_col, k4_row)
+    _, _, col32, row32 = fft2_kwargs(h, w, "float32")
+    hold_fft2(f"{h}x{w} float32 (fft_convolve_2d image)",
+              (image.reshape(1, h, w), torch.zeros(1, h, w, device=dev)),
+              col32, row32, bf16=False)
+    n_v = ND_VOLUME[0]
+    _, _, v_col, v_row = fft2_kwargs(n_v, n_v, "bfloat16")
+    hold_fft2(f"{'x'.join(map(str, ND_VOLUME))} bf16", volume, v_col, v_row)
+    # Kernel A on the rows the per-axis loop gave it: axis 0 of the volume
+    # after K4, moved last.  The N=512 plan runs the bf16ax2 first stage.
+    plan_v = tt.create_plan(n_v)
+    rows = [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous()
+            for t in tt.fftn_split(*volume, axes=(1, 2))]
+    hold("fused_fft", f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
+         f"x B={rows[0].shape[0]} first_dot={plan_v.first_dot}",
+         tt.fft_split(*rows, plan_v),
+         fused_cuda.fused_fft_reference(
+             *rows, radices=plan_v.radices,
+             scales=stage_scales(plan_v.radices, plan_v.scaling, True),
+             algorithm=plan_v.precision.dot_algorithm,
+             first_dot=plan_v.first_dot), FUSED_MAX_FRAC)
+    del rows
     torch.cuda.synchronize()
 
     # -- 4. reference gates and round trips --------------------------------
@@ -470,6 +574,57 @@ def main() -> int:
             if not ok:
                 raise RuntimeError(f"R2C accuracy gate failed at {precision} N={n}")
 
+    def roundtrip(back, x, storage):
+        x_s = torch.stack([t.to(storage) for t in x]).double()
+        return float((torch.stack(list(back)).double() - x_s).abs().max()
+                     / x_s.abs().max())
+
+    def nd_gate(what, shape, precision, got, want, rt):
+        d = deviation((got[0].double().cpu().numpy(), got[1].double().cpu().numpy()),
+                      (want.real, want.imag))
+        ok = d.passes_reference_gate() and rt <= ROUNDTRIP_TOL[precision]
+        log(f"[nd gate] {what} {precision} {'x'.join(map(str, shape))}: {d} "
+            f"roundtrip_rel={rt:.3e} {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"N-D accuracy gate failed: {what} {precision} {shape}")
+
+    def nd_signal(shape):
+        """make_test_signal's rows (the 1D gate's signal) laid out over
+        ``shape``: fp64 host planes and their device copies."""
+        re64, im64 = (p.reshape(shape) for p in
+                      make_test_signal(math.prod(shape), 42, 42 * 42))
+        return re64, im64, torch.from_numpy(re64).to(dev), torch.from_numpy(im64).to(dev)
+
+    for shape in ND_GATE_2D:
+        re64, im64, x_re, x_im = nd_signal(shape)
+        want = np.fft.fft2(re64 + 1j * im64) / (shape[0] * shape[1])
+        for precision in ("bfloat16", "float32"):
+            storage = tt.create_plan(8, precision=precision).precision.storage_dtype
+            f = tt.fftn_split(x_re, x_im, axes=(-2, -1), precision=precision)
+            back = tt.ifftn_split(*f, axes=(-2, -1), precision=precision)
+            nd_gate("fft2", shape, precision, f, want,
+                    roundtrip(back, (x_re, x_im), storage))
+        if shape == ND_IMAGE:
+            f = tt.rfftn_split(x_re)
+            back = tt.irfftn_split(*f)
+            nd_gate("rfftn", shape, "bfloat16", f, np.fft.rfftn(re64) / re64.size,
+                    roundtrip((back,), (x_re,), torch.bfloat16))
+    re64, im64, x_re, x_im = nd_signal(ND_GATE_3D)
+    f = tt.fftn_split(x_re, x_im)
+    nd_gate("fftn", ND_GATE_3D, "bfloat16", f,
+            np.fft.fftn(re64 + 1j * im64) / re64.size,
+            roundtrip(tt.ifftn_split(*f), (x_re, x_im), torch.bfloat16))
+    del re64, im64, x_re, x_im, f, back, want
+
+    want = np.fft.ifft2(np.fft.fft2(img_np.astype(np.float64))
+                        * np.fft.fft2(ker_np.astype(np.float64))).real
+    rel = float(np.abs(conv2d.double().cpu().numpy() - want).max() / np.abs(want).max())
+    log(f"[convolve] fft_convolve_2d float32 {h}x{w} (main path output): "
+        f"max_rel={rel:.3e} {'PASS' if rel <= CONVOLVE_TOL else 'FAIL'}")
+    if rel > CONVOLVE_TOL:
+        raise RuntimeError(f"fft_convolve_2d off by {rel:.3e}")
+    del want
+
     n_conv = 1 << 16
     rng = np.random.default_rng(SEED + 7)
     a64, b64 = rng.standard_normal((2, 2, n_conv))
@@ -499,10 +654,11 @@ def main() -> int:
         t_ops = ops / peak * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def table_bytes(plan, radices, scales, sign):
+    def table_bytes(plan, radices, scales, sign, first_dot=None):
         tables, _ = fused_cuda.kernel_tables(
             tuple(radices), tuple(map(float, scales)), int(sign),
-            plan.precision.dot_algorithm, plan.first_dot, dev)
+            plan.precision.dot_algorithm,
+            plan.first_dot if first_dot is None else first_dot, dev)
         return tables.numel() * 4
 
     timing = {}  # name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by, shape)
@@ -688,6 +844,63 @@ def main() -> int:
             f"{t_tirf.average_time_ms:.4f} ms | half-length C2C plan "
             f"{c2c[0].resolve_strategy().value} | {smi}")
         del x32, spec32
+
+    # The N-D path: each K4 pass at 4096 x 4096 bf16, then the entry points
+    # against their torch.fft counterparts on complex64 of the same shape.
+    ph, pw, k4_col, k4_row = nd_plans
+    x3 = tuple(p.reshape(1, h, w) for p in planes2d)
+    x_c = torch.complex(planes2d[0].float(), planes2d[1].float())
+    elems = h * w
+    for name, fn, ref, args, kw, plan, dim in (
+            ("fft2_col", four_step_cuda.fft2_column_pass,
+             four_step_cuda.fft2_column_pass_reference, x3, k4_col, ph, -2),
+            ("fft2_row", four_step_cuda.fft2_row_pass,
+             four_step_cuda.fft2_row_pass_reference, k4_mid, k4_row, pw, -1)):
+        radices = kw.get("radices1", kw.get("radices2"))
+        scales = kw.get("scales1", kw.get("scales2"))
+        call = lambda r, i, fn=fn, kw=kw: fn(r, i, **kw)
+        plain = lambda r, i, ref=ref, kw=kw: ref(r, i, **kw)
+        tp1 = measure(plain, args, iters=3)
+        tk1 = measure(call, args, iters=10)
+        tk2 = measure(call, args, iters=10)
+        tp2 = measure(plain, args, iters=3)
+        tl = measure(lambda x, dim=dim: torch.fft.fft(x, dim=dim), (x_c,), iters=10)
+        k_ms = min(tk1.average_time_ms, tk2.average_time_ms)
+        p_ms = min(tp1.average_time_ms, tp2.average_time_ms)
+        nbytes = 4 * 2 * elems + table_bytes(plan, radices, scales, -1, "default")
+        b_ms, b_by = bound(nbytes, pass_flops(plan, radices, elems, "default"),
+                           H100.bf16_flops)
+        timing[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=tl.average_time_ms,
+                            bound_ms=b_ms, bound_by=b_by, shape=f"{h}x{w} bf16")
+        log(f"[time] {name} {h}x{w} bf16: kernel {k_ms:.4f} ms (runs "
+            f"{tk1.average_time_ms:.4f}, {tk2.average_time_ms:.4f}) | plain "
+            f"{p_ms:.4f} ms | torch.fft.fft(dim={dim}) c64 "
+            f"{tl.average_time_ms:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+            f"{b_ms / k_ms:.1%} of bound | {smi}")
+    t_2d = measure(lambda r, i: tt.fftn_split(r, i, axes=(-2, -1)), planes2d, iters=10)
+    t_t2d = measure(lambda x: torch.fft.fft2(x), (x_c,), iters=10)
+    log(f"[time] fftn_split {h}x{w} bf16: {t_2d.average_time_ms:.4f} ms | "
+        f"torch.fft.fft2 c64 {t_t2d.average_time_ms:.4f} ms | {smi}")
+    t_conv = measure(tt.fft_convolve_2d, (image, conv_kernel), iters=5)
+    t_tconv = measure(lambda a, k: torch.fft.ifft2(torch.fft.fft2(a) * torch.fft.fft2(k)).real,
+                      (image, conv_kernel), iters=10)
+    log(f"[time] fft_convolve_2d {h}x{w} float32: {t_conv.average_time_ms:.4f} ms | "
+        f"torch.fft fft2, fft2, ifft2 {t_tconv.average_time_ms:.4f} ms | {smi}")
+    del x_c
+    t_vol = measure(lambda r, i: tt.fftn_split(r, i), volume, iters=5)
+    t_vk4 = measure(lambda r, i: tt.fftn_split(r, i, axes=(1, 2)), volume, iters=5)
+    t_vax0 = measure(lambda r, i: tt.fftn_split(r, i, axes=(0,)), volume, iters=5)
+    t_copy = measure(lambda r, i: [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous()
+                                   for t in (r, i)], volume, iters=5)
+    v_c = torch.complex(volume[0].float(), volume[1].float())
+    t_tvol = measure(lambda x: torch.fft.fftn(x), (v_c,), iters=5)
+    log(f"[time] fftn_split {'x'.join(map(str, ND_VOLUME))} bf16: "
+        f"{t_vol.average_time_ms:.4f} ms (K4 over axes 1, 2: "
+        f"{t_vk4.average_time_ms:.4f} ms; axis 0 through kernel A: "
+        f"{t_vax0.average_time_ms:.4f} ms, of which the moveaxis copies "
+        f"{t_copy.average_time_ms:.4f} ms) | torch.fft.fftn c64 "
+        f"{t_tvol.average_time_ms:.4f} ms | {smi}")
+    del v_c
 
     kernels = []
     for name in wrappers:

@@ -11,8 +11,12 @@ Public API:
     create_plan, FFTPlan, Precision, Strategy   — planning
     fft_split, ifft_split                       — 1D C2C on split planes
     fft, ifft                                   — complex convenience wrappers
+    fftn_split, ifftn_split                     — N-D C2C on split planes
+    fftn, ifftn, fft2, ifft2                    — their host-array wrappers
     rfft_split, irfft_split                     — 1D R2C / C2R on real rows
     rfft, irfft                                 — their host-array wrappers
+    rfftn_split, irfftn_split, rfftn, irfftn    — N-D R2C / C2R
+    fft_convolve_2d                             — circular 2D convolution
     fft_convolve_real                           — circular convolution via R2C
     plan_works_on_device                        — device check
 """
@@ -24,9 +28,29 @@ from tensorfft_tpu_torch.plan import (
     create_plan,
     plan_works_on_device,
 )
-from tensorfft_tpu_torch.fft import fft, fft_split, ifft, ifft_split
-from tensorfft_tpu_torch.rfft import irfft, irfft_split, rfft, rfft_split
-from tensorfft_tpu_torch.models.fft_conv import fft_convolve_real
+from tensorfft_tpu_torch.fft import (
+    fft,
+    fft2,
+    fft_split,
+    fftn,
+    fftn_split,
+    ifft,
+    ifft2,
+    ifft_split,
+    ifftn,
+    ifftn_split,
+)
+from tensorfft_tpu_torch.rfft import (
+    irfft,
+    irfft_split,
+    irfftn,
+    irfftn_split,
+    rfft,
+    rfft_split,
+    rfftn,
+    rfftn_split,
+)
+from tensorfft_tpu_torch.models.fft_conv import fft_convolve_2d, fft_convolve_real
 
 __version__ = "0.1.0"
 
@@ -44,6 +68,17 @@ __all__ = [
     "irfft",
     "rfft_split",
     "irfft_split",
+    "fftn_split",
+    "ifftn_split",
+    "fftn",
+    "ifftn",
+    "fft2",
+    "ifft2",
+    "rfftn_split",
+    "irfftn_split",
+    "rfftn",
+    "irfftn",
+    "fft_convolve_2d",
     "fft_convolve_real",
     "__version__",
 ]

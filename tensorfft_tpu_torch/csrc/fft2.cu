@@ -1,0 +1,38 @@
+// Entry points of the 2D row-column FFT on (B, H, W) planes: the two passes
+// of K4, tensorfft_tpu/ops/four_step_pallas.py:fft2_fused, as the kTwiddle =
+// false column pass and the kTransposed = false row pass of
+// four_step_passes.cuh.
+//
+// What bounds them on the H100: as kernels B and C, the scalar-FMA stage
+// products.  Beyond that, the column pass reads and writes H-strided
+// columns, T adjacent columns per CTA (T = 4 at H = W = 4096, so 8-byte runs
+// in bf16, a quarter of a 32-byte sector); the row pass reads rows
+// contiguously and stores them in place in runs of 32/T elements.
+#include "four_step_passes.cuh"
+
+// Every entry point returns a cudaError_t code.  n1 = H, n2 = W.
+
+// Column pass: H-point FFTs down every column, no twiddle -> `mid` (B, H, W)
+// in the storage dtype.  Replaces the pallas_call at four_step_pallas.py:646.
+extern "C" int tfft_fft2_col(const void* in_re, const void* in_im,
+                             void* mid_re, void* mid_im, int dtype,
+                             int data_terms, long long batch, int h, int w,
+                             int T, const void* tables, const long long* meta,
+                             void* stream) {
+  return tfft::col_pass<false, false>(in_re, in_im, mid_re, mid_im, dtype,
+                                      data_terms, batch, h, w, T, tables, meta,
+                                      nullptr, nullptr, 0, stream);
+}
+
+// Row pass: W-point FFTs of every row of `mid`, stored in place, so the
+// output (B, H, W) is (B, kh, kw) in natural order.  Replaces the
+// pallas_call at four_step_pallas.py:677.
+extern "C" int tfft_fft2_row(const void* mid_re, const void* mid_im,
+                             void* out_re, void* out_im, int dtype,
+                             int data_terms, long long batch, int h, int w,
+                             int T, const void* tables, const long long* meta,
+                             void* stream) {
+  return tfft::row_pass<false, false>(mid_re, mid_im, out_re, out_im, dtype,
+                                      data_terms, batch, h, w, T, tables, meta,
+                                      stream);
+}

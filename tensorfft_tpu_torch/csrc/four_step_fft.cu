@@ -11,7 +11,7 @@ extern "C" int tfft_four_step_col(const void* in_re, const void* in_im,
                                   int n2, int T, const void* tables,
                                   const long long* meta, const void* p,
                                   const void* q, int t, void* stream) {
-  return tfft::col_pass<false>(in_re, in_im, mid_re, mid_im, dtype,
+  return tfft::col_pass<false, true>(in_re, in_im, mid_re, mid_im, dtype,
                                data_terms, batch, n1, n2, T, tables, meta, p,
                                q, t, stream);
 }
@@ -22,7 +22,7 @@ extern "C" int tfft_four_step_row(const void* mid_re, const void* mid_im,
                                   int data_terms, long long batch, int n1,
                                   int n2, int T, const void* tables,
                                   const long long* meta, void* stream) {
-  return tfft::row_pass<false>(mid_re, mid_im, out_re, out_im, dtype,
+  return tfft::row_pass<false, true>(mid_re, mid_im, out_re, out_im, dtype,
                                data_terms, batch, n1, n2, T, tables, meta,
                                stream);
 }

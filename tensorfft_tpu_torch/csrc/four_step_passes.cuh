@@ -1,7 +1,7 @@
 // Kernels B and C: the two passes of the Bailey four-step FFT on batch-major
 // (B, N) planes, N = n1 * n2, viewed as (B, n1, n2).  Templates shared by
-// the C2C entry points (four_step_fft.cu) and the R2C ones
-// (four_step_real.cu), which nvcc compiles in parallel.
+// the C2C entry points (four_step_fft.cu), the R2C ones (four_step_real.cu)
+// and the 2D ones (fft2.cu), which nvcc compiles in parallel.
 //
 // Kernel B (column pass) replaces K2c, tensorfft_tpu/ops/four_step_pallas.py
 // _col_kernel (pallas_call at :465): n1-point FFTs down the columns, then the
@@ -27,6 +27,17 @@
 // The TPU kernels deinterleave and interleave with a permutation matmul per
 // panel; here the map is folded into the addresses, so neither costs a pass.
 //
+// The 2D row-column FFT (K4, four_step_pallas.py:fft2_fused, pallas_calls at
+// :646 and :677; entry points in fft2.cu) is the same two passes on (B, H, W)
+// planes with n1 = H, n2 = W, minus the twiddle and the digit swap:
+//   kTwiddle = false: kernel B stores the column FFTs as `mid` (B, H, W) with
+//   no P/Q product (_col_kernel(twiddle=False));
+//   kTransposed = false: kernel C stores row k1's bin k2 in place at
+//   out[b, k1, k2] (_row_kernel(transposed=False), whose VMEM transpose
+//   restores the (kh, kw) layout).  A warp's 32 outputs are T rows times
+//   32/T consecutive k2, so each row's store is a contiguous run of 32/T
+//   elements, where the transposed store writes runs of T.
+//
 // What bounds them on the H100: as kernel A, scalar-FMA stage matmuls bound
 // by load-instruction throughput; beyond that, kernel B reads columns
 // strided by n2 and kernel C writes strided by n1.  Each CTA therefore takes
@@ -39,7 +50,7 @@
 
 namespace tfft {
 
-template <typename S, int BT, bool kPacked>
+template <typename S, int BT, bool kPacked, bool kTwiddle>
 __global__ void __launch_bounds__(kThreads)
     col_pass_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
                     S* __restrict__ mid_re, S* __restrict__ mid_im, int n1,
@@ -67,12 +78,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
   auto store = [&](int k1, int lane, float re, float im) {
-    const int j2 = c0 + lane;
-    const int a = j2 / t, bb = j2 - a * t;
-    float w_re, w_im, o_re, o_im;
-    cmul(__ldg(p + (2 * a) * n1 + k1), __ldg(p + (2 * a + 1) * n1 + k1),
-         __ldg(q + k1 * t + bb), __ldg(q + (n1 + k1) * t + bb), w_re, w_im);
-    cmul(re, im, w_re, w_im, o_re, o_im);
+    float o_re = re, o_im = im;
+    if constexpr (kTwiddle) {
+      const int j2 = c0 + lane;
+      const int a = j2 / t, bb = j2 - a * t;
+      float w_re, w_im;
+      cmul(__ldg(p + (2 * a) * n1 + k1), __ldg(p + (2 * a + 1) * n1 + k1),
+           __ldg(q + k1 * t + bb), __ldg(q + (n1 + k1) * t + bb), w_re, w_im);
+      cmul(re, im, w_re, w_im, o_re, o_im);
+    }
     const long long at = base + static_cast<long long>(k1) * n2 + lane;
     mid_re[at] = from_float<S>(o_re);
     mid_im[at] = from_float<S>(o_im);
@@ -80,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
   run_fft<BT>(op, n1, T, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kInterleave>
+template <typename S, int BT, bool kInterleave, bool kTransposed>
 __global__ void __launch_bounds__(kThreads)
     row_pass_kernel(const S* __restrict__ mid_re, const S* __restrict__ mid_im,
                     S* __restrict__ out_re, S* __restrict__ out_im, int n1,
@@ -101,7 +115,9 @@ __global__ void __launch_bounds__(kThreads)
     im = to_float(mid_im[at]);
   };
   auto store = [&](int k2, int lane, float re, float im) {
-    const long long at = base + static_cast<long long>(k2) * n1 + r0 + lane;
+    const long long at =
+        kTransposed ? base + static_cast<long long>(k2) * n1 + r0 + lane
+                    : base + static_cast<long long>(r0 + lane) * n2 + k2;
     if constexpr (kInterleave) {
       // out_re is the real (B, 2N) row; natural bin `at` is a pair.
       out_re[2 * at] = from_float<S>(re);
@@ -114,7 +130,7 @@ __global__ void __launch_bounds__(kThreads)
   run_fft<BT>(op, n2, T, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kPacked>
+template <typename S, int BT, bool kPacked, bool kTwiddle>
 cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
                        void* mid_im, long long batch, int n1, int n2, int T,
                        const StagePlan& plan, const float* tables,
@@ -123,7 +139,7 @@ cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
   const int elems = n1 * T;
   const int threads = elems < kThreads ? elems : kThreads;
   const size_t smem = operand_bytes(elems, BT);
-  auto kern = col_pass_kernel<S, BT, kPacked>;
+  auto kern = col_pass_kernel<S, BT, kPacked, kTwiddle>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -135,7 +151,7 @@ cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
   return cudaGetLastError();
 }
 
-template <typename S, int BT, bool kInterleave>
+template <typename S, int BT, bool kInterleave, bool kTransposed>
 cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
                        void* out_im, long long batch, int n1, int n2, int T,
                        const StagePlan& plan, const float* tables,
@@ -143,7 +159,7 @@ cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
   const int elems = n2 * T;
   const int threads = elems < kThreads ? elems : kThreads;
   const size_t smem = operand_bytes(elems, BT);
-  auto kern = row_pass_kernel<S, BT, kInterleave>;
+  auto kern = row_pass_kernel<S, BT, kInterleave, kTransposed>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -160,22 +176,23 @@ inline bool lanes_ok(int n, int other, int T) {
 }
 
 // Launch a column pass for the storage/operand pair of a policy: dtype 0
-// bf16 (with 1 data term), 1 fp32 (with 2 or 3).
-template <bool kPacked>
+// bf16 (with 1 data term), 1 fp32 (with 2 or 3).  p, q and t are read only
+// with kTwiddle.
+template <bool kPacked, bool kTwiddle>
 int col_pass(const void* in_re, const void* in_im, void* mid_re,
              void* mid_im, int dtype, int data_terms, long long batch, int n1,
              int n2, int T, const void* tables, const long long* meta,
              const void* p, const void* q, int t, void* stream) {
   StagePlan plan;
-  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T) || batch < 1 || t < 1 ||
-      n2 % t != 0)
+  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T) || batch < 1 ||
+      (kTwiddle && (t < 1 || n2 % t != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* tab = static_cast<const float*>(tables);
   const float* pp = static_cast<const float*>(p);
   const float* qq = static_cast<const float*>(q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFFT_COL(S, BT)                                                   \
-  return static_cast<int>(launch_col<S, BT, kPacked>(                    \
+  return static_cast<int>(launch_col<S, BT, kPacked, kTwiddle>(          \
       in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tab, pp, qq, \
       t, s))
   if (dtype == 0 && data_terms == 1) TFFT_COL(__nv_bfloat16, 1);
@@ -185,7 +202,7 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool kInterleave>
+template <bool kInterleave, bool kTransposed>
 int row_pass(const void* mid_re, const void* mid_im, void* out_re,
              void* out_im, int dtype, int data_terms, long long batch, int n1,
              int n2, int T, const void* tables, const long long* meta,
@@ -196,7 +213,7 @@ int row_pass(const void* mid_re, const void* mid_im, void* out_re,
   const float* tab = static_cast<const float*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFFT_ROW(S, BT)                                                      \
-  return static_cast<int>(launch_row<S, BT, kInterleave>(                   \
+  return static_cast<int>(launch_row<S, BT, kInterleave, kTransposed>(     \
       mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tab, s))
   if (dtype == 0 && data_terms == 1) TFFT_ROW(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_ROW(float, 2);

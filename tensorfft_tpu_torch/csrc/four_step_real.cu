@@ -14,7 +14,7 @@ extern "C" int tfft_four_step_col_packed(const void* x, void* mid_re,
                                          const void* tables,
                                          const long long* meta, const void* p,
                                          const void* q, int t, void* stream) {
-  return tfft::col_pass<true>(x, nullptr, mid_re, mid_im, dtype, data_terms,
+  return tfft::col_pass<true, true>(x, nullptr, mid_re, mid_im, dtype, data_terms,
                               batch, n1, n2, T, tables, meta, p, q, t, stream);
 }
 
@@ -27,6 +27,6 @@ extern "C" int tfft_four_step_row_interleave(const void* mid_re,
                                              int T, const void* tables,
                                              const long long* meta,
                                              void* stream) {
-  return tfft::row_pass<true>(mid_re, mid_im, x, nullptr, dtype, data_terms,
+  return tfft::row_pass<true, true>(mid_re, mid_im, x, nullptr, dtype, data_terms,
                               batch, n1, n2, T, tables, meta, stream);
 }

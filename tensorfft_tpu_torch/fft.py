@@ -13,6 +13,12 @@ device the tensors are on.  Strategies (``plan.resolve_strategy()``):
 
 CPU tensors run the plain-torch versions of the kernels, CUDA tensors the
 kernels themselves.
+
+The N-D transforms (``fftn_split``, ``ifftn_split``, ``fftn``, ``ifftn``,
+``fft2``, ``ifft2``) are row-column decompositions over the 1D engine.  A
+transform over the last two axes with both lengths on the FUSED route runs
+as K4, the 2D row-column kernels (``four_step_cuda.fft2_fused``); any other
+axis runs ``fft_split`` along it, one axis at a time in the order given.
 """
 from __future__ import annotations
 
@@ -23,10 +29,11 @@ import torch
 
 from tensorfft_tpu_torch import dft
 from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, stages_torch
-from tensorfft_tpu_torch.plan import FFTPlan, Strategy, create_plan
+from tensorfft_tpu_torch.plan import FFTPlan, Strategy, create_plan, is_power_of_2
 
 __all__ = ["fft", "ifft", "fft_split", "ifft_split", "stage_scales",
-           "four_step_call_kwargs"]
+           "four_step_call_kwargs", "fftn_split", "ifftn_split", "fftn",
+           "ifftn", "fft2", "ifft2"]
 
 
 def stage_scales(radices, scaling: str, forward: bool) -> Tuple[float, ...]:
@@ -109,13 +116,18 @@ def _ensure_plan(n: int, plan: Optional[FFTPlan], **kwargs) -> FFTPlan:
     return plan
 
 
-def _run(re, im, plan, forward, plan_kwargs):
+def _as_planes(re, im):
     re = torch.as_tensor(re)
     im = torch.as_tensor(im)
     if re.shape != im.shape:
         raise ValueError(f"re/im shape mismatch: {tuple(re.shape)} vs {tuple(im.shape)}")
     if re.device != im.device:
         raise ValueError(f"re/im on different devices: {re.device} vs {im.device}")
+    return re, im
+
+
+def _run(re, im, plan, forward, plan_kwargs):
+    re, im = _as_planes(re, im)
     plan = _ensure_plan(re.shape[-1], plan, **plan_kwargs)
     storage = plan.precision.storage_dtype
     batch_shape, n = re.shape[:-1], re.shape[-1]
@@ -174,3 +186,121 @@ def ifft(x, plan: Optional[FFTPlan] = None, *, device="cuda", **plan_kwargs):
     """Inverse of :func:`fft` (same host-boundary contract)."""
     re, im = _to_split(x, device)
     return _to_complex(*ifft_split(re, im, plan, **plan_kwargs))
+
+
+# ---------------------------------------------------------------------------
+# Multi-dimensional transforms (port of tensorfft_tpu/fft.py:303-431).  The
+# JAX package's inner plans pass tuning="auto"; the port's tuner cache is not
+# ported, so they are the untuned plans (which the JAX package also makes on
+# the CPU, where its cache has no entry).
+# ---------------------------------------------------------------------------
+
+def _fft2_plans(h, w, plan_kwargs):
+    """The (plan_h, plan_w) of the fused 2D branch, or None when the
+    transform takes the per-axis loop."""
+    if h < 8 or not (is_power_of_2(h) and is_power_of_2(w)):
+        return None
+    plan_h = create_plan(h, **plan_kwargs)
+    plan_w = create_plan(w, **plan_kwargs)
+    if (plan_h.resolve_strategy() is Strategy.FUSED
+            and plan_w.resolve_strategy() is Strategy.FUSED):
+        return plan_h, plan_w
+    return None
+
+
+def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
+    axes_norm = tuple(a % re.ndim for a in axes)
+    last_two = {re.ndim - 2, re.ndim - 1}
+    if len(axes_norm) >= 3 and re.ndim >= 2 and last_two <= set(axes_norm) and not plans:
+        # N-D: peel the trailing two axes through the 2D branch, then run the
+        # remaining axes through the per-axis loop.
+        re, im = _fftn_split(re, im, (re.ndim - 2, re.ndim - 1), plans,
+                             forward, plan_kwargs)
+        rest = tuple(a for a in axes_norm if a < re.ndim - 2)
+        return _fftn_split(re, im, rest, plans, forward, plan_kwargs)
+    if len(axes_norm) == 2 and re.ndim >= 2 and set(axes_norm) == last_two and not plans:
+        h, w = re.shape[-2], re.shape[-1]
+        fused = _fft2_plans(h, w, plan_kwargs)
+        if fused is not None:
+            plan_h, plan_w = fused
+            batch_shape = re.shape[:-2]
+            b = int(np.prod(batch_shape)) if batch_shape else 1
+            storage = plan_h.precision.storage_dtype
+            # No first_dot: K4 runs the plain first stage, as fft2_fused does
+            # in the JAX package.
+            o_re, o_im = four_step_cuda.fft2_fused(
+                re.to(storage).reshape(b, h, w).contiguous(),
+                im.to(storage).reshape(b, h, w).contiguous(),
+                radices1=plan_h.radices, radices2=plan_w.radices,
+                scales1=stage_scales(plan_h.radices, plan_h.scaling, forward),
+                scales2=stage_scales(plan_w.radices, plan_w.scaling, forward),
+                sign=dft.FORWARD if forward else dft.INVERSE,
+                algorithm=plan_h.precision.dot_algorithm,
+                grouped=(plan_h.grouped, plan_w.grouped),
+                state_dtype=(plan_h.state_dtype
+                             if plan_h.state_dtype == plan_w.state_dtype
+                             else "float32"),
+                complex_mult=(plan_h.complex_mult
+                              if plan_h.complex_mult == plan_w.complex_mult
+                              else "block"),
+                engine=(plan_h.engine if plan_h.engine == plan_w.engine
+                        else "stacked"),
+            )
+            return (o_re.reshape(*batch_shape, h, w),
+                    o_im.reshape(*batch_shape, h, w))
+
+    # Every pass rounds to the storage dtype, so the order of ``axes`` counts.
+    for ax in axes:
+        re_m = torch.movedim(re, ax, -1)
+        im_m = torch.movedim(im, ax, -1)
+        n = re_m.shape[-1]
+        plan = plans.get(n) if isinstance(plans, dict) else None
+        plan = _ensure_plan(n, plan, **plan_kwargs)
+        re_m, im_m = _run(re_m, im_m, plan, forward, {})
+        re = torch.movedim(re_m, -1, ax)
+        im = torch.movedim(im_m, -1, ax)
+    return re, im
+
+
+def _all_axes(re, axes):
+    return tuple(range(re.ndim)) if axes is None else tuple(axes)
+
+
+def fftn_split(re, im, axes=None, plans=None, **plan_kwargs):
+    """N-dimensional forward FFT of split-planar tensors over ``axes`` (all
+    by default), on their device.  ``plans`` maps a length to its plan for
+    the per-axis loop; the default scaling is 1/N per axis.  The result is
+    in the plans' storage dtype."""
+    re, im = _as_planes(re, im)
+    return _fftn_split(re, im, _all_axes(re, axes), plans or {}, True,
+                       plan_kwargs)
+
+
+def ifftn_split(re, im, axes=None, plans=None, **plan_kwargs):
+    """Inverse of :func:`fftn_split` under the plans' scaling convention."""
+    re, im = _as_planes(re, im)
+    return _fftn_split(re, im, _all_axes(re, axes), plans or {}, False,
+                       plan_kwargs)
+
+
+def fftn(x, axes=None, plans=None, *, device="cuda", **plan_kwargs):
+    """N-dimensional FFT of a complex (or real) array, run on ``device``;
+    returns NumPy complex64 (the host-boundary contract of :func:`fft`)."""
+    re, im = _to_split(x, device)
+    return _to_complex(*fftn_split(re, im, axes, plans, **plan_kwargs))
+
+
+def ifftn(x, axes=None, plans=None, *, device="cuda", **plan_kwargs):
+    """Inverse of :func:`fftn` (same host-boundary contract)."""
+    re, im = _to_split(x, device)
+    return _to_complex(*ifftn_split(re, im, axes, plans, **plan_kwargs))
+
+
+def fft2(x, axes=(-2, -1), plans=None, *, device="cuda", **plan_kwargs):
+    """2D FFT over ``axes`` (the last two by default); see :func:`fftn`."""
+    return fftn(x, axes, plans, device=device, **plan_kwargs)
+
+
+def ifft2(x, axes=(-2, -1), plans=None, *, device="cuda", **plan_kwargs):
+    """Inverse of :func:`fft2`."""
+    return ifftn(x, axes, plans, device=device, **plan_kwargs)

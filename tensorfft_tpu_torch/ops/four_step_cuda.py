@@ -23,12 +23,24 @@ variant of each pass (K5 and K6 of the TPU package):
 
 Their plain versions are the plain passes composed with the plain pack and
 interleave of ``rfft_cuda``: exact permutations, so the composition is
-bit-identical to fusing them.  A CPU tensor takes the plain version; a CUDA
-tensor launches the kernels, and anything else raises.
+bit-identical to fusing them.
+
+The 2D row-column FFT of (B, H, W) planes (K4, ``four_step_pallas.fft2_fused``)
+is the same two passes with n1 = H and n2 = W, minus the twiddle and the
+digit swap (``csrc/fft2.cu``):
+
+  fft2_column_pass  H-point FFTs down every column, stored as ``mid``
+      (B, H, W) in the storage dtype;
+  fft2_row_pass     W-point FFTs of every row of ``mid``, stored in place,
+      so the output is (B, kh, kw) in natural order.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernels,
+and anything else raises.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
 import numpy as np
@@ -66,6 +78,12 @@ __all__ = [
     "column_pass_packed_reference",
     "row_pass_interleave",
     "row_pass_interleave_reference",
+    "fft2_fused",
+    "fft2_fused_reference",
+    "fft2_column_pass",
+    "fft2_column_pass_reference",
+    "fft2_row_pass",
+    "fft2_row_pass_reference",
     "four_step_tables",
     "pass_lanes",
 ]
@@ -172,15 +190,20 @@ def _pass_lanes(re, im, n, other, algorithm, what):
 def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
                 sign, lane_tile, first_dot):
     """Launch column pass ``symbol`` from ``src`` (planes or one real row
-    tensor) into the ``mid`` planes; ``lanes`` columns per CTA."""
+    tensor) into the ``mid`` planes; ``lanes`` columns per CTA.  A
+    ``lane_tile`` of None launches a pass without the four-step twiddle (no
+    P/Q operands)."""
     lanes = _pass_lanes(src[0], src[-1], n1, n2, algorithm, symbol)
     tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
                                  int(sign), algorithm, first_dot,
                                  src[0].device)
-    p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
+    pq = ()
+    if lane_tile is not None:
+        p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
+        pq = (p.data_ptr(), q.data_ptr(), t)
     launch(symbol, (*src, *mid), policy_codes(src[0], algorithm),
            src[0].shape[0], n1, n2, lanes, tables.data_ptr(),
-           meta.ctypes.data, p.data_ptr(), q.data_ptr(), t)
+           meta.ctypes.data, *pq)
 
 
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
@@ -426,3 +449,120 @@ def four_step_fft_packed_real_reference(x, **kwargs):
 def four_step_fft_to_real_reference(re, im, **kwargs):
     """Plain-torch K6: the plain four-step, then the plain interleave."""
     return interleave_split_reference(*four_step_fft_reference(re, im, **kwargs))
+
+
+# -- K4: the 2D row-column FFT on (B, H, W) planes ---------------------------
+
+def fft2_column_pass_reference(re, im, *, radices1, scales1, sign=dft.FORWARD,
+                               algorithm="bf16"):
+    """Plain-torch K4 column pass: (B, H, W) planes -> ``mid`` (B, H, W) in
+    the input dtype (``_col_kernel(twiddle=False)``)."""
+    b, h, w = re.shape
+    cols = lambda x: x.transpose(1, 2).reshape(b * w, h)
+    tables = stage_table_arrays(radices1, scales1, sign, algorithm)
+    s_re, s_im = run_stages(cols(re), cols(im), radices1, tables, algorithm)
+    out = lambda s, x: s.reshape(b, w, h).transpose(1, 2).to(x.dtype).contiguous()
+    return out(s_re, re), out(s_im, im)
+
+
+def fft2_row_pass_reference(mid_re, mid_im, *, radices2, scales2,
+                            sign=dft.FORWARD, algorithm="bf16"):
+    """Plain-torch K4 row pass: ``mid`` (B, H, W) -> (B, kh, kw) in the
+    input dtype (``_row_kernel(transposed=False)``)."""
+    b, h, w = mid_re.shape
+    tables = stage_table_arrays(radices2, scales2, sign, algorithm)
+    s_re, s_im = run_stages(mid_re.reshape(b * h, w), mid_im.reshape(b * h, w),
+                            radices2, tables, algorithm)
+    return (s_re.reshape(b, h, w).to(mid_re.dtype),
+            s_im.reshape(b, h, w).to(mid_im.dtype))
+
+
+def fft2_fused_reference(re, im, *, radices1, radices2, scales1, scales2,
+                         sign=dft.FORWARD, algorithm="bf16"):
+    """Plain-torch K4: the two plain passes back to back."""
+    mid = fft2_column_pass_reference(re, im, radices1=radices1,
+                                     scales1=scales1, sign=sign,
+                                     algorithm=algorithm)
+    return fft2_row_pass_reference(*mid, radices2=radices2, scales2=scales2,
+                                   sign=sign, algorithm=algorithm)
+
+
+def _check_volumes(re, im, axis, radices, what):
+    """(B, H, W) planes whose length along ``axis`` the radices multiply to."""
+    check_planes(re, im, what, ndim=3)
+    if math.prod(radices) != re.shape[axis]:
+        raise ValueError(f"{what}: radices {tuple(radices)} do not multiply "
+                         f"to {re.shape[axis]}")
+
+
+def fft2_column_pass(re, im, *, radices1, scales1, sign=dft.FORWARD,
+                     algorithm="bf16"):
+    """K4 column pass on (B, H, W) planes; CUDA tensors launch the column
+    kernel, counted in ``fft2_column_pass.launches``."""
+    _check_volumes(re, im, 1, radices1, "fft2_column_pass")
+    if re.device.type == "cpu":
+        return fft2_column_pass_reference(re, im, radices1=radices1,
+                                          scales1=scales1, sign=sign,
+                                          algorithm=algorithm)
+    b, h, w = re.shape
+    mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
+    if b == 0:
+        check_kernel_operands(re, im, algorithm, "fft2_column_pass")
+        return mid_re, mid_im
+    _col_launch("tfft_fft2_col", (re, im), (mid_re, mid_im), algorithm, h, w,
+                radices1, scales1, sign, None, "default")
+    fft2_column_pass.launches += 1
+    return mid_re, mid_im
+
+
+def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
+                  algorithm="bf16"):
+    """K4 row pass on ``mid`` (B, H, W) planes; CUDA tensors launch the row
+    kernel, counted in ``fft2_row_pass.launches``."""
+    _check_volumes(mid_re, mid_im, 2, radices2, "fft2_row_pass")
+    if mid_re.device.type == "cpu":
+        return fft2_row_pass_reference(mid_re, mid_im, radices2=radices2,
+                                       scales2=scales2, sign=sign,
+                                       algorithm=algorithm)
+    b, h, w = mid_re.shape
+    out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
+    if b == 0:
+        check_kernel_operands(mid_re, mid_im, algorithm, "fft2_row_pass")
+        return out_re, out_im
+    _row_launch("tfft_fft2_row", (mid_re, mid_im), (out_re, out_im),
+                algorithm, h, w, radices2, scales2, sign, "default")
+    fft2_row_pass.launches += 1
+    return out_re, out_im
+
+
+fft2_column_pass.launches = 0
+fft2_row_pass.launches = 0
+
+
+def fft2_fused(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    *,
+    radices1: Tuple[int, ...],
+    radices2: Tuple[int, ...],
+    scales1: Tuple[float, ...],
+    scales2: Tuple[float, ...],
+    sign: int = dft.FORWARD,
+    algorithm: str = "bf16",
+    grouped: bool | Tuple[bool, bool] = False,
+    state_dtype: str = "float32",
+    complex_mult: str = "block",
+    engine: str = "stacked",
+):
+    """2D FFT of (B, H, W) planes (H = prod(radices1), W = prod(radices2)):
+    the column pass, then the row pass stored in place.  Returns (B, kh, kw)
+    planes in natural order in the input dtype.  As in the JAX package, both
+    passes run the plain (``"default"``) first stage whatever the plans'
+    ``first_dot``."""
+    grouped1, grouped2 = grouped if isinstance(grouped, tuple) else (grouped,) * 2
+    require_default_knobs(grouped1 or grouped2, complex_mult, state_dtype, engine)
+    mid_re, mid_im = fft2_column_pass(re, im, radices1=radices1,
+                                      scales1=scales1, sign=sign,
+                                      algorithm=algorithm)
+    return fft2_row_pass(mid_re, mid_im, radices2=radices2, scales2=scales2,
+                         sign=sign, algorithm=algorithm)

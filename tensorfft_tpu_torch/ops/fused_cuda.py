@@ -150,13 +150,18 @@ def require_default_knobs(grouped, complex_mult, state_dtype, engine):
             )
 
 
-def check_planes(re: torch.Tensor, im: torch.Tensor, what: str) -> None:
-    """Shape, dtype and device agreement of a pair of planes."""
+_LAYOUTS = {2: "(B, N)", 3: "(B, H, W)"}
+
+
+def check_planes(re: torch.Tensor, im: torch.Tensor, what: str,
+                 ndim: int = 2) -> None:
+    """Shape, dtype and device agreement of a pair of ``ndim``-D planes:
+    (B, N) rows, or (B, H, W) volumes with ``ndim=3``."""
     if not (isinstance(re, torch.Tensor) and isinstance(im, torch.Tensor)):
         raise TypeError(f"{what} expects torch tensors")
-    if re.ndim != 2 or re.shape != im.shape:
+    if re.ndim != ndim or re.shape != im.shape:
         raise ValueError(
-            f"{what} expects matching (B, N) planes, got re {tuple(re.shape)} "
+            f"{what} expects matching {_LAYOUTS[ndim]} planes, got re {tuple(re.shape)} "
             f"im {tuple(im.shape)}"
         )
     if re.dtype != im.dtype or re.device != im.device:

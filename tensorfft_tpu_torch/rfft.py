@@ -18,7 +18,8 @@ half length M, and its strategy picks the route:
 CUDA tensors launch the kernels; CPU tensors run their plain versions.  The
 JAX package's ``epilogue`` knob, which chose between two bit-identical
 implementations for the TPU, has no counterpart.  ``rfftn_split`` and
-``irfftn_split`` wait for the N-D transforms.
+``irfftn_split`` run R2C/C2R along the last axis and the N-D C2C transforms
+(``fft.fftn_split``) along the others.
 """
 from __future__ import annotations
 
@@ -31,12 +32,15 @@ from tensorfft_tpu_torch.fft import (
     _fft_split_core,
     _to_complex,
     _to_split,
+    fftn_split,
     four_step_call_kwargs,
+    ifftn_split,
 )
 from tensorfft_tpu_torch.ops import four_step_cuda, rfft_cuda
 from tensorfft_tpu_torch.plan import FFTPlan, Strategy, create_plan
 
-__all__ = ["rfft_split", "irfft_split", "rfft", "irfft"]
+__all__ = ["rfft_split", "irfft_split", "rfft", "irfft", "rfftn_split",
+           "irfftn_split", "rfftn", "irfftn"]
 
 
 def _half_length_plan(m: int, plan: Optional[FFTPlan], plan_kwargs) -> FFTPlan:
@@ -153,4 +157,51 @@ def irfft(x, plan: Optional[FFTPlan] = None, n: Optional[int] = None, *,
     """Inverse of :func:`rfft` (same host-boundary contract); returns the
     real signal as NumPy float32."""
     out = irfft_split(*_to_split(x, device), plan, n=n, **plan_kwargs)
+    return out.to(torch.float32).cpu().numpy()
+
+
+def _last_axis_axes(ndim, axes, what):
+    axes = tuple(range(ndim)) if axes is None else tuple(a % ndim for a in axes)
+    if ndim - 1 not in axes:
+        raise ValueError(f"{what} requires the last axis in axes")
+    return tuple(a for a in axes if a != ndim - 1)
+
+
+def rfftn_split(x, axes=None, **plan_kwargs):
+    """N-dimensional R2C: :func:`rfft_split` along the last axis, then C2C
+    along the other ``axes`` (``numpy.fft.rfftn`` semantics on split
+    planes).  Returns (re, im) of shape (..., n_last/2 + 1); the scaling is
+    the plans' per axis (1/prod(shape[axes]) under 'forward')."""
+    x = torch.as_tensor(x)
+    rest = _last_axis_axes(x.ndim, axes, "rfftn_split")
+    re, im = rfft_split(x, **plan_kwargs)
+    if rest:
+        re, im = fftn_split(re, im, axes=rest, **plan_kwargs)
+    return re, im
+
+
+def irfftn_split(re, im, axes=None, n: Optional[int] = None, **plan_kwargs):
+    """Inverse of :func:`rfftn_split`: inverse C2C along the other axes,
+    then C2R along the last."""
+    re = torch.as_tensor(re)
+    im = torch.as_tensor(im)
+    rest = _last_axis_axes(re.ndim, axes, "irfftn_split")
+    if rest:
+        re, im = ifftn_split(re, im, axes=rest, **plan_kwargs)
+    return irfft_split(re, im, n=n, **plan_kwargs)
+
+
+def rfftn(x, axes=None, *, device="cuda", **plan_kwargs):
+    """Host-boundary wrapper over :func:`rfftn_split`: moves a real array to
+    ``device`` and returns the spectrum as NumPy complex64."""
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return _to_complex(*rfftn_split(torch.from_numpy(np.array(x)).to(device),
+                                    axes, **plan_kwargs))
+
+
+def irfftn(x, axes=None, n: Optional[int] = None, *, device="cuda",
+           **plan_kwargs):
+    """Inverse of :func:`rfftn` (same host-boundary contract); returns the
+    real array as NumPy float32."""
+    out = irfftn_split(*_to_split(x, device), axes, n=n, **plan_kwargs)
     return out.to(torch.float32).cpu().numpy()

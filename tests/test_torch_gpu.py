@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain-torch versions on the card:
-kernels A, B and C, the packed/interleaving four-step variants (K5, K6) and
-the R2C epilogue kernels (K7-K10).
+kernels A, B and C, the packed/interleaving four-step variants (K5, K6),
+the R2C epilogue kernels (K7-K10) and the 2D row-column passes (K4).
 
 Run on a machine with a CUDA device:
 
@@ -227,3 +227,65 @@ def test_epilogue_kernels_reject_bad_operands(cuda):
         spec = x[:, :33].contiguous()
         rfft_cuda.retangle_inv(spec, spec, n=64, scale=1.0,
                                out_dtype=torch.float16)
+
+
+# (H, W) of the K4 passes: the h = 8 edge, one-lane passes (16384), the
+# config-3 square.
+FFT2_SHAPES = [(8, 64), (64, 8), (8, 16384), (16384, 8), (64, 4096),
+               (4096, 4096)]
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b", [0, 1, 3])
+@pytest.mark.parametrize("h,w", FFT2_SHAPES)
+def test_fft2_kernels_match_plain(cuda, h, w, b, precision):
+    ph = tt.create_plan(h, precision=precision)
+    pw = tt.create_plan(w, precision=precision)
+    dtype = ph.precision.storage_dtype
+    common = dict(sign=-1, algorithm=ph.precision.dot_algorithm)
+    col = dict(radices1=ph.radices,
+               scales1=stage_scales(ph.radices, "forward", True), **common)
+    row = dict(radices2=pw.radices,
+               scales2=stage_scales(pw.radices, "forward", True), **common)
+    re, im = (p.reshape(b, h, w) for p in _planes(b, h * w, dtype, cuda, seed=h + w + b))
+    before = (four_step_cuda.fft2_column_pass.launches,
+              four_step_cuda.fft2_row_pass.launches)
+    mid = four_step_cuda.fft2_column_pass(re, im, **col)
+    mid_plain = four_step_cuda.fft2_column_pass_reference(re, im, **col)
+    out = four_step_cuda.fft2_row_pass(*mid_plain, **row)
+    torch.cuda.synchronize()
+    assert (four_step_cuda.fft2_column_pass.launches,
+            four_step_cuda.fft2_row_pass.launches) == (before[0] + (b > 0),
+                                                       before[1] + (b > 0))
+    for t in (*mid, *out):
+        assert t.is_cuda and t.dtype is dtype and t.shape == (b, h, w)
+    if b:
+        bf16 = dtype is torch.bfloat16
+        _hold(mid, mid_plain, bf16, FOUR_STEP_MAX_FRAC)
+        _hold(out, four_step_cuda.fft2_row_pass_reference(*mid_plain, **row),
+              bf16, FOUR_STEP_MAX_FRAC)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+def test_fftn_split_on_card_matches_torch_fft(cuda, precision):
+    shape = (16, 64, 128)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, *shape), dtype=np.float32)
+    re, im = (torch.from_numpy(p).to(cuda) for p in x)
+    before = (four_step_cuda.fft2_column_pass.launches,
+              four_step_cuda.fft2_row_pass.launches, fused_cuda.fused_fft.launches)
+    o_re, o_im = tt.fftn_split(re, im, precision=precision)
+    torch.cuda.synchronize()
+    # K4 on the trailing two axes, then kernel A along axis 0.
+    assert (four_step_cuda.fft2_column_pass.launches,
+            four_step_cuda.fft2_row_pass.launches,
+            fused_cuda.fused_fft.launches) == tuple(c + 1 for c in before)
+    want = torch.fft.fftn(torch.complex(re, im)) / re.numel()
+    got = torch.complex(o_re.float(), o_im.float())
+    tol = 1e-2 if precision == "bfloat16" else 1e-4
+    assert float((got - want).abs().max() / want.abs().max()) <= tol
+    b_re, b_im = tt.ifftn_split(o_re, o_im, precision=precision)
+    back = torch.stack([b_re, b_im]).double()
+    ref = torch.stack([re, im]).to(o_re.dtype).double()
+    rt = 2e-2 if precision == "bfloat16" else 3e-4
+    assert float((back - ref).abs().max() / ref.abs().max()) <= rt
