@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from ``tensorfft_tpu_torch/csrc`` (nvcc, at
 first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills);
-  2. drives the three main paths, each with every launch counter reset
+  2. drives the four main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
        C2C: ``fft_split`` with the default bf16 plans over the flagship
@@ -21,6 +21,21 @@ first use, one process per source), then:
             two axes of 4096 x 4096 bf16 planes (the K4 column and row
             kernels), and ``fftn_split`` of a 512^3 bf16 volume (K4 on the
             trailing axes, then kernel A along axis 0);
+       tuned: the tuned-plan path (run after step 4's gates), the public
+            entry points with ``tuning="auto"`` reading a tuner cache
+            written to a temporary directory (``TENSORFFT_TUNER_CACHE``):
+            ``fft_split`` + ``ifft_split`` at N=16384 x 4096 (kernel A,
+            planar, folded at K = 128), N=4096 x 4096 (kernel A,
+            planar_vpu) and N=2^23 x 2 (kernels B and C, planar, the JAX
+            package's tuned structure for that length), ``fftn_split`` +
+            ``ifftn_split`` at 4096 x 4096 (both K4 passes, planar_vpu),
+            and ``fused_layout="batch_major"`` at N=512 x 262,144 (K3,
+            stacked, bf16ax2 first stage) and N=4096 x 256 (K3,
+            planar_vpu); each call must launch the kernel and engine it
+            names and no other, each kernel is held against its plain
+            version under the same engine (on a row slice at the two
+            largest shapes) and K3 against kernel A bit for bit, and each
+            tuned plan passes the gate and the round trip;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -56,9 +71,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -134,7 +152,55 @@ KERNELS = {
                  "tensorfft_tpu/ops/four_step_pallas.py:646"),
     "fft2_row": ("tensorfft_tpu_torch/csrc/fft2.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:677"),
+    # The tuned-plan path: the planar engines (K1b, stage_loop_planar) in
+    # kernels A, B, C and K4, and K3.
+    "fused_fft[planar]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
+                          "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "fused_fft[planar_vpu]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
+                              "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "four_step_col[planar]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+                              "tensorfft_tpu/ops/four_step_pallas.py:465"),
+    "four_step_row[planar]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+                              "tensorfft_tpu/ops/four_step_pallas.py:551"),
+    "fft2_col[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2.cu",
+                             "tensorfft_tpu/ops/four_step_pallas.py:646"),
+    "fft2_row[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2.cu",
+                             "tensorfft_tpu/ops/four_step_pallas.py:677"),
+    "fused_fft_batch_major": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+                              "tensorfft_tpu/ops/four_step_pallas.py:768"),
+    "fused_fft_batch_major[planar_vpu]": (
+        "tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+        "tensorfft_tpu/ops/four_step_pallas.py:768"),
 }
+# The tuner cache of the tuned-plan path, bf16, platform "cuda".  The
+# n=2^23 entry is the JAX package's TPU-tuned structure for that length
+# (tensorfft_tpu/tuning/tuner_cache.json) and the n=4096 entry its TPU
+# structure with the planar_vpu engine; n=16384 takes the default radices
+# under planar.  They are test structures, not CUDA tuning results.
+TUNED_ENTRIES = {
+    16384: {"strategy": "fused", "radices": [128, 128], "engine": "planar"},
+    4096: {"strategy": "fused", "radices": [32, 128], "grouped": True,
+           "kloop_width": 256, "lane_tile": 128, "engine": "planar_vpu"},
+    1 << 23: {"strategy": "four_step", "four_step_split": [2048, 4096],
+              "col_radices": [64, 32], "row_radices": [64, 64],
+              "engine": "planar", "grouped": True, "lane_tile": 128},
+}
+# (label, N, batch, fused_layout, launches each fft_split + ifft_split pair
+# must make, and nothing else).  512 x 262,144 is the 512^3 volume's
+# axis-0 row count; 4096 x 256 the __graft_entry__ shape.
+TUNED_CALLS = [
+    ("planar N=16384", 16384, 4096, "auto", {"fused_fft[planar]": 2}),
+    ("planar_vpu N=4096", 4096, 4096, "auto", {"fused_fft[planar_vpu]": 2}),
+    ("planar N=2^23", 1 << 23, 2, "auto",
+     {"four_step_col[planar]": 2, "four_step_row[planar]": 2}),
+    ("batch_major N=512", 512, 262144, "batch_major",
+     {"fused_fft_batch_major": 2}),
+    ("batch_major N=4096", 4096, 256, "batch_major",
+     {"fused_fft_batch_major[planar_vpu]": 2}),
+]
+# Rows of the main path's output held against the plain versions at the
+# two largest tuned shapes.
+TUNED_HOLD_ROWS = {"planar N=16384": 256, "batch_major N=512": 8192}
 R2C_KERNELS = ("fused_fft", "four_step_col", "four_step_row", "pack_split",
                "interleave_split", "untangle_fwd", "retangle_inv",
                "four_step_col_packed", "four_step_row_interleave")
@@ -219,6 +285,7 @@ def main() -> int:
                                              make_test_signal, measure)
     from tensorfft_tpu_torch.testing.metrics import (FOUR_STEP_MAX_FRAC,
                                                      FUSED_MAX_FRAC)
+    from tensorfft_tpu_torch.tuning import TunerCache
     from tensorfft_tpu_torch.utils.device import H100
 
     dev = torch.device("cuda", 0)
@@ -258,20 +325,38 @@ def main() -> int:
         "four_step_row_interleave": four_step_cuda.row_pass_interleave,
         "fft2_col": four_step_cuda.fft2_column_pass,
         "fft2_row": four_step_cuda.fft2_row_pass,
+        "fused_fft_batch_major": four_step_cuda.fused_fft_batch_major,
     }
     launches_by_path = {}
+
+    def launch_counts():
+        """Launches per kernel, a wrapper that takes an engine counted per
+        engine: ``name`` for the stacked engine, ``name[engine]`` else."""
+        counts = {}
+        for name, w in wrappers.items():
+            per_engine = getattr(w, "engine_launches", None)
+            if per_engine is None:
+                counts[name] = w.launches
+                continue
+            for engine, c in per_engine.items():
+                counts[name if engine == "stacked" else f"{name}[{engine}]"] = c
+        return counts
 
     def counted(path, required, drive):
         """Run ``drive`` with every counter set to 0 just before and read
         just after; fail unless each kernel in ``required`` was launched."""
         torch.cuda.synchronize()
         for w in wrappers.values():
-            w.launches = 0
+            if hasattr(w, "engine_launches"):
+                fused_cuda.reset_launches(w)
+            else:
+                w.launches = 0
         result = drive()
         torch.cuda.synchronize()
-        counts = {name: w.launches for name, w in wrappers.items()}
+        counts = launch_counts()
         launches_by_path[path] = counts
-        log(f"[main path {path}] launches {counts}")
+        log(f"[main path {path}] launches "
+            f"{ {name: c for name, c in counts.items() if c} }")
         for name in required:
             if counts[name] < 1:
                 raise RuntimeError(f"kernel {name} was not launched on the {path} path")
@@ -340,7 +425,7 @@ def main() -> int:
     del vol_spec
 
     # -- 3. kernels against their plain versions ---------------------------
-    errs = {name: 0.0 for name in wrappers}
+    errs = {name: 0.0 for name in KERNELS}
 
     def hold(name, label, got, want, max_frac=FUSED_MAX_FRAC, bf16=True):
         a = agreement([g.float().cpu() for g in got],
@@ -487,13 +572,16 @@ def main() -> int:
                 dict(radices2=pw.radices,
                      scales2=stage_scales(pw.radices, pw.scaling, True), **common))
 
-    def hold_fft2(label, x, col_kw, row_kw, bf16=True):
+    def hold_fft2(label, x, col_kw, row_kw, bf16=True, suffix=""):
         """Both K4 passes on ``x``, the row pass on the plain column pass's
-        output; returns that output."""
+        output; returns that output.  ``suffix`` names the engine's kernels
+        (``[planar_vpu]``)."""
         mid = four_step_cuda.fft2_column_pass_reference(*x, **col_kw)
-        hold("fft2_col", label, four_step_cuda.fft2_column_pass(*x, **col_kw),
-             mid, FOUR_STEP_MAX_FRAC, bf16)
-        hold("fft2_row", label, four_step_cuda.fft2_row_pass(*mid, **row_kw),
+        hold("fft2_col" + suffix, label,
+             four_step_cuda.fft2_column_pass(*x, **col_kw), mid,
+             FOUR_STEP_MAX_FRAC, bf16)
+        hold("fft2_row" + suffix, label,
+             four_step_cuda.fft2_row_pass(*mid, **row_kw),
              four_step_cuda.fft2_row_pass_reference(*mid, **row_kw),
              FOUR_STEP_MAX_FRAC, bf16)
         return mid
@@ -637,6 +725,158 @@ def main() -> int:
     if rel > CONVOLVE_TOL:
         raise RuntimeError(f"fft_convolve_real off by {rel:.3e}")
 
+    # -- tuned: the tuned-plan path, counted, held and gated -----------------
+    tune_dir = tempfile.mkdtemp(prefix="tfft_tuner_")
+    cache = TunerCache(os.path.join(tune_dir, "tuner_cache.json"))
+    for n_t, entry in TUNED_ENTRIES.items():
+        cache.put(n_t, "bfloat16", "cuda", entry)
+    cache.save()
+    log(f"[tuned] tuner cache {cache.path.name} (platform cuda): "
+        f"{json.dumps({str(k): v for k, v in TUNED_ENTRIES.items()})}; the "
+        f"JAX package's TPU-tuned structures (n=2^23 as tuned there, n=4096 "
+        f"with the planar_vpu engine) and n=16384's default radices under "
+        f"planar, used as test structures: these are not CUDA tuning results")
+    tuned_in = {label: inputs(n_t, b_t, torch.bfloat16, SEED + 11 + i)
+                for i, (label, n_t, b_t, _, _) in enumerate(TUNED_CALLS)}
+    k4_tuned = {"fft2_col[planar_vpu]": 2, "fft2_row[planar_vpu]": 2}
+
+    def expect(label, before, want):
+        """Fail unless the launches since ``before`` are exactly ``want``."""
+        after = launch_counts()
+        delta = {k: c - before[k] for k, c in after.items() if c != before[k]}
+        if delta != want:
+            raise RuntimeError(f"tuned call {label} launched {delta}, expected {want}")
+        log(f"[tuned] {label}: launched {delta}")
+
+    def drive_tuned():
+        out = {}
+        for label, _, _, layout, want in TUNED_CALLS:
+            before = launch_counts()
+            spec = tt.fft_split(*tuned_in[label], tuning="auto", fused_layout=layout)
+            back = tt.ifft_split(*spec, tuning="auto", fused_layout=layout)
+            torch.cuda.synchronize()
+            expect(label, before, want)
+            out[label] = (spec, back)
+        before = launch_counts()
+        spec = tt.fftn_split(*planes2d, axes=(-2, -1))  # inner plans: "auto"
+        back = tt.ifftn_split(*spec, axes=(-2, -1))
+        torch.cuda.synchronize()
+        expect(f"fftn {h}x{w}", before, k4_tuned)
+        out["fftn"] = (spec, back)
+        return out
+
+    required = sorted({k for *_, want in TUNED_CALLS for k in want} | set(k4_tuned))
+    saved_env = os.environ.get("TENSORFFT_TUNER_CACHE")
+    os.environ["TENSORFFT_TUNER_CACHE"] = str(cache.path)
+    try:
+        tuned_plans = {label: tt.create_plan(n_t, tuning="auto", fused_layout=layout)
+                       for label, n_t, _, layout, _ in TUNED_CALLS}
+        plan2d = tt.create_plan(h, tuning="auto")
+        for label, plan in [*tuned_plans.items(), (f"fftn {h}x{w} axes", plan2d)]:
+            log(f"[tuned] {label}: {plan.resolve_strategy().value} radices "
+                f"{plan.radices} split {plan.four_step_split} col "
+                f"{plan.col_radices} row {plan.row_radices} engine "
+                f"{plan.engine} grouped {plan.grouped} first_dot "
+                f"{plan.first_dot} fused_layout {plan.fused_layout}")
+        tuned_out = counted("tuned", required, drive_tuned)
+        nd_re64, nd_im64, nd_x_re, nd_x_im = nd_signal(ND_IMAGE)
+        before = launch_counts()
+        f = tt.fftn_split(nd_x_re, nd_x_im, axes=(-2, -1))
+        back = tt.ifftn_split(*f, axes=(-2, -1))
+        torch.cuda.synchronize()
+        expect(f"fftn {h}x{w} gate", before, k4_tuned)
+    finally:
+        if saved_env is None:
+            os.environ.pop("TENSORFFT_TUNER_CACHE", None)
+        else:
+            os.environ["TENSORFFT_TUNER_CACHE"] = saved_env
+        shutil.rmtree(tune_dir)
+    nd_gate(f"fft2 tuned {plan2d.engine} radices {plan2d.radices}", ND_IMAGE,
+            "bfloat16", f, np.fft.fft2(nd_re64 + 1j * nd_im64) / (h * w),
+            roundtrip(back, (nd_x_re, nd_x_im), torch.bfloat16))
+    del nd_re64, nd_im64, nd_x_re, nd_x_im, f, back
+
+    def fused_kw(plan):
+        return dict(radices=plan.radices,
+                    scales=stage_scales(plan.radices, plan.scaling, True),
+                    algorithm=plan.precision.dot_algorithm,
+                    first_dot=plan.first_dot, engine=plan.engine)
+
+    for label, n_t, b_t, layout, want in TUNED_CALLS:
+        plan, x = tuned_plans[label], tuned_in[label]
+        spec, back = tuned_out[label]
+        finite(f"tuned {label}", (*spec, *back), (b_t, n_t), torch.bfloat16)
+        rt = roundtrip(back, x, torch.bfloat16)
+        log(f"[tuned] {label} x B={b_t} main path roundtrip_rel={rt:.3e}")
+        if rt > ROUNDTRIP_TOL["bfloat16"]:
+            raise RuntimeError(f"tuned {label}: round trip off by {rt:.3e}")
+        if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
+            _, _, col, row = pass_kwargs(plan, True)
+            col, row = dict(col, engine=plan.engine), dict(row, engine=plan.engine)
+            mid_plain = four_step_cuda.column_pass_reference(*x, **col)
+            hold(f"four_step_col[{plan.engine}]", label,
+                 four_step_cuda.column_pass(*x, **col), mid_plain, FOUR_STEP_MAX_FRAC)
+            hold(f"four_step_row[{plan.engine}]", label,
+                 four_step_cuda.row_pass(*mid_plain, **row),
+                 four_step_cuda.row_pass_reference(*mid_plain, **row),
+                 FOUR_STEP_MAX_FRAC)
+            continue
+        kw = fused_kw(plan)
+        (name,) = want
+        rows = slice(0, TUNED_HOLD_ROWS.get(label, b_t))
+        hold(name, f"{label} x B={b_t}, rows {rows.start}..{rows.stop - 1}",
+             [t[rows] for t in spec],
+             fused_cuda.fused_fft_reference(*(t[rows] for t in x), **kw),
+             FUSED_MAX_FRAC)
+        if layout == "batch_major":
+            # K3 against kernel A on the same rows and plan: each output's
+            # sums run in one order whatever the rows per CTA.
+            a_out = fused_cuda.fused_fft(*x, **kw)
+            for g, a in zip(spec, a_out):
+                if not torch.equal(g, a):
+                    raise RuntimeError(f"K3 and kernel A differ at {label}")
+            log(f"[kernel vs kernel A] {name} {label} x B={b_t} "
+                f"(rows per CTA {four_step_cuda.batch_major_lanes(n_t, b_t)}): "
+                f"bit-identical")
+            del a_out
+    col_t = dict(radices1=plan2d.radices,
+                 scales1=stage_scales(plan2d.radices, plan2d.scaling, True),
+                 sign=-1, algorithm=plan2d.precision.dot_algorithm,
+                 engine=plan2d.engine)
+    row_t = dict(radices2=plan2d.radices, scales2=col_t["scales1"], sign=-1,
+                 algorithm=col_t["algorithm"], engine=plan2d.engine)
+    finite("tuned fftn", (*tuned_out["fftn"][0], *tuned_out["fftn"][1]),
+           ND_IMAGE, torch.bfloat16)
+    k4t_mid = hold_fft2(f"{h}x{w} bf16 {plan2d.engine}",
+                        tuple(p.reshape(1, h, w) for p in planes2d), col_t,
+                        row_t, suffix=f"[{plan2d.engine}]")
+
+    # The reference gate and round trip under every tuned plan, through the
+    # same kernels and engines (8 rows, so K3 takes the batch-major route).
+    for label, n_t, _, _, want in TUNED_CALLS:
+        plan = tuned_plans[label]
+        sig = [make_test_signal(n_t, 42 * s, 42 * 42 * s)
+               for s in range(1, 3 if n_t > 16384 else 9)]
+        re64 = np.stack([p[0] for p in sig])
+        im64 = np.stack([p[1] for p in sig])
+        x_re, x_im = (torch.from_numpy(a).to(dev) for a in (re64, im64))
+        before = launch_counts()
+        f_re, f_im = tt.fft_split(x_re, x_im, plan)
+        r = tt.ifft_split(f_re, f_im, plan)
+        torch.cuda.synchronize()
+        expect(f"{label} gate", before, want)
+        d = deviation((f_re.double().cpu().numpy(), f_im.double().cpu().numpy()),
+                      fft_oracle(re64, im64))
+        rt = roundtrip(r, (x_re, x_im), torch.bfloat16)
+        ok = d.passes_reference_gate() and rt <= ROUNDTRIP_TOL["bfloat16"]
+        log(f"[tuned gate] bfloat16 N={n_t} rows={len(sig)} {label} "
+            f"({plan.resolve_strategy().value}, {plan.engine}): {d} "
+            f"roundtrip_rel={rt:.3e} {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"tuned accuracy gate failed at {label}")
+    del sig, re64, im64, x_re, x_im, f_re, f_im, r
+    torch.cuda.synchronize()
+
     # -- 5. timing ---------------------------------------------------------
     log(f"[card] {smi}; shares against the {H100.kind} data sheet: "
         f"{H100.fp32_flops / 1e12:g} TFLOP/s fp32, "
@@ -658,7 +898,8 @@ def main() -> int:
         tables, _ = fused_cuda.kernel_tables(
             tuple(radices), tuple(map(float, scales)), int(sign),
             plan.precision.dot_algorithm,
-            plan.first_dot if first_dot is None else first_dot, dev)
+            plan.first_dot if first_dot is None else first_dot, dev,
+            plan.engine)
         return tables.numel() * 4
 
     timing = {}  # name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by, shape)
@@ -902,14 +1143,104 @@ def main() -> int:
         f"{t_tvol.average_time_ms:.4f} ms | {smi}")
     del v_c
 
+
+    # The tuned-plan path: each new kernel at its tuned shape against its
+    # plain version, torch.fft on the same shape and its bound; the stacked
+    # kernel A on the same rows and radices beside it.
+    def time_kernel(name, shape, call, plain, library, args, nbytes, ops,
+                    extra=""):
+        tp1 = measure(plain, args, iters=3)
+        tk1 = measure(call, args, iters=10)
+        tk2 = measure(call, args, iters=10)
+        tp2 = measure(plain, args, iters=3)
+        l_ms = (measure(library[0], library[1], iters=10).average_time_ms
+                if library is not None else None)
+        k_ms = min(tk1.average_time_ms, tk2.average_time_ms)
+        p_ms = min(tp1.average_time_ms, tp2.average_time_ms)
+        b_ms, b_by = bound(nbytes, ops, H100.bf16_flops)
+        timing[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                            bound_ms=b_ms, bound_by=b_by, shape=shape)
+        log(f"[time] {name} {shape}: kernel {k_ms:.4f} ms (runs "
+            f"{tk1.average_time_ms:.4f}, {tk2.average_time_ms:.4f}) | plain "
+            f"{p_ms:.4f} ms | torch.fft "
+            f"{'none' if l_ms is None else f'{l_ms:.4f} ms'} | bound "
+            f"{b_ms:.4f} ms ({b_by}) | {b_ms / k_ms:.1%} of bound{extra} | {smi}")
+
+    for label, n_t, b_t, layout, want in TUNED_CALLS:
+        plan, x = tuned_plans[label], tuned_in[label]
+        elems = n_t * b_t
+        shape = f"N={n_t} x B={b_t} bf16"
+        x_c = torch.complex(x[0].float(), x[1].float())
+        library = (lambda v: torch.fft.fft(v, dim=-1), (x_c,))
+        if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
+            _, _, col, row = pass_kwargs(plan, True)
+            col, row = dict(col, engine=plan.engine), dict(row, engine=plan.engine)
+            mid = four_step_cuda.column_pass(*x, **col)
+            n1, n2 = col["n1"], col["n2"]
+            t_pq = min(col["lane_tile"], n2)
+            pq = 2 * 4 * (n1 * n2 // t_pq + n1 * t_pq)
+            for pname, fn, ref, args, kw_pass, radices, scales, extra_bytes in (
+                    ("four_step_col", four_step_cuda.column_pass,
+                     four_step_cuda.column_pass_reference, x, col,
+                     col["radices1"], col["scales1"], pq),
+                    ("four_step_row", four_step_cuda.row_pass,
+                     four_step_cuda.row_pass_reference, mid, row,
+                     row["radices2"], row["scales2"], 0)):
+                time_kernel(f"{pname}[{plan.engine}]", shape,
+                            lambda r, i, fn=fn, kw=kw_pass: fn(r, i, **kw),
+                            lambda r, i, ref=ref, kw=kw_pass: ref(r, i, **kw),
+                            None, args,
+                            4 * 2 * elems + extra_bytes
+                            + table_bytes(plan, radices, scales, -1),
+                            pass_flops(plan, radices, elems))
+            t_all = measure(lambda r, i: tt.fft_split(r, i, plan), x, iters=10)
+            t_lib = measure(*library, iters=10)
+            log(f"[time] fft_split {label} x B={b_t} (split {plan.four_step_split}, "
+                f"{plan.engine}): {t_all.average_time_ms:.4f} ms | torch.fft.fft "
+                f"c64 {t_lib.average_time_ms:.4f} ms | {smi}")
+            del mid, x_c
+            continue
+        kw = fused_kw(plan)
+        (name,) = want
+        fn = (four_step_cuda.fused_fft_batch_major if layout == "batch_major"
+              else fused_cuda.fused_fft)
+        stacked_kw = dict(kw, engine="stacked")
+        t_a = measure(lambda r, i: fused_cuda.fused_fft(r, i, **stacked_kw), x,
+                      iters=10)
+        time_kernel(name, shape, lambda r, i: fn(r, i, **kw),
+                    lambda r, i: fused_cuda.fused_fft_reference(r, i, **kw),
+                    library, x,
+                    4 * 2 * elems + table_bytes(plan, plan.radices, kw["scales"], -1),
+                    pass_flops(plan, plan.radices, elems),
+                    extra=f" | stacked kernel A, radices {plan.radices}, same "
+                          f"rows: {t_a.average_time_ms:.4f} ms")
+        del x_c
+    elems = h * w
+    x3 = tuple(p.reshape(1, h, w) for p in planes2d)
+    x_c = torch.complex(planes2d[0].float(), planes2d[1].float())
+    for name, fn, ref, args, kw, dim in (
+            ("fft2_col", four_step_cuda.fft2_column_pass,
+             four_step_cuda.fft2_column_pass_reference, x3, col_t, -2),
+            ("fft2_row", four_step_cuda.fft2_row_pass,
+             four_step_cuda.fft2_row_pass_reference, k4t_mid, row_t, -1)):
+        radices = kw.get("radices1", kw.get("radices2"))
+        scales = kw.get("scales1", kw.get("scales2"))
+        time_kernel(f"{name}[{plan2d.engine}]", f"{h}x{w} bf16",
+                    lambda r, i, fn=fn, kw=kw: fn(r, i, **kw),
+                    lambda r, i, ref=ref, kw=kw: ref(r, i, **kw),
+                    (lambda v, dim=dim: torch.fft.fft(v, dim=dim), (x_c,)), args,
+                    4 * 2 * elems + table_bytes(plan2d, radices, scales, -1, "default"),
+                    pass_flops(plan2d, radices, elems, "default"))
+    del x_c
+
     kernels = []
-    for name in wrappers:
+    for name in KERNELS:
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
-            "launches": sum(c[name] for c in launches_by_path.values()),
-            "launches_by_path": {p: c[name] for p, c in launches_by_path.items()},
+            "launches": sum(c.get(name, 0) for c in launches_by_path.values()),
+            "launches_by_path": {p: c.get(name, 0) for p, c in launches_by_path.items()},
             "max_abs_err": errs[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],

@@ -9,7 +9,20 @@
 //                                                       0 has no twiddle)
 //   out[(r_out*K + kk)*M + mm] = sum_r D[r_out, r] z[r]  (fp32 accumulate)
 //
-// with the 1/R scale folded into D.  Operands are rounded per the dot
+// with the 1/R scale folded into D.  That is the stacked engine; the planar
+// engines (K1b, fused_pallas.py:stage_loop_planar) keep the four real
+// products apart, with the matrix A = [A_re; A_im]:
+//
+//   out_re = (A_re . z_re) - (A_im . z_im),  out_im = (A_im . z_re) + (A_re . z_im)
+//
+// each product combined over its dot levels on its own, then one rounded
+// subtract and one rounded add, as the plain version's u[:R] - v[R:] and
+// u[R:] + v[:R] are.  A is [D_re; D_im] after the twiddle (planar_vpu, the
+// first stage, and stages with K > 128), or on a folded stage the per-slice
+// A_kk = D diag(W[:, kk]) built in fp64 on the host and applied to the
+// untwiddled state, so that stage skips the twiddle multiply.
+//
+// Operands are rounded per the dot
 // algorithm of tensorfft_tpu_torch/ops/dots.py: the matrix D arrives from
 // the host already split into AT bf16 terms (stored as fp32), the data is
 // split here into BT bf16 terms (hi = bits & 0xFFFF0000, last term rounded
@@ -28,7 +41,10 @@
 //
 // Tables (D terms, twiddles) stay in global memory and are read through the
 // caches: a radix-128 stage's D is 64 KiB per term and cannot share the CTA's
-// shared memory with the operand.
+// shared memory with the operand.  A folded planar stage reads K slices of
+// 2*R*R entries per term, indexed by each output's kk: at N = 16384, radices
+// (128, 128), that is 16.8 MB per term, which no L1 holds, and a warp's 32
+// outputs of the last stage read 32 different slices.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -41,17 +57,25 @@ constexpr int kThreads = 512;                      // threads per CTA, at most
 constexpr int kMaxEpt = 32;                        // outputs per thread
 constexpr int kMaxCtaElems = kThreads * kMaxEpt;   // complex elements per CTA
 
+// Stage modes: the stacked engine, a planar stage with the shared [D_re;
+// D_im] after the twiddle, a planar stage with per-slice folded tables.
+enum StageMode { kStacked = 0, kPlanarShared = 1, kPlanarFolded = 2 };
+
 // Stage sequence of one pass.  Offsets index the fp32 table buffer:
-// D at d_off: [term][re, im][R][R]; twiddle at w_off: [re, im][R][K].
+// the matrix at d_off: [term][slice][re, im][R][R] with one slice, or K on a
+// folded stage; twiddle at w_off: [re, im][R][K] (none on a folded stage).
 struct StagePlan {
   int n_stages;
+  bool planar;  // every stage planar (else every stage stacked)
   int radix[kMaxStages];
   int a_terms[kMaxStages];
+  int mode[kMaxStages];
   long long d_off[kMaxStages];
   long long w_off[kMaxStages];
 };
 
-// meta (host memory): n_stages, then per stage radix, a_terms, d_off, w_off.
+// meta (host memory): n_stages, then per stage radix, a_terms, d_off,
+// w_off, then per stage its StageMode.
 inline bool read_plan(const long long* meta, StagePlan* plan) {
   const long long n = meta[0];
   if (n < 1 || n > kMaxStages) return false;
@@ -61,6 +85,14 @@ inline bool read_plan(const long long* meta, StagePlan* plan) {
     plan->a_terms[s] = static_cast<int>(meta[2 + 4 * s]);
     plan->d_off[s] = meta[3 + 4 * s];
     plan->w_off[s] = meta[4 + 4 * s];
+    plan->mode[s] = static_cast<int>(meta[1 + 4 * n + s]);
+  }
+  plan->planar = plan->mode[0] != kStacked;
+  for (int s = 0; s < plan->n_stages; ++s) {
+    const int m = plan->mode[s];
+    if (m < kStacked || m > kPlanarFolded || (m != kStacked) != plan->planar ||
+        (s == 0 && m == kPlanarFolded))
+      return false;
   }
   return true;
 }
@@ -112,11 +144,14 @@ __device__ __forceinline__ void put_operand(__nv_bfloat16* op, int elems,
   op[(2 * (BT - 1) + 1) * elems + idx] = __float2bfloat16_rn(im);
 }
 
-// One output of one stage: sum over r of D[r_out, r] * z[r] for every
-// partial product (i, j) of the dot algorithm (matrix term i, data term j,
-// i + j < levels), combined level by level as ops/dots.py adds them:
+// One output of one stage of the stacked engine: sum over r of
+// D[r_out, r] * z[r] for every partial product (i, j) of the dot algorithm
+// (matrix term i, data term j, i + j < levels), combined level by level as
+// ops/dots.py adds them:
 // bf16: S00; bf16ax2: S00 + S10; bf16x3: S00 + (S01 + S10);
 // bf16x6: (S00 + (S01 + S10)) + ((S02 + S11) + S20).
+// Kept apart from the planar product below: one template for both cost the
+// stacked bf16x3 kernel 18 % on the H100.
 template <int AT, int BT>
 __device__ __forceinline__ void stage_dot(const __nv_bfloat16* op, int elems,
                                           int nt, int R,
@@ -175,21 +210,102 @@ __device__ __forceinline__ void stage_dot(const __nv_bfloat16* op, int elems,
   out_im = res_im;
 }
 
-// Every output this thread owns in one stage: o = tid + e * blockDim,
-// r_out = o / nt, g = o % nt with g = (kk*M + mm)*T + lane.
+// The partial products of one real dot combined level by level, as in
+// stage_dot.
 template <int AT, int BT>
+__device__ __forceinline__ float combine_levels(const float (&acc)[AT][BT]) {
+  constexpr int L = AT > BT ? AT : BT;
+  float res = acc[0][0];
+#pragma unroll
+  for (int lvl = 1; lvl < L; ++lvl) {
+    float l = 0.0f;
+    bool first = true;
+#pragma unroll
+    for (int i = 0; i <= lvl; ++i) {
+      const int j = lvl - i;
+      if (i < AT && j < BT) {
+        l = first ? acc[i][j] : __fadd_rn(l, acc[i][j]);
+        first = false;
+      }
+    }
+    res = __fadd_rn(res, l);
+  }
+  return res;
+}
+
+// One output of one planar stage: four accumulators per partial product,
+// one per real product of A = [A_re; A_im] with the state, each combined
+// over its levels, then out_re = A_re.re - A_im.im and
+// out_im = A_im.re + A_re.im.  The matrix's term i holds A_re at d + i*ts
+// and A_im R*R entries later (ts: the term stride, K*2*R*R on a folded
+// stage).
+template <int AT, int BT>
+__device__ __forceinline__ void stage_dot_planar(
+    const __nv_bfloat16* op, int elems, int nt, int R,
+    const float* __restrict__ d, int ts, int r_out, int g, float& out_re,
+    float& out_im) {
+  constexpr int L = AT > BT ? AT : BT;
+  float acc[4][AT][BT];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int i = 0; i < AT; ++i)
+#pragma unroll
+      for (int j = 0; j < BT; ++j) acc[p][i][j] = 0.0f;
+  const int rr = R * R;
+  const float* drow = d + r_out * R;
+  for (int r = 0; r < R; ++r) {
+    const int zi = r * nt + g;
+    float z_re[BT], z_im[BT];
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {
+      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
+      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
+    }
+#pragma unroll
+    for (int i = 0; i < AT; ++i) {
+      const float a_re = __ldg(drow + i * ts + r);
+      const float a_im = __ldg(drow + i * ts + rr + r);
+#pragma unroll
+      for (int j = 0; j < BT; ++j) {
+        if (i + j < L) {
+          acc[0][i][j] = fmaf(a_re, z_re[j], acc[0][i][j]);  // A_re . re
+          acc[1][i][j] = fmaf(a_im, z_im[j], acc[1][i][j]);  // A_im . im
+          acc[2][i][j] = fmaf(a_im, z_re[j], acc[2][i][j]);  // A_im . re
+          acc[3][i][j] = fmaf(a_re, z_im[j], acc[3][i][j]);  // A_re . im
+        }
+      }
+    }
+  }
+  out_re = __fsub_rn(combine_levels<AT, BT>(acc[0]),
+                     combine_levels<AT, BT>(acc[1]));
+  out_im = __fadd_rn(combine_levels<AT, BT>(acc[2]),
+                     combine_levels<AT, BT>(acc[3]));
+}
+
+// Every output this thread owns in one stage: o = tid + e * blockDim,
+// r_out = o / nt, g = o % nt with g = (kk*M + mm)*T + lane.  On a folded
+// stage (slice_elems = M*T, else 0) output g reads slice kk = g / (M*T).
+template <int AT, int BT, bool kPlanar>
 __device__ __forceinline__ void stage_outputs(const __nv_bfloat16* op,
                                               int elems, int ept, int nt,
-                                              int R, const float* d,
+                                              int R, const float* d, int ts,
+                                              int slice_elems,
                                               float (&o_re)[kMaxEpt],
                                               float (&o_im)[kMaxEpt]) {
 #pragma unroll
   for (int e = 0; e < kMaxEpt; ++e) {
     if (e < ept) {
       const int o = threadIdx.x + e * blockDim.x;
-      const int r_out = o / nt;
-      stage_dot<AT, BT>(op, elems, nt, R, d, r_out, o - r_out * nt, o_re[e],
-                        o_im[e]);
+      const int r_out = o / nt, g = o - r_out * nt;
+      if constexpr (kPlanar) {
+        const float* dd =
+            slice_elems > 0 ? d + (g / slice_elems) * (2 * R * R) : d;
+        stage_dot_planar<AT, BT>(op, elems, nt, R, dd, ts, r_out, g, o_re[e],
+                                 o_im[e]);
+      } else {
+        stage_dot<AT, BT>(op, elems, nt, R, d, r_out, g, o_re[e], o_im[e]);
+      }
     }
   }
 }
@@ -200,7 +316,8 @@ __device__ __forceinline__ void stage_outputs(const __nv_bfloat16* op,
 //   store(k, lane, re, im): output bin k of transform `lane`, fp32.
 // The bf16 policy (BT == 1) may pair a bf16ax2 first stage (AT == 2) with
 // bf16 later stages (AT == 1); bf16x3 and bf16x6 use AT == BT throughout.
-template <int BT, class Load, class Store>
+// kPlanar selects the planar engines (plan.planar), whose fold is per stage.
+template <int BT, bool kPlanar, class Load, class Store>
 __device__ void run_fft(__nv_bfloat16* op, int n, int T,
                         const StagePlan& plan, const float* tables,
                         const Load& load, const Store& store) {
@@ -223,14 +340,20 @@ __device__ void run_fft(__nv_bfloat16* op, int n, int T,
     M /= R;
     const int nt = elems / R;
     const float* d = tables + plan.d_off[s];
+    const bool fold = kPlanar && plan.mode[s] == kPlanarFolded;
+    const int ts = (fold ? K : 1) * 2 * R * R;
+    const int slice_elems = fold ? M * T : 0;
     float o_re[kMaxEpt], o_im[kMaxEpt];
     if constexpr (BT == 1) {
       if (plan.a_terms[s] == 2)
-        stage_outputs<2, 1>(op, elems, ept, nt, R, d, o_re, o_im);
+        stage_outputs<2, 1, kPlanar>(op, elems, ept, nt, R, d, ts, slice_elems,
+                                     o_re, o_im);
       else
-        stage_outputs<1, 1>(op, elems, ept, nt, R, d, o_re, o_im);
+        stage_outputs<1, 1, kPlanar>(op, elems, ept, nt, R, d, ts, slice_elems,
+                                     o_re, o_im);
     } else {
-      stage_outputs<BT, BT>(op, elems, ept, nt, R, d, o_re, o_im);
+      stage_outputs<BT, BT, kPlanar>(op, elems, ept, nt, R, d, ts, slice_elems,
+                                     o_re, o_im);
     }
     __syncthreads();  // every operand read before it is overwritten
 
@@ -248,6 +371,8 @@ __device__ void run_fft(__nv_bfloat16* op, int n, int T,
     } else {
       const int R2 = plan.radix[s + 1], K2 = K * R, M2 = M / R2;
       const float* w = tables + plan.w_off[s + 1];
+      // A folded next stage takes the untwiddled state.
+      const bool twiddle = !(kPlanar && plan.mode[s + 1] == kPlanarFolded);
 #pragma unroll
       for (int e = 0; e < kMaxEpt; ++e) {
         if (e < ept) {
@@ -257,9 +382,10 @@ __device__ void run_fft(__nv_bfloat16* op, int n, int T,
           const int kk = gm / M, mm = gm - kk * M;
           const int kk2 = r_out * K + kk;
           const int r2 = mm / M2, mm2 = mm - r2 * M2;
-          float z_re, z_im;
-          cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
-               __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
+          float z_re = o_re[e], z_im = o_im[e];
+          if (twiddle)
+            cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
+                 __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
           put_operand<BT>(op, elems, ((r2 * K2 + kk2) * M2 + mm2) * T + lane,
                           z_re, z_im);
         }

@@ -38,6 +38,15 @@
 //   32/T consecutive k2, so each row's store is a contiguous run of 32/T
 //   elements, where the transposed store writes runs of T.
 //
+// Every pass but K5's and K6's runs the plan's stage engine, stacked or
+// planar (K1b; fft_stages.cuh), as a template flag chosen at launch.
+//
+// K3 (four_step_pallas.py:fused_fft_batch_major, pallas_call at :768) is the
+// kTransposed = false row pass over a (1, B, N) view: a tile of T adjacent
+// rows per CTA, read row-contiguous and transposed into the shared-memory
+// operand (the TPU's in-VMEM transpose), stored in place; entry point in
+// fused_batch_major.cu.
+//
 // What bounds them on the H100: as kernel A, scalar-FMA stage matmuls bound
 // by load-instruction throughput; beyond that, kernel B reads columns
 // strided by n2 and kernel C writes strided by n1.  Each CTA therefore takes
@@ -50,7 +59,7 @@
 
 namespace tfft {
 
-template <typename S, int BT, bool kPacked, bool kTwiddle>
+template <typename S, int BT, bool kPacked, bool kTwiddle, bool kPlanar>
 __global__ void __launch_bounds__(kThreads)
     col_pass_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
                     S* __restrict__ mid_re, S* __restrict__ mid_im, int n1,
@@ -91,10 +100,10 @@ __global__ void __launch_bounds__(kThreads)
     mid_re[at] = from_float<S>(o_re);
     mid_im[at] = from_float<S>(o_im);
   };
-  run_fft<BT>(op, n1, T, plan, tables, load, store);
+  run_fft<BT, kPlanar>(op, n1, T, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kInterleave, bool kTransposed>
+template <typename S, int BT, bool kInterleave, bool kTransposed, bool kPlanar>
 __global__ void __launch_bounds__(kThreads)
     row_pass_kernel(const S* __restrict__ mid_re, const S* __restrict__ mid_im,
                     S* __restrict__ out_re, S* __restrict__ out_im, int n1,
@@ -127,10 +136,10 @@ __global__ void __launch_bounds__(kThreads)
       out_im[at] = from_float<S>(im);
     }
   };
-  run_fft<BT>(op, n2, T, plan, tables, load, store);
+  run_fft<BT, kPlanar>(op, n2, T, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kPacked, bool kTwiddle>
+template <typename S, int BT, bool kPacked, bool kTwiddle, bool kPlanar>
 cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
                        void* mid_im, long long batch, int n1, int n2, int T,
                        const StagePlan& plan, const float* tables,
@@ -139,7 +148,7 @@ cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
   const int elems = n1 * T;
   const int threads = elems < kThreads ? elems : kThreads;
   const size_t smem = operand_bytes(elems, BT);
-  auto kern = col_pass_kernel<S, BT, kPacked, kTwiddle>;
+  auto kern = col_pass_kernel<S, BT, kPacked, kTwiddle, kPlanar>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -151,7 +160,7 @@ cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
   return cudaGetLastError();
 }
 
-template <typename S, int BT, bool kInterleave, bool kTransposed>
+template <typename S, int BT, bool kInterleave, bool kTransposed, bool kPlanar>
 cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
                        void* out_im, long long batch, int n1, int n2, int T,
                        const StagePlan& plan, const float* tables,
@@ -159,7 +168,7 @@ cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
   const int elems = n2 * T;
   const int threads = elems < kThreads ? elems : kThreads;
   const size_t smem = operand_bytes(elems, BT);
-  auto kern = row_pass_kernel<S, BT, kInterleave, kTransposed>;
+  auto kern = row_pass_kernel<S, BT, kInterleave, kTransposed, kPlanar>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -169,6 +178,46 @@ cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
       static_cast<S*>(out_re), static_cast<S*>(out_im), n1, n2, T, plan,
       tables);
   return cudaGetLastError();
+}
+
+// The plan's engine: planar or stacked.  The R2C variants (K5, K6) take the
+// stacked engine only and are not instantiated for the planar ones.
+template <typename S, int BT, bool kPacked, bool kTwiddle>
+cudaError_t launch_col_engine(const void* in_re, const void* in_im,
+                              void* mid_re, void* mid_im, long long batch,
+                              int n1, int n2, int T, const StagePlan& plan,
+                              const float* tables, const float* p,
+                              const float* q, int t, cudaStream_t stream) {
+  if (plan.planar) {
+    if constexpr (kPacked) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_col<S, BT, kPacked, kTwiddle, true>(
+          in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tables, p, q,
+          t, stream);
+    }
+  }
+  return launch_col<S, BT, kPacked, kTwiddle, false>(
+      in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tables, p, q, t,
+      stream);
+}
+
+template <typename S, int BT, bool kInterleave, bool kTransposed>
+cudaError_t launch_row_engine(const void* mid_re, const void* mid_im,
+                              void* out_re, void* out_im, long long batch,
+                              int n1, int n2, int T, const StagePlan& plan,
+                              const float* tables, cudaStream_t stream) {
+  if (plan.planar) {
+    if constexpr (kInterleave) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_row<S, BT, kInterleave, kTransposed, true>(
+          mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tables,
+          stream);
+    }
+  }
+  return launch_row<S, BT, kInterleave, kTransposed, false>(
+      mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tables, stream);
 }
 
 inline bool lanes_ok(int n, int other, int T) {
@@ -191,8 +240,8 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
   const float* pp = static_cast<const float*>(p);
   const float* qq = static_cast<const float*>(q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_COL(S, BT)                                                   \
-  return static_cast<int>(launch_col<S, BT, kPacked, kTwiddle>(          \
+#define TFFT_COL(S, BT)                                                    \
+  return static_cast<int>(launch_col_engine<S, BT, kPacked, kTwiddle>(    \
       in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tab, pp, qq, \
       t, s))
   if (dtype == 0 && data_terms == 1) TFFT_COL(__nv_bfloat16, 1);
@@ -213,7 +262,7 @@ int row_pass(const void* mid_re, const void* mid_im, void* out_re,
   const float* tab = static_cast<const float*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFFT_ROW(S, BT)                                                      \
-  return static_cast<int>(launch_row<S, BT, kInterleave, kTransposed>(     \
+  return static_cast<int>(launch_row_engine<S, BT, kInterleave, kTransposed>( \
       mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tab, s))
   if (dtype == 0 && data_terms == 1) TFFT_ROW(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_ROW(float, 2);

@@ -1,0 +1,32 @@
+// K3: whole-transform FFT of batch-major (B, N) rows, a tile of T adjacent
+// rows per CTA.  Replaces tensorfft_tpu/ops/four_step_pallas.py
+// :fused_fft_batch_major (pallas_call at :768), which reads a (row_tile, N)
+// block, transposes it in VMEM so lanes run across transforms, runs every
+// stage and transposes back.  Here that is kernel C's in-place row pass
+// (four_step_passes.cuh, kTransposed = false) over a (1, B, N) view: each
+// CTA reads its T rows contiguously and writes them transposed into the
+// shared-memory operand ([i][lane], lanes across transforms), runs the
+// plan's stage engine (stacked or planar) with the plan's first_dot, and
+// stores each row's bins in place.
+//
+// What bounds it on the H100: the scalar-FMA stage products, as kernel A;
+// the tile lets one CTA hold T rows, so a short transform (N = 512 takes
+// T = 32) keeps 512 threads busy where kernel A gives each row its own CTA.
+// Its last-stage store is the in-place one of K4's row pass: a warp's 32
+// outputs are T rows times 32/T consecutive bins, so at T = 32 each is a
+// 1-element run in its own row.
+#include "four_step_passes.cuh"
+
+// Returns a cudaError_t code.  T: rows per CTA, dividing batch, with
+// n*T <= 16384.
+extern "C" int tfft_fused_batch_major(const void* in_re, const void* in_im,
+                                      void* out_re, void* out_im, int dtype,
+                                      int data_terms, long long batch, int n,
+                                      int T, const void* tables,
+                                      const long long* meta, void* stream) {
+  if (batch < 1 || batch > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tfft::row_pass<false, false>(in_re, in_im, out_re, out_im, dtype,
+                                      data_terms, 1, static_cast<int>(batch),
+                                      n, T, tables, meta, stream);
+}

@@ -1,10 +1,11 @@
 // Kernel A: whole-transform FFT of batch-major (B, N) rows, one CTA per row.
 //
 // Replaces the TPU kernel K1, tensorfft_tpu/ops/fused_pallas.py:fused_fft
-// (pallas_call at :971, body fused_fft_kernel_body / stage_loop), under the
-// default knobs (stacked engine, fp32 state, block complex products).  The
-// TPU kernel runs on transform-major (N, B) panels behind two XLA transposes;
-// here a CTA reads its (B, N) row directly, so no transpose exists.
+// (pallas_call at :971, body fused_fft_kernel_body / stage_loop) with fp32
+// state, under the stacked engine and, as K1b, the planar and planar_vpu
+// engines (stage_loop_planar; fft_stages.cuh).  The TPU kernel runs on
+// transform-major (N, B) panels behind two XLA transposes; here a CTA reads
+// its (B, N) row directly, so no transpose exists.
 //
 // What bounds it on the H100: the stage matmuls are scalar fp32 FMAs on the
 // CUDA cores, 4R FMAs per complex element per stage per product term, fed by
@@ -19,7 +20,7 @@
 
 namespace tfft {
 
-template <typename S, int BT>
+template <typename S, int BT, bool kPlanar>
 __global__ void __launch_bounds__(kThreads)
     fused_fft_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
                      S* __restrict__ out_re, S* __restrict__ out_im, int n,
@@ -36,17 +37,17 @@ __global__ void __launch_bounds__(kThreads)
     out_re[base + k] = from_float<S>(re);
     out_im[base + k] = from_float<S>(im);
   };
-  run_fft<BT>(op, n, 1, plan, tables, load, store);
+  run_fft<BT, kPlanar>(op, n, 1, plan, tables, load, store);
 }
 
-template <typename S, int BT>
+template <typename S, int BT, bool kPlanar>
 cudaError_t launch_fused(const void* in_re, const void* in_im, void* out_re,
                          void* out_im, long long batch, int n,
                          const StagePlan& plan, const float* tables,
                          cudaStream_t stream) {
   const int threads = n < kThreads ? n : kThreads;
   const size_t smem = operand_bytes(n, BT);
-  auto kern = fused_fft_kernel<S, BT>;
+  auto kern = fused_fft_kernel<S, BT, kPlanar>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -64,6 +65,7 @@ extern "C" const char* tfft_error_string(int err) {
 
 // Returns a cudaError_t code (0 on success).  dtype: 0 bf16 (with 1 data
 // term), 1 fp32 (with 2 or 3): the storage/operand pairs of the policies.
+// The engine is the plan's (meta's stage modes).
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
@@ -75,9 +77,12 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
     return static_cast<int>(cudaErrorInvalidValue);
   const float* t = static_cast<const float*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_FUSED(S, BT)                                                    \
-  return static_cast<int>(launch_fused<S, BT>(in_re, in_im, out_re, out_im, \
-                                              batch, n, plan, t, s))
+#define TFFT_FUSED(S, BT)                                                   \
+  return static_cast<int>(                                                 \
+      plan.planar ? launch_fused<S, BT, true>(in_re, in_im, out_re, out_im, \
+                                              batch, n, plan, t, s)         \
+                  : launch_fused<S, BT, false>(in_re, in_im, out_re,        \
+                                               out_im, batch, n, plan, t, s))
   if (dtype == 0 && data_terms == 1) TFFT_FUSED(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_FUSED(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_FUSED(float, 3);

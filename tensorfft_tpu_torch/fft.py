@@ -4,7 +4,10 @@ Transforms run along the last axis of split-planar (re, im) tensors, on the
 device the tensors are on.  Strategies (``plan.resolve_strategy()``):
 
   * FUSED      — kernel A: one CTA per (B, N) row, whole transform in shared
-                 memory (``ops/fused_cuda.py``).
+                 memory (``ops/fused_cuda.py``); under a plan with
+                 ``fused_layout="batch_major"`` and a batch that tiles
+                 (``_batch_major_ok``), K3: a tile of rows per CTA
+                 (``four_step_cuda.fused_fft_batch_major``).
   * FOUR_STEP  — kernels B and C: Bailey column pass with the four-step
                  twiddle, then the transposing row pass
                  (``ops/four_step_cuda.py``).
@@ -12,7 +15,8 @@ device the tensors are on.  Strategies (``plan.resolve_strategy()``):
   * TORCH      — ``torch.fft.fft`` in complex64, the comparison baseline.
 
 CPU tensors run the plain-torch versions of the kernels, CUDA tensors the
-kernels themselves.
+kernels themselves.  Every kernel runs the plan's stage engine (``stacked``,
+``planar`` or ``planar_vpu``).
 
 The N-D transforms (``fftn_split``, ``ifftn_split``, ``fftn``, ``ifftn``,
 ``fft2``, ``ifft2``) are row-column decompositions over the 1D engine.  A
@@ -80,9 +84,10 @@ def _fft_split_core(re, im, plan: FFTPlan, forward: bool):
             re, im, **four_step_call_kwargs(plan, forward))
     scales = stage_scales(plan.radices, plan.scaling, forward)
     if strategy is Strategy.FUSED:
-        # Batch-major natively: the kernel reads (B, N) rows, so the
-        # fused_layout knob has nothing to choose on this path.
-        return fused_cuda.fused_fft(
+        # Both kernels read (B, N) rows; "transform_major" is kernel A here.
+        fused = (four_step_cuda.fused_fft_batch_major
+                 if _batch_major_ok(plan, re.shape[0]) else fused_cuda.fused_fft)
+        return fused(
             re, im, radices=plan.radices, scales=scales, sign=sign,
             algorithm=plan.precision.dot_algorithm,
             grouped=plan.grouped, state_dtype=plan.state_dtype,
@@ -104,6 +109,22 @@ def _fft_split_core(re, im, plan: FFTPlan, forward: bool):
         x = x * total
         return x.real, x.imag
     raise ValueError(f"unhandled strategy {strategy}")
+
+
+def _batch_major_ok(plan: FFTPlan, b: int) -> bool:
+    """Whether a FUSED plan runs K3 on a batch of ``b`` rows: the JAX
+    package's rule (``tensorfft_tpu/fft.py:_batch_major_ok``), kept as it is
+    so both packages choose the same kernel.  Only ``fused_layout=
+    "batch_major"`` asks for it, and the row tile (the largest power-of-two
+    divisor of b, capped at 128) must hold at least 8 rows or the whole
+    batch; "auto" and "transform_major" run kernel A.
+    """
+    if plan.fused_layout != "batch_major":
+        return False
+    rt = 1
+    while rt * 2 <= 128 and b % (rt * 2) == 0:
+        rt *= 2
+    return rt >= 8 or rt == b
 
 
 def _ensure_plan(n: int, plan: Optional[FFTPlan], **kwargs) -> FFTPlan:
@@ -189,10 +210,7 @@ def ifft(x, plan: Optional[FFTPlan] = None, *, device="cuda", **plan_kwargs):
 
 
 # ---------------------------------------------------------------------------
-# Multi-dimensional transforms (port of tensorfft_tpu/fft.py:303-431).  The
-# JAX package's inner plans pass tuning="auto"; the port's tuner cache is not
-# ported, so they are the untuned plans (which the JAX package also makes on
-# the CPU, where its cache has no entry).
+# Multi-dimensional transforms (port of tensorfft_tpu/fft.py:303-431).
 # ---------------------------------------------------------------------------
 
 def _fft2_plans(h, w, plan_kwargs):
@@ -218,9 +236,12 @@ def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
                              forward, plan_kwargs)
         rest = tuple(a for a in axes_norm if a < re.ndim - 2)
         return _fftn_split(re, im, rest, plans, forward, plan_kwargs)
+    # Inner plans read the tuner cache unless the caller passes tuning=.
+    kw = dict(plan_kwargs)
+    kw.setdefault("tuning", "auto")
     if len(axes_norm) == 2 and re.ndim >= 2 and set(axes_norm) == last_two and not plans:
         h, w = re.shape[-2], re.shape[-1]
-        fused = _fft2_plans(h, w, plan_kwargs)
+        fused = _fft2_plans(h, w, kw)
         if fused is not None:
             plan_h, plan_w = fused
             batch_shape = re.shape[:-2]
@@ -255,7 +276,7 @@ def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
         im_m = torch.movedim(im, ax, -1)
         n = re_m.shape[-1]
         plan = plans.get(n) if isinstance(plans, dict) else None
-        plan = _ensure_plan(n, plan, **plan_kwargs)
+        plan = _ensure_plan(n, plan, **kw)
         re_m, im_m = _run(re_m, im_m, plan, forward, {})
         re = torch.movedim(re_m, -1, ax)
         im = torch.movedim(im_m, -1, ax)

@@ -48,6 +48,8 @@ _SIGNATURES = {
                                       _P, _P],
     "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
     "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
+    "tfft_fused_batch_major": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P,
+                               _P],
     "tfft_pack_split": [_P, _P, _P, _I, _L, _I, _P],
     "tfft_interleave_split": [_P, _P, _P, _I, _L, _I, _P],
     "tfft_untangle_fwd": [_P, _P, _P, _P, _I, _L, _I, _P, _F, _P],

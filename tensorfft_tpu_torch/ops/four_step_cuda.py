@@ -34,6 +34,14 @@ digit swap (``csrc/fft2.cu``):
   fft2_row_pass     W-point FFTs of every row of ``mid``, stored in place,
       so the output is (B, kh, kw) in natural order.
 
+K3 (``four_step_pallas.fused_fft_batch_major``) is that row pass over a
+(1, B, N) view: the whole N-point transform of a tile of adjacent rows per
+CTA, read row-contiguous and transposed into the shared-memory operand
+(``fused_fft_batch_major``, ``csrc/fused_batch_major.cu``).
+
+Every pass but K5's and K6's takes the stage engine (``stacked``,
+``planar``, ``planar_vpu``) of ``fused_cuda``.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels,
 and anything else raises.
 """
@@ -51,12 +59,14 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     MAX_CTA_ELEMS,
     check_kernel_operands,
     check_planes,
+    count_launch,
+    fused_fft_reference,
     kernel_tables,
     launch,
+    plain_pass,
     policy_codes,
-    require_default_knobs,
-    run_stages,
-    stage_table_arrays,
+    require_ported_knobs,
+    reset_launches,
 )
 from tensorfft_tpu_torch.ops.rfft_cuda import (
     interleave_split_reference,
@@ -84,6 +94,8 @@ __all__ = [
     "fft2_column_pass_reference",
     "fft2_row_pass",
     "fft2_row_pass_reference",
+    "fused_fft_batch_major",
+    "batch_major_lanes",
     "four_step_tables",
     "pass_lanes",
 ]
@@ -140,13 +152,13 @@ def _twiddle(n1, n2, lane_tile, sign, device):
 
 def column_pass_reference(re, im, *, n1, n2, radices1, scales1,
                           sign=dft.FORWARD, lane_tile=128, algorithm="bf16",
-                          first_dot="default"):
+                          first_dot="default", engine="stacked"):
     """Plain-torch kernel B: (B, N) planes -> ``mid`` (B, N), input dtype."""
     b = re.shape[0]
     cols = lambda x: x.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
-    tables = stage_table_arrays(radices1, scales1, sign, algorithm, first_dot)
-    s_re, s_im = run_stages(cols(re), cols(im), radices1, tables, algorithm,
-                            first_dot)
+    s_re, s_im = plain_pass(cols(re), cols(im), radices=radices1,
+                            scales=scales1, sign=sign, algorithm=algorithm,
+                            first_dot=first_dot, engine=engine)
     s_re = s_re.reshape(b, n2, n1).transpose(1, 2)
     s_im = s_im.reshape(b, n2, n1).transpose(1, 2)
     w_re, w_im = _twiddle(n1, n2, lane_tile, sign, re.device)
@@ -158,13 +170,13 @@ def column_pass_reference(re, im, *, n1, n2, radices1, scales1,
 
 def row_pass_reference(mid_re, mid_im, *, n1, n2, radices2, scales2,
                        sign=dft.FORWARD, algorithm="bf16",
-                       first_dot="default"):
+                       first_dot="default", engine="stacked"):
     """Plain-torch kernel C: ``mid`` (B, N) -> natural-order (B, N)."""
     b = mid_re.shape[0]
-    tables = stage_table_arrays(radices2, scales2, sign, algorithm, first_dot)
-    s_re, s_im = run_stages(mid_re.reshape(b * n1, n2),
-                            mid_im.reshape(b * n1, n2), radices2, tables,
-                            algorithm, first_dot)
+    s_re, s_im = plain_pass(mid_re.reshape(b * n1, n2),
+                            mid_im.reshape(b * n1, n2), radices=radices2,
+                            scales=scales2, sign=sign, algorithm=algorithm,
+                            first_dot=first_dot, engine=engine)
     out = lambda s, x: s.reshape(b, n1, n2).transpose(1, 2).to(x.dtype)
     return (out(s_re, mid_re).reshape(b, n1 * n2),
             out(s_im, mid_im).reshape(b, n1 * n2))
@@ -188,7 +200,7 @@ def _pass_lanes(re, im, n, other, algorithm, what):
 
 
 def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
-                sign, lane_tile, first_dot):
+                sign, lane_tile, first_dot, engine="stacked"):
     """Launch column pass ``symbol`` from ``src`` (planes or one real row
     tensor) into the ``mid`` planes; ``lanes`` columns per CTA.  A
     ``lane_tile`` of None launches a pass without the four-step twiddle (no
@@ -196,7 +208,7 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
     lanes = _pass_lanes(src[0], src[-1], n1, n2, algorithm, symbol)
     tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
                                  int(sign), algorithm, first_dot,
-                                 src[0].device)
+                                 src[0].device, engine)
     pq = ()
     if lane_tile is not None:
         p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
@@ -207,56 +219,60 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
 
 
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
-                first_dot):
+                first_dot, engine="stacked"):
     """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
     (planes or one real row tensor); ``lanes`` rows per CTA."""
     lanes = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, symbol)
     tables, meta = kernel_tables(tuple(radices2), tuple(map(float, scales2)),
                                  int(sign), algorithm, first_dot,
-                                 mid[0].device)
+                                 mid[0].device, engine)
     launch(symbol, (*mid, *dst), policy_codes(mid[0], algorithm),
            mid[0].shape[0], n1, n2, lanes, tables.data_ptr(),
            meta.ctypes.data)
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
-                lane_tile=128, algorithm="bf16", first_dot="default"):
+                lane_tile=128, algorithm="bf16", first_dot="default",
+                engine="stacked"):
     """Column pass on (B, N) planes; CUDA tensors launch kernel B, counted
-    in ``column_pass.launches``."""
+    in ``column_pass.launches`` and ``column_pass.engine_launches``."""
+    require_ported_knobs(False, "block", "float32", engine)
     check_planes(re, im, "column_pass")
     _check_split(re, n1, n2, "column_pass")
     if re.device.type == "cpu":
         return column_pass_reference(
             re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1,
             sign=sign, lane_tile=lane_tile, algorithm=algorithm,
-            first_dot=first_dot)
+            first_dot=first_dot, engine=engine)
     mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
     if re.shape[0] == 0:
         check_kernel_operands(re, im, algorithm, "column_pass")
         return mid_re, mid_im
     _col_launch("tfft_four_step_col", (re, im), (mid_re, mid_im), algorithm,
-                n1, n2, radices1, scales1, sign, lane_tile, first_dot)
-    column_pass.launches += 1
+                n1, n2, radices1, scales1, sign, lane_tile, first_dot, engine)
+    count_launch(column_pass, engine)
     return mid_re, mid_im
 
 
 def row_pass(mid_re, mid_im, *, n1, n2, radices2, scales2, sign=dft.FORWARD,
-             algorithm="bf16", first_dot="default"):
+             algorithm="bf16", first_dot="default", engine="stacked"):
     """Row pass on ``mid`` (B, N) planes; CUDA tensors launch kernel C,
-    counted in ``row_pass.launches``."""
+    counted in ``row_pass.launches`` and ``row_pass.engine_launches``."""
+    require_ported_knobs(False, "block", "float32", engine)
     check_planes(mid_re, mid_im, "row_pass")
     _check_split(mid_re, n1, n2, "row_pass")
     if mid_re.device.type == "cpu":
         return row_pass_reference(
             mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-            sign=sign, algorithm=algorithm, first_dot=first_dot)
+            sign=sign, algorithm=algorithm, first_dot=first_dot,
+            engine=engine)
     out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
     if mid_re.shape[0] == 0:
         check_kernel_operands(mid_re, mid_im, algorithm, "row_pass")
         return out_re, out_im
     _row_launch("tfft_four_step_row", (mid_re, mid_im), (out_re, out_im),
-                algorithm, n1, n2, radices2, scales2, sign, first_dot)
-    row_pass.launches += 1
+                algorithm, n1, n2, radices2, scales2, sign, first_dot, engine)
+    count_launch(row_pass, engine)
     return out_re, out_im
 
 
@@ -329,8 +345,8 @@ def row_pass_interleave(mid_re, mid_im, *, n1, n2, radices2, scales2,
     return x
 
 
-column_pass.launches = 0
-row_pass.launches = 0
+reset_launches(column_pass)
+reset_launches(row_pass)
 column_pass_packed.launches = 0
 row_pass_interleave.launches = 0
 
@@ -356,25 +372,28 @@ def four_step_fft(
 ):
     """Large-N FFT on batch-major (B, N) planes, N = n1*n2; returns (B, N)
     planes in natural frequency order in the input dtype."""
-    require_default_knobs(grouped, complex_mult, state_dtype, engine)
+    require_ported_knobs(grouped, complex_mult, state_dtype, engine)
     mid_re, mid_im = column_pass(
         re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot,
+        engine=engine)
     return row_pass(
         mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot)
+        sign=sign, algorithm=algorithm, first_dot=first_dot, engine=engine)
 
 
 def four_step_fft_reference(re, im, *, n1, n2, radices1, radices2, scales1,
                             scales2, sign=dft.FORWARD, lane_tile=128,
-                            algorithm="bf16", first_dot="default"):
+                            algorithm="bf16", first_dot="default",
+                            engine="stacked"):
     """Plain-torch four-step: the two plain passes back to back."""
     mid_re, mid_im = column_pass_reference(
         re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot,
+        engine=engine)
     return row_pass_reference(
         mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot)
+        sign=sign, algorithm=algorithm, first_dot=first_dot, engine=engine)
 
 
 def four_step_fft_packed_real(
@@ -399,9 +418,11 @@ def four_step_fft_packed_real(
     N = n1*n2: ``four_step_fft(x[:, 0::2], x[:, 1::2])`` with the
     deinterleave folded into the column pass's loads.  Returns (B, N) planes
     in x's dtype.  As in the JAX package, a gridslice engine runs the
-    stacked passes (the outputs are bit-identical)."""
-    require_default_knobs(grouped, complex_mult, state_dtype,
-                          "stacked" if engine.startswith("gridslice") else engine)
+    stacked passes (the outputs are bit-identical); the planar engines are
+    not ported to this pair."""
+    require_ported_knobs(grouped, complex_mult, state_dtype,
+                         "stacked" if engine.startswith("gridslice") else engine,
+                         engines=("stacked",))
     mid_re, mid_im = column_pass_packed(
         x, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
         lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
@@ -431,8 +452,10 @@ def four_step_fft_to_real(
 ):
     """Four-step FFT of (B, N) planes whose natural-order output is
     interleaved into real (B, 2N) rows inside the row pass's store
-    (``interleave_split(*four_step_fft(re, im))``), in the input dtype."""
-    require_default_knobs(grouped, complex_mult, state_dtype, engine)
+    (``interleave_split(*four_step_fft(re, im))``), in the input dtype; the
+    planar engines are not ported to this pair."""
+    require_ported_knobs(grouped, complex_mult, state_dtype, engine,
+                         engines=("stacked",))
     mid_re, mid_im = column_pass(
         re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
         lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
@@ -454,37 +477,40 @@ def four_step_fft_to_real_reference(re, im, **kwargs):
 # -- K4: the 2D row-column FFT on (B, H, W) planes ---------------------------
 
 def fft2_column_pass_reference(re, im, *, radices1, scales1, sign=dft.FORWARD,
-                               algorithm="bf16"):
+                               algorithm="bf16", engine="stacked"):
     """Plain-torch K4 column pass: (B, H, W) planes -> ``mid`` (B, H, W) in
     the input dtype (``_col_kernel(twiddle=False)``)."""
     b, h, w = re.shape
     cols = lambda x: x.transpose(1, 2).reshape(b * w, h)
-    tables = stage_table_arrays(radices1, scales1, sign, algorithm)
-    s_re, s_im = run_stages(cols(re), cols(im), radices1, tables, algorithm)
+    s_re, s_im = plain_pass(cols(re), cols(im), radices=radices1,
+                            scales=scales1, sign=sign, algorithm=algorithm,
+                            engine=engine)
     out = lambda s, x: s.reshape(b, w, h).transpose(1, 2).to(x.dtype).contiguous()
     return out(s_re, re), out(s_im, im)
 
 
 def fft2_row_pass_reference(mid_re, mid_im, *, radices2, scales2,
-                            sign=dft.FORWARD, algorithm="bf16"):
+                            sign=dft.FORWARD, algorithm="bf16",
+                            engine="stacked"):
     """Plain-torch K4 row pass: ``mid`` (B, H, W) -> (B, kh, kw) in the
     input dtype (``_row_kernel(transposed=False)``)."""
     b, h, w = mid_re.shape
-    tables = stage_table_arrays(radices2, scales2, sign, algorithm)
-    s_re, s_im = run_stages(mid_re.reshape(b * h, w), mid_im.reshape(b * h, w),
-                            radices2, tables, algorithm)
+    s_re, s_im = plain_pass(mid_re.reshape(b * h, w), mid_im.reshape(b * h, w),
+                            radices=radices2, scales=scales2, sign=sign,
+                            algorithm=algorithm, engine=engine)
     return (s_re.reshape(b, h, w).to(mid_re.dtype),
             s_im.reshape(b, h, w).to(mid_im.dtype))
 
 
 def fft2_fused_reference(re, im, *, radices1, radices2, scales1, scales2,
-                         sign=dft.FORWARD, algorithm="bf16"):
+                         sign=dft.FORWARD, algorithm="bf16", engine="stacked"):
     """Plain-torch K4: the two plain passes back to back."""
     mid = fft2_column_pass_reference(re, im, radices1=radices1,
                                      scales1=scales1, sign=sign,
-                                     algorithm=algorithm)
+                                     algorithm=algorithm, engine=engine)
     return fft2_row_pass_reference(*mid, radices2=radices2, scales2=scales2,
-                                   sign=sign, algorithm=algorithm)
+                                   sign=sign, algorithm=algorithm,
+                                   engine=engine)
 
 
 def _check_volumes(re, im, axis, radices, what):
@@ -496,47 +522,51 @@ def _check_volumes(re, im, axis, radices, what):
 
 
 def fft2_column_pass(re, im, *, radices1, scales1, sign=dft.FORWARD,
-                     algorithm="bf16"):
+                     algorithm="bf16", engine="stacked"):
     """K4 column pass on (B, H, W) planes; CUDA tensors launch the column
-    kernel, counted in ``fft2_column_pass.launches``."""
+    kernel, counted in ``fft2_column_pass.launches`` and
+    ``fft2_column_pass.engine_launches``."""
+    require_ported_knobs(False, "block", "float32", engine)
     _check_volumes(re, im, 1, radices1, "fft2_column_pass")
     if re.device.type == "cpu":
         return fft2_column_pass_reference(re, im, radices1=radices1,
                                           scales1=scales1, sign=sign,
-                                          algorithm=algorithm)
+                                          algorithm=algorithm, engine=engine)
     b, h, w = re.shape
     mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         check_kernel_operands(re, im, algorithm, "fft2_column_pass")
         return mid_re, mid_im
     _col_launch("tfft_fft2_col", (re, im), (mid_re, mid_im), algorithm, h, w,
-                radices1, scales1, sign, None, "default")
-    fft2_column_pass.launches += 1
+                radices1, scales1, sign, None, "default", engine)
+    count_launch(fft2_column_pass, engine)
     return mid_re, mid_im
 
 
 def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
-                  algorithm="bf16"):
+                  algorithm="bf16", engine="stacked"):
     """K4 row pass on ``mid`` (B, H, W) planes; CUDA tensors launch the row
-    kernel, counted in ``fft2_row_pass.launches``."""
+    kernel, counted in ``fft2_row_pass.launches`` and
+    ``fft2_row_pass.engine_launches``."""
+    require_ported_knobs(False, "block", "float32", engine)
     _check_volumes(mid_re, mid_im, 2, radices2, "fft2_row_pass")
     if mid_re.device.type == "cpu":
         return fft2_row_pass_reference(mid_re, mid_im, radices2=radices2,
                                        scales2=scales2, sign=sign,
-                                       algorithm=algorithm)
+                                       algorithm=algorithm, engine=engine)
     b, h, w = mid_re.shape
     out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
     if b == 0:
         check_kernel_operands(mid_re, mid_im, algorithm, "fft2_row_pass")
         return out_re, out_im
     _row_launch("tfft_fft2_row", (mid_re, mid_im), (out_re, out_im),
-                algorithm, h, w, radices2, scales2, sign, "default")
-    fft2_row_pass.launches += 1
+                algorithm, h, w, radices2, scales2, sign, "default", engine)
+    count_launch(fft2_row_pass, engine)
     return out_re, out_im
 
 
-fft2_column_pass.launches = 0
-fft2_row_pass.launches = 0
+reset_launches(fft2_column_pass)
+reset_launches(fft2_row_pass)
 
 
 def fft2_fused(
@@ -560,9 +590,77 @@ def fft2_fused(
     passes run the plain (``"default"``) first stage whatever the plans'
     ``first_dot``."""
     grouped1, grouped2 = grouped if isinstance(grouped, tuple) else (grouped,) * 2
-    require_default_knobs(grouped1 or grouped2, complex_mult, state_dtype, engine)
+    require_ported_knobs(grouped1 or grouped2, complex_mult, state_dtype, engine)
     mid_re, mid_im = fft2_column_pass(re, im, radices1=radices1,
                                       scales1=scales1, sign=sign,
-                                      algorithm=algorithm)
+                                      algorithm=algorithm, engine=engine)
     return fft2_row_pass(mid_re, mid_im, radices2=radices2, scales2=scales2,
-                         sign=sign, algorithm=algorithm)
+                         sign=sign, algorithm=algorithm, engine=engine)
+
+
+# -- K3: the whole transform on (B, N) row tiles -------------------------------
+
+def batch_major_lanes(n: int, b: int) -> int:
+    """Rows one K3 CTA transforms: the largest power of two <= min(row tile,
+    64) with n * lanes <= 16384, where the row tile is the TPU kernel's, the
+    largest power-of-two divisor of b capped at 128."""
+    row_tile = 1
+    while row_tile * 2 <= 128 and b % (row_tile * 2) == 0:
+        row_tile *= 2
+    lanes = 1
+    while (lanes * 2 <= min(row_tile, _MAX_LANES)
+           and n * lanes * 2 <= MAX_CTA_ELEMS):
+        lanes *= 2
+    return lanes
+
+
+def fused_fft_batch_major(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    *,
+    radices: Tuple[int, ...],
+    scales: Tuple[float, ...],
+    sign: int = dft.FORWARD,
+    algorithm: str = "bf16",
+    grouped: bool = False,
+    state_dtype: str = "float32",
+    complex_mult: str = "block",
+    first_dot: str = "default",
+    engine: str = "stacked",
+):
+    """Whole-transform FFT along the last axis of (B, N) planes, a tile of
+    ``batch_major_lanes(N, B)`` rows per CTA (K3,
+    ``four_step_pallas.fused_fft_batch_major``; ``csrc/fused_batch_major.cu``).
+
+    The same function as kernel A (``fused_cuda.fused_fft``), whose plain
+    version it shares.  CUDA tensors launch the kernel, counted in
+    ``fused_fft_batch_major.launches`` and ``.engine_launches``.
+    """
+    require_ported_knobs(grouped, complex_mult, state_dtype, engine)
+    check_planes(re, im, "fused_fft_batch_major")
+    b, n = re.shape
+    radices = tuple(int(r) for r in radices)
+    if math.prod(radices) != n:
+        raise ValueError(f"radices {radices} do not multiply to N={n}")
+    if re.device.type == "cpu":
+        return fused_fft_reference(re, im, radices=radices, scales=scales,
+                                   sign=sign, algorithm=algorithm,
+                                   first_dot=first_dot, engine=engine)
+    check_kernel_operands(re, im, algorithm, "fused_fft_batch_major")
+    if n > MAX_CTA_ELEMS:
+        raise ValueError(f"fused_fft_batch_major: N={n} exceeds one CTA "
+                         f"({MAX_CTA_ELEMS}); use the four-step plan")
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    if b == 0:
+        return out_re, out_im
+    tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
+                                 int(sign), algorithm, first_dot, re.device,
+                                 engine)
+    launch("tfft_fused_batch_major", (re, im, out_re, out_im),
+           policy_codes(re, algorithm), b, n, batch_major_lanes(n, b),
+           tables.data_ptr(), meta.ctypes.data)
+    count_launch(fused_fft_batch_major, engine)
+    return out_re, out_im
+
+
+reset_launches(fused_fft_batch_major)

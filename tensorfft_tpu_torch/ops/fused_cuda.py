@@ -1,20 +1,31 @@
 """Fused whole-transform FFT: kernel A (``csrc/fused_fft.cu``) and its plain
-torch version.
+torch version, and the stage engines the port's kernels share.
 
 The TPU kernel (``tensorfft_tpu/ops/fused_pallas.py:fused_fft``) holds an
 (N, lane_tile) transform-major panel in VMEM; here one CTA holds one
 batch-major (B, N) row in shared memory, so no (B, N) <-> (N, B) transpose
-exists on either side of the kernel.  Each stage is the block-complex
-product BD = [[D_re, -D_im], [D_im, D_re]] applied to [z_re; z_im] with the
-1/R scale folded into D, after an fp32 twiddle multiply by W[r, k] on every
-stage but the first — the ``first`` and ``kloop``/``big`` stages of the
-default plan.
+exists on either side of the kernel.  Two stage engines:
+
+* ``stacked`` (the default): each stage is the block-complex product
+  BD = [[D_re, -D_im], [D_im, D_re]] applied to [z_re; z_im] with the 1/R
+  scale folded into D, after an fp32 twiddle multiply by W[r, k] on every
+  stage but the first (the ``first`` and ``kloop``/``big`` stages of the
+  TPU's ``stage_loop``);
+* ``planar`` and ``planar_vpu`` (K1b, ``fused_pallas.stage_loop_planar``):
+  each stage applies A = [A_re; A_im] to the real and the imaginary plane
+  as two products, u = A @ re and v = A @ im, and combines them as
+  out_re = u[:R] - v[R:], out_im = u[R:] + v[:R].  ``planar`` folds the
+  twiddle into per-slice matrices A_kk = D diag(W[:, kk]), built in fp64
+  and rounded once, on every stage with 1 < K <= 128; the first stage,
+  stages with K > 128 and every ``planar_vpu`` stage use the shared
+  [D_re; D_im] after the fp32 twiddle.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel, and
-anything else raises.  The knobs the kernel does not implement
-(``grouped``, ``complex_mult='mult3'``, ``state_dtype='bfloat16'`` and
-engines other than ``stacked``) raise ``NotImplementedError`` on every
-device.
+anything else raises.  The knobs the kernels do not implement
+(``state_dtype='bfloat16'``, the gridslice and pretwiddle engines, and
+``grouped`` or ``complex_mult='mult3'`` under the stacked engine) raise
+``NotImplementedError`` on every device; under a planar engine ``grouped``
+and ``complex_mult`` change nothing, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,18 +38,24 @@ import torch
 
 from tensorfft_tpu_torch import dft
 from tensorfft_tpu_torch.ops import _build, dots
+from tensorfft_tpu_torch.plan import PLANAR_ENGINES, PORTED_ENGINES, unported_knob
 
 __all__ = [
     "block_dft_tables",
     "stage_table_arrays",
     "run_stages",
+    "planar_stage_tables",
+    "run_stages_planar",
+    "plain_pass",
     "fused_fft",
     "fused_fft_reference",
     "kernel_tables",
     "cta_smem_bytes",
     "check_planes",
     "check_kernel_operands",
-    "require_default_knobs",
+    "require_ported_knobs",
+    "count_launch",
+    "reset_launches",
     "launch",
     "policy_codes",
     "KERNEL_DTYPES",
@@ -53,6 +70,9 @@ MAX_CTA_ELEMS = 16384
 DATA_TERMS = {"bf16": 1, "bf16ax2": 1, "bf16x3": 2, "bf16x6": 3}
 _MATRIX_TERMS = {"bf16": 1, "bf16ax2": 2, "bf16x3": 2, "bf16x6": 3}
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# Stages of the planar engine with 1 < K <= this many sub-transforms fold the
+# twiddle into per-slice matrices (fused_pallas._MAX_KLOOP).
+MAX_KLOOP = 128
 
 
 def block_dft_tables(
@@ -138,16 +158,131 @@ def run_stages(re: torch.Tensor, im: torch.Tensor, radices, tables,
     return s_re, s_im
 
 
-def require_default_knobs(grouped, complex_mult, state_dtype, engine):
-    for bad, name in ((grouped, "grouped=True"),
-                      (complex_mult != "block", f"complex_mult={complex_mult!r}"),
-                      (state_dtype != "float32", f"state_dtype={state_dtype!r}"),
-                      (engine != "stacked", f"engine={engine!r}")):
-        if bad:
-            raise NotImplementedError(
-                f"{name} is not ported: the CUDA kernels and their plain "
-                f"versions implement the default stacked engine only"
-            )
+def _stage_folds(radices, fold: bool):
+    """Per stage of the planar engine: whether its twiddle is folded into
+    per-slice matrices (1 < K <= MAX_KLOOP under ``fold``)."""
+    k = 1
+    for r in radices:
+        yield fold and 1 < k <= MAX_KLOOP
+        k *= r
+
+
+@functools.lru_cache(maxsize=None)
+def _planar_a_table(radix: int, k: int, scale: float, sign: int, fold: bool):
+    """(K, 2R, R) fp64 stage matrices of the planar engine: slice kk is
+    [Re(M_kk); Im(M_kk)] with M_kk[r_o, r_i] = D[r_o, r_i] * W[r_i, kk]
+    (``fused_pallas._planar_a_table``); without the fold, the shared
+    (1, 2R, R) [D_re; D_im]."""
+    d_re, d_im = dft.dft_matrix(radix, dtype=np.float64, sign=sign, scale=scale)
+    if not fold or k == 1:
+        return np.concatenate([d_re, d_im], axis=0)[None]
+    w_re, w_im = dft.stage_twiddle(radix, k, dtype=np.float64, sign=sign)
+    m = (d_re + 1j * d_im)[None] * (w_re + 1j * w_im).T[:, None, :]
+    return np.concatenate([m.real, m.imag], axis=1)
+
+
+def planar_stage_tables(radices, scales, sign, algorithm, fold: bool = True,
+                        first_dot: str = "default"):
+    """Table operands of the planar engine in consumption order (CPU
+    tensors): per stage the (K or 1, 2R, R) A table, then for every unfolded
+    stage after the first the fp32 (R, K) twiddle planes W_re, W_im.
+
+    A is rounded f64 -> f32 -> bf16 under the plain 'bf16' algorithm and kept
+    fp32 otherwise; a compensated ``first_dot`` keeps the first stage's fp32
+    for its split (``fused_pallas.planar_stage_tables``).
+    """
+    d_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
+    arrays, k = [], 1
+    for radix, scale, stage_fold in zip(radices, scales,
+                                        _stage_folds(radices, fold)):
+        dt = torch.float32 if (k == 1 and first_dot != "default") else d_dtype
+        a = _planar_a_table(radix, k, float(scale), sign, stage_fold)
+        arrays.append(torch.from_numpy(a.astype(np.float32)).to(dt))
+        if k > 1 and not stage_fold:
+            w_re, w_im = dft.stage_twiddle(radix, k, dtype=np.float32, sign=sign)
+            arrays += [torch.from_numpy(w_re), torch.from_numpy(w_im)]
+        k *= radix
+    return arrays
+
+
+def run_stages_planar(re: torch.Tensor, im: torch.Tensor, radices, tables,
+                      algorithm: str, first_dot: str = "default",
+                      fold: bool = True):
+    """Plain-torch planar stage sequence on batch-major (rows, n) planes.
+
+    The math of ``fused_pallas.stage_loop_planar`` with fp32 state: per stage
+    u = A @ z_re and v = A @ z_im as two ``dots.dot`` products, then
+    out_re = u[:R] - v[R:] and out_im = u[R:] + v[:R].  Returns fp32 (re, im)
+    planes in natural order.
+    """
+    rows, n = re.shape
+    s_re = re.to(torch.float32)
+    s_im = im.to(torch.float32)
+    tables = [t.to(re.device) for t in tables]
+    k, m, ti = 1, n, 0
+    for j, (r, stage_fold) in enumerate(zip(radices, _stage_folds(radices, fold))):
+        m //= r
+        a = tables[ti]
+        ti += 1
+        # (k, r, rows, m): digit r of sub-transform kk, every row and mm.
+        z_re = s_re.reshape(rows, k, r, m).permute(1, 2, 0, 3)
+        z_im = s_im.reshape(rows, k, r, m).permute(1, 2, 0, 3)
+        if k > 1 and not stage_fold:
+            w_re = tables[ti].T.reshape(k, r, 1, 1)
+            w_im = tables[ti + 1].T.reshape(k, r, 1, 1)
+            ti += 2
+            z_re, z_im = z_re * w_re - z_im * w_im, z_re * w_im + z_im * w_re
+        alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
+        if stage_fold:  # slice kk's own A_kk: (k, 2R, R) @ (k, R, rows*m)
+            prod = lambda z: dots.dot(a, z.reshape(k, r, rows * m), alg)
+        else:           # the shared A: (2R, R) @ (R, k*rows*m)
+            prod = lambda z: dots.dot(a[0], z.transpose(0, 1).reshape(r, -1),
+                                      alg).reshape(2 * r, k, -1).transpose(0, 1)
+        u, v = prod(z_re), prod(z_im)  # (k, 2R, rows*m)
+        o_re = u[:, :r] - v[:, r:]
+        o_im = u[:, r:] + v[:, :r]
+        # (k, r_out, rows, m) -> state index (r_out*k + kk)*m + mm
+        s_re = o_re.reshape(k, r, rows, m).permute(2, 1, 0, 3).reshape(rows, n)
+        s_im = o_im.reshape(k, r, rows, m).permute(2, 1, 0, 3).reshape(rows, n)
+        k *= r
+    return s_re, s_im
+
+
+def plain_pass(re, im, *, radices, scales, sign, algorithm,
+               first_dot="default", engine="stacked"):
+    """One pass's stage sequence in plain torch under ``engine``: fp32
+    (re, im) planes in natural order from (rows, n) planes."""
+    if engine in PLANAR_ENGINES:
+        tables = planar_stage_tables(radices, scales, sign, algorithm,
+                                     fold=engine == "planar", first_dot=first_dot)
+        return run_stages_planar(re, im, radices, tables, algorithm, first_dot,
+                                 fold=engine == "planar")
+    tables = stage_table_arrays(radices, scales, sign, algorithm, first_dot)
+    return run_stages(re, im, radices, tables, algorithm, first_dot)
+
+
+def require_ported_knobs(grouped, complex_mult, state_dtype, engine,
+                         engines=PORTED_ENGINES):
+    """Raise ``NotImplementedError`` for a knob the kernels and their plain
+    versions do not implement (``plan.unported_knob``)."""
+    bad = unported_knob(engine, state_dtype, grouped, complex_mult, engines)
+    if bad is not None:
+        raise NotImplementedError(
+            f"{bad} is not ported: the CUDA kernels and their plain versions "
+            f"implement the engines {', '.join(engines)} with fp32 state"
+        )
+
+
+def reset_launches(wrapper) -> None:
+    """Set a kernel wrapper's launch count, and its count per engine, to 0."""
+    wrapper.launches = 0
+    wrapper.engine_launches = dict.fromkeys(PORTED_ENGINES, 0)
+
+
+def count_launch(wrapper, engine: str) -> None:
+    """Count one launch of ``wrapper``'s kernel under ``engine``."""
+    wrapper.launches += 1
+    wrapper.engine_launches[engine] += 1
 
 
 _LAYOUTS = {2: "(B, N)", 3: "(B, H, W)"}
@@ -225,46 +360,63 @@ def policy_codes(t: torch.Tensor, algorithm: str):
 
 @functools.lru_cache(maxsize=64)
 def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
-                  sign: int, algorithm: str, first_dot: str, device):
+                  sign: int, algorithm: str, first_dot: str, device,
+                  engine: str = "stacked"):
     """Kernel operands of one pass: (tables, meta).
 
     ``tables`` is one fp32 tensor on ``device`` holding, per stage, the
-    matrix terms [term][re, im][R][R] of D = BD[:, :R] split as the stage's
-    dot algorithm splits it (the same ``dots.split_bf16`` the plain version
-    applies), then for every stage after the first the twiddle [re, im][R][K].
-    ``meta`` is the int64 host array the C launchers read: n_stages, then per
-    stage (radix, matrix terms, D offset, W offset).
+    matrix terms [term][slice][re, im][R][R] split as the stage's dot
+    algorithm splits them (the same ``dots.split_bf16`` the plain versions
+    apply), then for every stage after the first that is not folded the
+    twiddle [re, im][R][K].  The matrix is D = BD[:, :R] (stacked) or the
+    planar A table: one slice, or K per-slice A_kk on a folded stage.
+    ``meta`` is the int64 host array the C launchers read: n_stages, then
+    per stage (radix, matrix terms, matrix offset, twiddle offset), then per
+    stage its mode: 0 stacked, 1 planar with the shared table, 2 planar
+    folded.
     """
-    arrays = stage_table_arrays(radices, scales, sign, algorithm, first_dot)
-    chunks, meta, off, ti = [], [len(radices)], 0, 0
-    for j, r in enumerate(radices):
-        bd = arrays[ti]
+    planar = engine in PLANAR_ENGINES
+    if planar:
+        arrays = planar_stage_tables(radices, scales, sign, algorithm,
+                                     fold=engine == "planar", first_dot=first_dot)
+        folds = list(_stage_folds(radices, engine == "planar"))
+    else:
+        arrays = stage_table_arrays(radices, scales, sign, algorithm, first_dot)
+        folds = [False] * len(radices)
+    chunks, meta, modes, off, ti = [], [len(radices)], [], 0, 0
+    for j, (r, fold) in enumerate(zip(radices, folds)):
+        mat = arrays[ti]
         ti += 1
         alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
         terms = _MATRIX_TERMS[alg]
-        d = torch.stack([bd[:r, :r], bd[r:, :r]])  # (2, R, R): D_re, D_im
+        if planar:
+            d = mat.reshape(-1, 2, r, r)  # (slices, 2, R, R): A_re, A_im
+        else:
+            d = torch.stack([mat[:r, :r], mat[r:, :r]])  # (2, R, R): D_re, D_im
         parts = [d] if alg == "bf16" else dots.split_bf16(d, terms)
         d_off = off
         for p in parts:
             chunks.append(p.to(torch.float32).reshape(-1))
             off += p.numel()
         w_off = 0
-        if j > 0:
+        if j > 0 and not fold:
             w_off = off
             w = torch.stack([arrays[ti], arrays[ti + 1]])  # (2, R, K)
             ti += 2
             chunks.append(w.reshape(-1))
             off += w.numel()
         meta += [r, terms, d_off, w_off]
+        modes.append(2 if fold else int(planar))
     tables = torch.cat(chunks).to(device)
-    return tables, np.asarray(meta, dtype=np.int64)
+    return tables, np.asarray(meta + modes, dtype=np.int64)
 
 
 def fused_fft_reference(re, im, *, radices, scales, sign=dft.FORWARD,
-                        algorithm="bf16", first_dot="default"):
+                        algorithm="bf16", first_dot="default", engine="stacked"):
     """Plain-torch kernel A on (B, N) planes; output in the input dtype."""
-    tables = stage_table_arrays(radices, scales, sign, algorithm, first_dot)
-    o_re, o_im = run_stages(re, im, radices, tables, algorithm, first_dot)
+    o_re, o_im = plain_pass(re, im, radices=radices, scales=scales, sign=sign,
+                            algorithm=algorithm, first_dot=first_dot,
+                            engine=engine)
     return o_re.to(re.dtype), o_im.to(im.dtype)
 
 
@@ -287,9 +439,9 @@ def fused_fft(
     Output dtype matches the input (storage rounding at the HBM boundary);
     compute is fp32 with ``algorithm`` matmul operands.  CPU tensors run
     :func:`fused_fft_reference`; CUDA tensors launch kernel A, counted in
-    ``fused_fft.launches``.
+    ``fused_fft.launches`` and, per engine, ``fused_fft.engine_launches``.
     """
-    require_default_knobs(grouped, complex_mult, state_dtype, engine)
+    require_ported_knobs(grouped, complex_mult, state_dtype, engine)
     check_planes(re, im, "fused_fft")
     b, n = re.shape
     radices = tuple(int(r) for r in radices)
@@ -298,7 +450,7 @@ def fused_fft(
     if re.device.type == "cpu":
         return fused_fft_reference(re, im, radices=radices, scales=scales,
                                    sign=sign, algorithm=algorithm,
-                                   first_dot=first_dot)
+                                   first_dot=first_dot, engine=engine)
     check_kernel_operands(re, im, algorithm, "fused_fft")
     if n > MAX_CTA_ELEMS:
         raise ValueError(
@@ -309,12 +461,13 @@ def fused_fft(
     if b == 0:
         return out_re, out_im
     tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
-                                 int(sign), algorithm, first_dot, re.device)
+                                 int(sign), algorithm, first_dot, re.device,
+                                 engine)
     launch("tfft_fused_fft", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, tables.data_ptr(),
            meta.ctypes.data)
-    fused_fft.launches += 1
+    count_launch(fused_fft, engine)
     return out_re, out_im
 
 
-fused_fft.launches = 0
+reset_launches(fused_fft)

@@ -25,6 +25,9 @@ __all__ = [
     "balanced_radices",
     "optimal_radices",
     "default_four_step_split",
+    "PLANAR_ENGINES",
+    "PORTED_ENGINES",
+    "unported_knob",
 ]
 
 # Largest transform the default plan runs as one fused whole-transform pass;
@@ -164,10 +167,12 @@ class FFTPlan:
     """Immutable description of how to execute one FFT configuration.
 
     Field for field the JAX package's ``FFTPlan``.  The knobs that only shape
-    the TPU kernels' layout (``lane_tile``, ``fused_layout``, ``kloop_width``,
-    ``k1_tile``, ``interleave_downcast``) are kept so plans compare equal;
-    the CUDA kernels do not read them.  ``lane_tile`` still fixes how the
-    four-step twiddle is factored into P/Q tables, which the port reproduces.
+    the TPU kernels' layout (``lane_tile``, ``kloop_width``, ``k1_tile``,
+    ``interleave_downcast``) are kept so plans compare equal; the CUDA
+    kernels do not read them.  ``lane_tile`` still fixes how the four-step
+    twiddle is factored into P/Q tables, which the port reproduces, and
+    ``fused_layout="batch_major"`` selects the batch-major fused kernel (K3)
+    where the JAX dispatch does.
     """
 
     fft_length: int
@@ -286,8 +291,12 @@ def create_plan(
 ) -> FFTPlan:
     """Create an :class:`FFTPlan` for a power-of-two ``fft_length`` >= 2.
 
-    ``tuning`` is a dict whose keys override the computed defaults.  The
-    persistent tuner cache (``tuning="auto"``) is not ported yet.
+    ``tuning`` is a dict whose keys override the computed defaults, or
+    ``"auto"`` to look ``(fft_length, precision, platform)`` up in the tuner
+    cache (:class:`tensorfft_tpu_torch.tuning.TunerCache`; untuned if it has
+    no entry).  The platform is ``"cuda"`` when a CUDA device is available
+    and ``"cpu"`` otherwise; ``batch_hint`` selects an entry tuned at that
+    batch where one exists.
     """
     if not is_power_of_2(fft_length) or fft_length < 2:
         raise ValueError(
@@ -297,10 +306,13 @@ def create_plan(
     strategy = Strategy(strategy)
 
     if tuning == "auto":
-        raise NotImplementedError(
-            "tuning='auto' needs the tuner cache, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 11, Tuning)"
-        )
+        import torch
+
+        from tensorfft_tpu_torch.tuning import TunerCache
+
+        platform = "cuda" if torch.cuda.is_available() else "cpu"
+        tuning = TunerCache().get(fft_length, precision.value, platform,
+                                  batch=batch_hint)
 
     tuning = dict(tuning or {})
     grouped = False
@@ -382,16 +394,29 @@ def create_plan(
     )
 
 
-def _unported_knob(plan: FFTPlan) -> Optional[str]:
-    """Name of the first plan knob the CUDA kernels do not implement."""
-    if plan.grouped:
+# Stage engines the CUDA kernels implement.  Under a planar engine the
+# ``grouped`` and ``complex_mult`` knobs change nothing, as in the JAX
+# package, whose planar stage loop never reads them.
+PLANAR_ENGINES = ("planar", "planar_vpu")
+PORTED_ENGINES = ("stacked",) + PLANAR_ENGINES
+
+
+def unported_knob(engine: str, state_dtype: str, grouped: bool = False,
+                  complex_mult: str = "block",
+                  engines: Sequence[str] = PORTED_ENGINES) -> Optional[str]:
+    """Name of the first knob the CUDA kernels (and their plain versions)
+    do not implement, or None: an engine outside ``engines``, bf16 state,
+    and ``grouped`` or ``mult3`` under the stacked engine."""
+    if engine not in engines:
+        return f"engine={engine!r}"
+    if state_dtype != "float32":
+        return f"state_dtype={state_dtype!r}"
+    if engine in PLANAR_ENGINES:
+        return None
+    if grouped:
         return "grouped=True"
-    if plan.complex_mult != "block":
-        return f"complex_mult={plan.complex_mult!r}"
-    if plan.state_dtype != "float32":
-        return f"state_dtype={plan.state_dtype!r}"
-    if plan.engine != "stacked":
-        return f"engine={plan.engine!r}"
+    if complex_mult != "block":
+        return f"complex_mult={complex_mult!r}"
     return None
 
 
@@ -418,7 +443,8 @@ def plan_works_on_device(plan: FFTPlan, device="cuda") -> Tuple[bool, str]:
         return (True, "ok")
     if plan.precision is Precision.FLOAT64:
         return (False, "float64 plans are CPU/oracle-only")
-    knob = _unported_knob(plan)
+    knob = unported_knob(plan.engine, plan.state_dtype, plan.grouped,
+                         plan.complex_mult)
     if knob is not None:
         return (False, f"{knob} has no CUDA kernel yet")
     lengths = ([plan.fft_length] if resolved is Strategy.FUSED

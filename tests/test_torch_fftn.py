@@ -201,6 +201,36 @@ def test_auto_tuning_plans_untuned_on_cpu(n, precision):
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("shape", [(64, 64), (16, 64, 64)])
+def test_fftn_split_reads_the_tuner_cache(shape, precision, tmp_path, monkeypatch):
+    # A cache entry for length 64 (cpu platform) sends both K4 passes through
+    # planar_vpu with radices (8, 8); the JAX package reads the same file.
+    from tensorfft_tpu_torch.tuning import TunerCache
+
+    path = tmp_path / "cache.json"
+    cache = TunerCache(path)
+    cache.put(64, precision, "cpu", {"strategy": "fused", "radices": [8, 8],
+                                     "engine": "planar_vpu"})
+    cache.save()
+    monkeypatch.setenv("TENSORFFT_TUNER_CACHE", str(path))
+    engines = []
+    original = four_step_cuda.fft2_fused
+
+    def spy(*args, **kwargs):
+        engines.append((kwargs["engine"], kwargs["radices1"], kwargs["radices2"]))
+        return original(*args, **kwargs)
+    monkeypatch.setattr(four_step_cuda, "fft2_fused", spy)
+    (re, jre), (im, jim) = _planes(shape, precision, seed=64)
+    got = tt.fftn_split(re, im, precision=precision)
+    assert engines == [("planar_vpu", (8, 8), (8, 8))]
+    _agree(got, tfft.fftn_split(jre, jim, precision=precision), precision,
+           len(shape))
+    # An explicit tuning= overrides the cache.
+    tt.fftn_split(re, im, precision=precision, tuning={})
+    assert engines[-1] == ("stacked", (64,), (64,))
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
 def test_fftn_split_with_plans_dict(precision):
     # A plans= dict skips the 2D branch: the per-axis loop runs the given
     # plans (the bf16 ones at these lengths with the bf16ax2 first stage).

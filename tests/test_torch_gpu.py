@@ -289,3 +289,121 @@ def test_fftn_split_on_card_matches_torch_fft(cuda, precision):
     ref = torch.stack([re, im]).to(o_re.dtype).double()
     rt = 2e-2 if precision == "bfloat16" else 3e-4
     assert float((back - ref).abs().max() / ref.abs().max()) <= rt
+
+
+# -- the planar engines (K1b) in kernels A, B, C and K4, and K3 --------------
+
+PLANAR = ["planar", "planar_vpu"]
+
+
+def _engine_count(wrapper, engine):
+    return wrapper.engine_launches[engine]
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("engine", PLANAR)
+@pytest.mark.parametrize("radices", [(16, 16), (16, 16, 4), (64, 64),
+                                     (128, 128), (4, 8, 8, 64)])
+def test_planar_fused_kernel_matches_plain(cuda, radices, engine, precision):
+    # (16, 16, 4): folded stage at K = 16, then a K = 256 stage past the
+    # fold limit; at N = 1024 the bf16 plan splits the first stage (bf16ax2).
+    n = int(np.prod(radices))
+    plan = tt.create_plan(n, precision=precision)
+    dtype = plan.precision.storage_dtype
+    re, im = _planes(5, n, dtype, cuda, seed=n + len(radices))
+    kwargs = dict(radices=radices, scales=stage_scales(radices, "forward", True),
+                  algorithm=plan.precision.dot_algorithm,
+                  first_dot=plan.first_dot, engine=engine)
+    before = _engine_count(fused_cuda.fused_fft, engine)
+    got = fused_cuda.fused_fft(re, im, **kwargs)
+    torch.cuda.synchronize()
+    assert _engine_count(fused_cuda.fused_fft, engine) == before + 1
+    _hold(got, fused_cuda.fused_fft_reference(re, im, **kwargs),
+          bf16=dtype is torch.bfloat16)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("engine", PLANAR)
+@pytest.mark.parametrize("n,split", [(1 << 15, (128, 256)),
+                                     (1 << 17, (128, 1024))])
+def test_planar_four_step_kernels_match_plain(cuda, n, split, engine, precision):
+    plan = tt.create_plan(n, precision=precision,
+                          tuning={"engine": engine, "four_step_split": split})
+    kw = four_step_call_kwargs(plan, True)
+    common = dict(n1=kw["n1"], n2=kw["n2"], sign=kw["sign"],
+                  algorithm=kw["algorithm"], first_dot=kw["first_dot"],
+                  engine=engine)
+    col = dict(radices1=kw["radices1"], scales1=kw["scales1"],
+               lane_tile=kw["lane_tile"], **common)
+    row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
+    bf16 = precision == "bfloat16"
+    re, im = _planes(3, n, plan.precision.storage_dtype, cuda, seed=n)
+    before = (_engine_count(four_step_cuda.column_pass, engine),
+              _engine_count(four_step_cuda.row_pass, engine))
+    mid = four_step_cuda.column_pass_reference(re, im, **col)
+    _hold(four_step_cuda.column_pass(re, im, **col), mid, bf16,
+          FOUR_STEP_MAX_FRAC)
+    _hold(four_step_cuda.row_pass(*mid, **row),
+          four_step_cuda.row_pass_reference(*mid, **row), bf16,
+          FOUR_STEP_MAX_FRAC)
+    torch.cuda.synchronize()
+    assert (_engine_count(four_step_cuda.column_pass, engine),
+            _engine_count(four_step_cuda.row_pass, engine)) == (
+                before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("engine", PLANAR)
+@pytest.mark.parametrize("h,w", [(8, 64), (64, 128), (512, 512), (4096, 4096)])
+def test_planar_fft2_kernels_match_plain(cuda, h, w, engine, precision):
+    ph = tt.create_plan(h, precision=precision)
+    pw = tt.create_plan(w, precision=precision)
+    dtype = ph.precision.storage_dtype
+    common = dict(sign=-1, algorithm=ph.precision.dot_algorithm, engine=engine)
+    col = dict(radices1=ph.radices,
+               scales1=stage_scales(ph.radices, "forward", True), **common)
+    row = dict(radices2=pw.radices,
+               scales2=stage_scales(pw.radices, "forward", True), **common)
+    re, im = (p.reshape(2, h, w) for p in _planes(2, h * w, dtype, cuda, seed=h + w))
+    bf16 = dtype is torch.bfloat16
+    mid = four_step_cuda.fft2_column_pass_reference(re, im, **col)
+    _hold(four_step_cuda.fft2_column_pass(re, im, **col), mid, bf16,
+          FOUR_STEP_MAX_FRAC)
+    _hold(four_step_cuda.fft2_row_pass(*mid, **row),
+          four_step_cuda.fft2_row_pass_reference(*mid, **row), bf16,
+          FOUR_STEP_MAX_FRAC)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("engine", ["stacked"] + PLANAR)
+@pytest.mark.parametrize("n,b", [(256, 128), (512, 64), (1024, 24),
+                                 (4096, 16), (16384, 8)])
+def test_batch_major_kernel_matches_plain_and_kernel_a(cuda, n, b, engine,
+                                                       precision):
+    plan = tt.create_plan(n, precision=precision)
+    dtype = plan.precision.storage_dtype
+    re, im = _planes(b, n, dtype, cuda, seed=n + b)
+    kwargs = dict(radices=plan.radices,
+                  scales=stage_scales(plan.radices, "forward", True),
+                  algorithm=plan.precision.dot_algorithm,
+                  first_dot=plan.first_dot, engine=engine)
+    before = _engine_count(four_step_cuda.fused_fft_batch_major, engine)
+    got = four_step_cuda.fused_fft_batch_major(re, im, **kwargs)
+    torch.cuda.synchronize()
+    assert _engine_count(four_step_cuda.fused_fft_batch_major, engine) == before + 1
+    _hold(got, fused_cuda.fused_fft_reference(re, im, **kwargs),
+          bf16=dtype is torch.bfloat16)
+    # The same rows and plan through kernel A: each output's sums run in
+    # the same order whatever the rows per CTA.
+    _bitwise(got, fused_cuda.fused_fft(re, im, **kwargs))
+
+
+def test_fft_split_dispatches_batch_major_on_card(cuda):
+    re, im = _planes(64, 4096, torch.bfloat16, cuda, seed=11)
+    k3, a = (four_step_cuda.fused_fft_batch_major.launches,
+             fused_cuda.fused_fft.launches)
+    got = tt.fft_split(re, im, fused_layout="batch_major")
+    torch.cuda.synchronize()
+    assert (four_step_cuda.fused_fft_batch_major.launches,
+            fused_cuda.fused_fft.launches) == (k3 + 1, a)
+    _bitwise(got, tt.fft_split(re, im))

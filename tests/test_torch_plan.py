@@ -71,9 +71,10 @@ def test_precision_maps_to_torch_dtypes():
     assert tt.Strategy("torch") is tt.Strategy.TORCH
 
 
-def test_tuning_auto_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tt.create_plan(4096, tuning="auto")
+def test_tuning_auto_over_an_empty_cache_plans_untuned(tmp_path, monkeypatch):
+    monkeypatch.setenv("TENSORFFT_TUNER_CACHE", str(tmp_path / "absent.json"))
+    for n in (256, 4096, 1 << 20):
+        assert _fields(tt.create_plan(n, tuning="auto")) == _fields(tt.create_plan(n))
 
 
 @pytest.mark.parametrize("radix", [2, 8, 64, 128, 256])
@@ -114,7 +115,8 @@ def test_plan_works_on_device():
 
 def test_port_imports_without_jax():
     code = ("import sys, tensorfft_tpu_torch, tensorfft_tpu_torch.testing, "
-            "tensorfft_tpu_torch.ops.four_step_cuda, tensorfft_tpu_torch.ops.stages_torch; "
+            "tensorfft_tpu_torch.ops.four_step_cuda, tensorfft_tpu_torch.ops.stages_torch, "
+            "tensorfft_tpu_torch.tuning; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('tensorfft_tpu.') or m == 'tensorfft_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
