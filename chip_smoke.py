@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from ``tensorfft_tpu_torch/csrc`` (nvcc, at
 first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills);
-  2. drives the four main paths, each with every launch counter reset
+  2. drives the five main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
        C2C: ``fft_split`` with the default bf16 plans over the flagship
@@ -36,6 +36,23 @@ first use, one process per source), then:
             version under the same engine (on a row slice at the two
             largest shapes) and K3 against kernel A bit for bit, and each
             tuned plan passes the gate and the round trip;
+       tpu_tuned: the JAX package's TPU-tuned plans (TPU_ENTRIES, copied
+            from its tuner cache) and the pretwiddle and gridslice engines
+            through ``fft_split``/``ifft_split``, ``fftn_split``/
+            ``ifftn_split`` and ``rfft_split``/``irfft_split`` (TPU_CALLS):
+            kernel A grouped (p = 1 at N=16384 x 4096, with and without
+            mult3; p = 4 at N=512), at N=4096 under ``tuning="auto"`` with
+            both K4 passes and K3 grouped, kernels B and C grouped with a
+            bf16 state (2^20 x 16), under mult3 with a bf16 state (32768 x
+            512) and C's radix-128 mult3 stage (2^24), pretwiddle and the
+            gridslice engines (K1a, K2cg, K2rg, K6g), K5 and K6 grouped with
+            a bf16 state and under planar, and the float32 policy with
+            grouped mult3 and with a bf16 state; each call must launch
+            exactly the variants listed, each variant is held against its
+            plain version (two bf16 ulps on at most 2 % under a bf16 state),
+            pretwiddle and gridslice must equal the stacked engine bit for
+            bit, each plan passes the gate and the round trip, and the
+            bf16x6 mult3 plan at N=16384 must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -69,6 +86,8 @@ when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -134,7 +153,7 @@ KERNELS = {
                   "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:465"),
-    "four_step_row": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+    "four_step_row": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:551"),
     "pack_split": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
                    "tensorfft_tpu/ops/rfft_pallas.py:236"),
@@ -146,11 +165,11 @@ KERNELS = {
                      "tensorfft_tpu/ops/rfft_pallas.py:513"),
     "four_step_col_packed": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:943"),
-    "four_step_row_interleave": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
+    "four_step_row_interleave": ("tensorfft_tpu_torch/csrc/four_step_real_row.cu",
                                  "tensorfft_tpu/ops/four_step_pallas.py:1229"),
     "fft2_col": ("tensorfft_tpu_torch/csrc/fft2.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:646"),
-    "fft2_row": ("tensorfft_tpu_torch/csrc/fft2.cu",
+    "fft2_row": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:677"),
     # The tuned-plan path: the planar engines (K1b, stage_loop_planar) in
     # kernels A, B, C and K4, and K3.
@@ -160,11 +179,11 @@ KERNELS = {
                               "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col[planar]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:465"),
-    "four_step_row[planar]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+    "four_step_row[planar]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:551"),
     "fft2_col[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:646"),
-    "fft2_row[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2.cu",
+    "fft2_row[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:677"),
     "fused_fft_batch_major": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:768"),
@@ -172,6 +191,44 @@ KERNELS = {
         "tensorfft_tpu_torch/csrc/fused_batch_major.cu",
         "tensorfft_tpu/ops/four_step_pallas.py:768"),
 }
+# The tpu_tuned path's variants: the stacked engine under the numeric knobs
+# (grouped, mult3, bf16 state), the pretwiddle and gridslice engines, and
+# the planar engines under K5 and K6.  A variant is named by its kernel and
+# the engine and knobs in effect (fused_cuda.variant).
+_FUSED = ("tensorfft_tpu_torch/csrc/fused_fft.cu", "tensorfft_tpu/ops/fused_pallas.py:971")
+_COL = ("tensorfft_tpu_torch/csrc/four_step_fft.cu", "tensorfft_tpu/ops/four_step_pallas.py:465")
+_ROW = ("tensorfft_tpu_torch/csrc/four_step_row.cu", "tensorfft_tpu/ops/four_step_pallas.py:551")
+_PACKED = ("tensorfft_tpu_torch/csrc/four_step_real.cu", "tensorfft_tpu/ops/four_step_pallas.py:943")
+_INTERLEAVE = ("tensorfft_tpu_torch/csrc/four_step_real_row.cu",
+               "tensorfft_tpu/ops/four_step_pallas.py:1229")
+TPU_KERNELS = {
+    "fused_fft[grouped]": _FUSED,
+    "fused_fft[grouped,mult3]": _FUSED,
+    "fused_fft[bf16_state]": _FUSED,
+    "fused_fft[pretwiddle]": _FUSED,
+    "fused_fft[gridslice]": (_FUSED[0], "tensorfft_tpu/ops/fused_pallas.py:923"),
+    "four_step_col[grouped,bf16_state]": _COL,
+    "four_step_row[grouped,bf16_state]": _ROW,
+    "four_step_col[mult3,bf16_state]": _COL,
+    "four_step_row[mult3,bf16_state]": _ROW,
+    "four_step_row[mult3]": _ROW,
+    "four_step_col[pretwiddle]": _COL,
+    "four_step_row[pretwiddle]": _ROW,
+    "four_step_col[gridslice16]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:422"),
+    "four_step_row[gridslice16]": (_ROW[0], "tensorfft_tpu/ops/four_step_pallas.py:516"),
+    "four_step_col[gridslice]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:1147"),
+    "fft2_col[grouped]": ("tensorfft_tpu_torch/csrc/fft2.cu",
+                          "tensorfft_tpu/ops/four_step_pallas.py:646"),
+    "fft2_row[grouped]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
+                          "tensorfft_tpu/ops/four_step_pallas.py:677"),
+    "fused_fft_batch_major[grouped]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+                                       "tensorfft_tpu/ops/four_step_pallas.py:768"),
+    "four_step_col_packed[grouped,bf16_state]": _PACKED,
+    "four_step_row_interleave[grouped,bf16_state]": _INTERLEAVE,
+    "four_step_col_packed[planar]": _PACKED,
+    "four_step_row_interleave[planar]": _INTERLEAVE,
+}
+KERNELS.update(TPU_KERNELS)
 # The tuner cache of the tuned-plan path, bf16, platform "cuda".  The
 # n=2^23 entry is the JAX package's TPU-tuned structure for that length
 # (tensorfft_tpu/tuning/tuner_cache.json) and the n=4096 entry its TPU
@@ -201,6 +258,105 @@ TUNED_CALLS = [
 # Rows of the main path's output held against the plain versions at the
 # two largest tuned shapes.
 TUNED_HOLD_ROWS = {"planar N=16384": 256, "batch_major N=512": 8192}
+
+# The tpu_tuned path: entries of the JAX package's TPU tuner cache
+# (tensorfft_tpu/tuning/tuner_cache.json), copied literally under the key
+# named in each comment.  They are TPU structures used as test plans, not
+# CUDA tuning results; 19 of the 30 set grouped, bf16 state or mult3.
+TPU_ENTRIES = {
+    # n=16384,precision=bfloat16,platform=tpu (the bench headline)
+    16384: {"batch": 4096, "gflops": 3896.7, "grouped": True, "lane_tile": 128,
+            "radices": [64, 256], "strategy": "fused", "time_us": 1205.54},
+    # n=4096,precision=bfloat16,platform=tpu
+    4096: {"batch": 4096, "gflops": 3775.3, "grouped": True, "kloop_width": 256,
+           "lane_tile": 128, "radices": [32, 128], "strategy": "fused",
+           "time_us": 266.63},
+    # n=512,precision=bfloat16,platform=tpu
+    512: {"gflops": 7469.8, "grouped": True, "lane_tile": 128, "radices": [32, 16],
+          "strategy": "fused", "time_us": 25.27},
+    # n=1048576,precision=bfloat16,platform=tpu
+    1 << 20: {"batch": 16, "col_radices": [32, 16], "four_step_split": [512, 2048],
+              "gflops": 2325.6, "grouped": True, "k1_tile": 512, "lane_tile": 256,
+              "row_radices": [64, 32], "state_dtype": "bfloat16",
+              "strategy": "four_step", "time_us": 721.41},
+    # n=32768,precision=bfloat16,platform=tpu
+    32768: {"batch": 512, "complex_mult": "mult3", "four_step_split": [128, 256],
+            "gflops": 2230.1, "lane_tile": 128, "state_dtype": "bfloat16",
+            "strategy": "four_step", "time_us": 564.24},
+    # n=16777216,precision=bfloat16,platform=tpu
+    1 << 24: {"batch": 1, "col_radices": [64, 32], "complex_mult": "mult3",
+              "four_step_split": [2048, 8192], "gflops": 1600.1, "lane_tile": 128,
+              "row_radices": [128, 64], "strategy": "four_step", "time_us": 1258.21},
+    # n=8388608,precision=bfloat16,platform=tpu
+    1 << 23: {"batch": 2, "col_radices": [64, 32], "engine": "planar",
+              "four_step_split": [2048, 4096], "gflops": 2037.9, "grouped": True,
+              "lane_tile": 128, "row_radices": [64, 64], "strategy": "four_step",
+              "time_us": 946.73},
+}
+_R2C = ("untangle_fwd", "retangle_inv")
+# (label, route, N, batch, precision, tuning, the launches of the forward and
+# inverse call, and nothing else).  route: "c2c" (fft_split + ifft_split),
+# "batch_major" (the same with fused_layout="batch_major"), "fftn"
+# (fftn_split + ifftn_split over an N x N image) or "r2c" (rfft_split +
+# irfft_split of real N, the plan for N/2).  tuning "auto" reads a cuda
+# tuner cache holding TPU_ENTRIES[4096].
+TPU_CALLS = [
+    ("K1 grouped N=16384", "c2c", 16384, 4096, "bfloat16", TPU_ENTRIES[16384],
+     {"fused_fft[grouped]": 2}),
+    ("K1 grouped mult3 N=16384", "c2c", 16384, 4096, "bfloat16",
+     dict(TPU_ENTRIES[16384], complex_mult="mult3"), {"fused_fft[grouped,mult3]": 2}),
+    ("K1 grouped N=4096 auto", "c2c", 4096, 4096, "bfloat16", "auto",
+     {"fused_fft[grouped]": 2}),
+    ("K4 grouped 4096x4096 auto", "fftn", 4096, 1, "bfloat16", "auto",
+     {"fft2_col[grouped]": 2, "fft2_row[grouped]": 2}),
+    ("K3 grouped N=4096 auto", "batch_major", 4096, 256, "bfloat16", "auto",
+     {"fused_fft_batch_major[grouped]": 2}),
+    ("K1 grouped p=4 N=512", "c2c", 512, 4096, "bfloat16", TPU_ENTRIES[512],
+     {"fused_fft[grouped]": 2}),
+    ("K2 grouped bf16 state N=2^20", "c2c", 1 << 20, 16, "bfloat16",
+     TPU_ENTRIES[1 << 20], {"four_step_col[grouped,bf16_state]": 2,
+                            "four_step_row[grouped,bf16_state]": 2}),
+    ("K2 mult3 bf16 state N=32768", "c2c", 32768, 512, "bfloat16",
+     TPU_ENTRIES[32768], {"four_step_col[mult3,bf16_state]": 2,
+                          "four_step_row[mult3,bf16_state]": 2}),
+    ("K2 mult3 N=2^24", "c2c", 1 << 24, 1, "bfloat16", TPU_ENTRIES[1 << 24],
+     {"four_step_col": 2, "four_step_row[mult3]": 2}),
+    ("pretwiddle N=16384", "c2c", 16384, 4096, "bfloat16",
+     dict(TPU_ENTRIES[16384], engine="pretwiddle"), {"fused_fft[pretwiddle]": 2}),
+    ("pretwiddle N=2^20", "c2c", 1 << 20, 16, "bfloat16",
+     dict(TPU_ENTRIES[1 << 20], engine="pretwiddle", state_dtype="float32"),
+     {"four_step_col[pretwiddle]": 2, "four_step_row[pretwiddle]": 2}),
+    ("K1a gridslice N=16384", "c2c", 16384, 4096, "bfloat16",
+     {"strategy": "fused", "radices": [128, 128], "engine": "gridslice"},
+     {"fused_fft[gridslice]": 2}),
+    ("K2cg K2rg gridslice16 N=2^20", "c2c", 1 << 20, 16, "bfloat16",
+     {"strategy": "four_step", "four_step_split": [1024, 1024], "engine": "gridslice16"},
+     {"four_step_col[gridslice16]": 2, "four_step_row[gridslice16]": 2}),
+    ("K5 K6 grouped bf16 state real N=2^21", "r2c", 1 << 21, 16, "bfloat16",
+     TPU_ENTRIES[1 << 20],
+     {"four_step_col_packed[grouped,bf16_state]": 1,
+      "four_step_row[grouped,bf16_state]": 1, "four_step_col[grouped,bf16_state]": 1,
+      "four_step_row_interleave[grouped,bf16_state]": 1, **dict.fromkeys(_R2C, 1)}),
+    ("K6g gridslice real N=2^21", "r2c", 1 << 21, 16, "bfloat16",
+     {"strategy": "four_step", "four_step_split": [1024, 1024], "engine": "gridslice"},
+     {"four_step_col_packed": 1, "four_step_row": 1, "four_step_col[gridslice]": 1,
+      "four_step_row_interleave": 1, **dict.fromkeys(_R2C, 1)}),
+    ("K5 K6 planar real N=2^24", "r2c", 1 << 24, 2, "bfloat16", TPU_ENTRIES[1 << 23],
+     {"four_step_col_packed[planar]": 1, "four_step_row[planar]": 1,
+      "four_step_col[planar]": 1, "four_step_row_interleave[planar]": 1,
+      **dict.fromkeys(_R2C, 1)}),
+    ("K1 grouped mult3 float32 N=16384", "c2c", 16384, 256, "float32",
+     {"strategy": "fused", "radices": [64, 256], "grouped": True,
+      "complex_mult": "mult3"}, {"fused_fft[grouped,mult3]": 2}),
+    ("K1 bf16 state float32 N=4096", "c2c", 4096, 256, "float32",
+     {"state_dtype": "bfloat16"}, {"fused_fft[bf16_state]": 2}),
+]
+# Calls whose output must equal the stacked engine's bit for bit (fp32
+# state): pretwiddle runs with grouping off, gridslice keeps it.
+TPU_BITWISE = ("pretwiddle N=16384", "pretwiddle N=2^20", "K1a gridslice N=16384",
+               "K2cg K2rg gridslice16 N=2^20", "K6g gridslice real N=2^21")
+# Rows held against the plain versions where a call's input is larger.
+TPU_HOLD_ROWS = 256
 R2C_KERNELS = ("fused_fft", "four_step_col", "four_step_row", "pack_split",
                "interleave_split", "untangle_fwd", "retangle_inv",
                "four_step_col_packed", "four_step_row_interleave")
@@ -247,13 +403,19 @@ def ptxas_summary(build_log: str) -> list[str]:
 
 def pass_flops(plan, radices, elems: int, first_dot=None) -> int:
     """fp32 FLOPs of one pass's stage products (each a bf16 x bf16 product
-    accumulated in fp32) over ``elems`` complex elements; ``first_dot``
-    defaults to the plan's."""
+    accumulated in fp32) over ``elems`` complex elements: four real
+    products per stage, three on a mult3 stage; ``first_dot`` defaults to
+    the plan's."""
+    from tensorfft_tpu_torch.ops.fused_cuda import pass_stages
+
     alg = plan.precision.dot_algorithm
     first_dot = plan.first_dot if first_dot is None else first_dot
     first = first_dot if (first_dot != "default" and alg == "bf16") else alg
-    return sum(8 * r * elems * PRODUCTS[first if i == 0 else alg]
-               for i, r in enumerate(radices))
+    stages = pass_stages(tuple(radices), plan.engine, plan.grouped,
+                         plan.complex_mult)
+    return sum((6 if st.mult3 else 8) * st.radix * elems
+               * PRODUCTS[first if i == 0 else alg]
+               for i, st in enumerate(stages))
 
 
 def kernel_work(plan, batch: int):
@@ -283,8 +445,10 @@ def main() -> int:
     from tensorfft_tpu_torch.rfft import _inverse_pre_scale, _output_scale
     from tensorfft_tpu_torch.testing import (agreement, deviation, fft_oracle,
                                              make_test_signal, measure)
-    from tensorfft_tpu_torch.testing.metrics import (FOUR_STEP_MAX_FRAC,
-                                                     FUSED_MAX_FRAC)
+    from tensorfft_tpu_torch.plan import effective_state_dtype
+    from tensorfft_tpu_torch.testing.metrics import (
+        BF16_MAX_SCALE_ULPS, BF16_STATE_MAX_FRAC, BF16_STATE_MAX_SCALE_ULPS,
+        FOUR_STEP_MAX_FRAC, FUSED_MAX_FRAC)
     from tensorfft_tpu_torch.tuning import TunerCache
     from tensorfft_tpu_torch.utils.device import H100
 
@@ -331,15 +495,16 @@ def main() -> int:
 
     def launch_counts():
         """Launches per kernel, a wrapper that takes an engine counted per
-        engine: ``name`` for the stacked engine, ``name[engine]`` else."""
-        counts = {}
+        variant (``fused_cuda.variant``): ``name`` for the stacked engine
+        without knobs, ``name[variant]`` else."""
+        counts = dict.fromkeys(KERNELS, 0)
         for name, w in wrappers.items():
-            per_engine = getattr(w, "engine_launches", None)
-            if per_engine is None:
+            per_variant = getattr(w, "variant_launches", None)
+            if per_variant is None:
                 counts[name] = w.launches
                 continue
-            for engine, c in per_engine.items():
-                counts[name if engine == "stacked" else f"{name}[{engine}]"] = c
+            for v, c in per_variant.items():
+                counts[name if v == "stacked" else f"{name}[{v}]"] = c
         return counts
 
     def counted(path, required, drive):
@@ -347,7 +512,7 @@ def main() -> int:
         just after; fail unless each kernel in ``required`` was launched."""
         torch.cuda.synchronize()
         for w in wrappers.values():
-            if hasattr(w, "engine_launches"):
+            if hasattr(w, "variant_launches"):
                 fused_cuda.reset_launches(w)
             else:
                 w.launches = 0
@@ -358,7 +523,7 @@ def main() -> int:
         log(f"[main path {path}] launches "
             f"{ {name: c for name, c in counts.items() if c} }")
         for name in required:
-            if counts[name] < 1:
+            if counts.get(name, 0) < 1:
                 raise RuntimeError(f"kernel {name} was not launched on the {path} path")
         return result
 
@@ -370,6 +535,7 @@ def main() -> int:
                 raise RuntimeError(f"{label}: output {tuple(t.shape)} {t.dtype}")
 
     # -- 2. main paths, counted --------------------------------------------
+    log(f"[phase] main paths from {time.perf_counter() - t_start:.1f} s")
     data = {}
     for label, n, b in FLAGSHIP:
         data[label] = (tt.create_plan(n), *inputs(n, b, torch.bfloat16,
@@ -425,15 +591,17 @@ def main() -> int:
     del vol_spec
 
     # -- 3. kernels against their plain versions ---------------------------
+    log(f"[phase] kernels against plain versions from {time.perf_counter() - t_start:.1f} s")
     errs = {name: 0.0 for name in KERNELS}
 
-    def hold(name, label, got, want, max_frac=FUSED_MAX_FRAC, bf16=True):
+    def hold(name, label, got, want, max_frac=FUSED_MAX_FRAC, bf16=True,
+             max_ulps=BF16_MAX_SCALE_ULPS):
         a = agreement([g.float().cpu() for g in got],
                       [w.float().cpu() for w in want], bf16=bf16)
         log(f"[kernel vs plain] {name} {label}: {a}")
-        if not a.within(max_frac):
+        if not a.within(max_frac, max_ulps):
             raise RuntimeError(f"{name} disagrees with its plain version at {label}: {a}")
-        errs[name] = max(errs[name], a.max_abs_err)
+        errs[name] = max(errs.get(name, 0.0), a.max_abs_err)
 
     def bitwise(name, label, got, want):
         for g, w in zip(got, want):
@@ -442,9 +610,16 @@ def main() -> int:
         log(f"[kernel vs plain] {name} {label}: bit-identical")
 
     def pass_kwargs(plan, forward):
+        """(four_step_fft kwargs, common, column pass kwargs, row pass
+        kwargs) of ``plan``, the state dtype after the narrow-panel rule."""
         kw = four_step_call_kwargs(plan, forward)
         common = dict(n1=kw["n1"], n2=kw["n2"], sign=kw["sign"],
-                      algorithm=kw["algorithm"], first_dot=kw["first_dot"])
+                      algorithm=kw["algorithm"], first_dot=kw["first_dot"],
+                      engine=kw["engine"], grouped=kw["grouped"],
+                      complex_mult=kw["complex_mult"],
+                      state_dtype=effective_state_dtype(
+                          kw["state_dtype"], kw["n1"], kw["n2"],
+                          kw["lane_tile"], kw["k1_tile"]))
         col = dict(radices1=kw["radices1"], scales1=kw["scales1"],
                    lane_tile=kw["lane_tile"], **common)
         row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
@@ -617,6 +792,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # -- 4. reference gates and round trips --------------------------------
+    log(f"[phase] gates from {time.perf_counter() - t_start:.1f} s")
     for precision, lengths in (("bfloat16", GATE_BF16), ("float32", GATE_F32)):
         for n in lengths:
             seeds = range(1, 5 if n <= 16384 else 3)
@@ -725,17 +901,34 @@ def main() -> int:
     if rel > CONVOLVE_TOL:
         raise RuntimeError(f"fft_convolve_real off by {rel:.3e}")
 
+    @contextlib.contextmanager
+    def tuner_cache(entries, path):
+        """A bf16 ``cuda`` tuner cache holding ``entries`` (length -> entry)
+        in a temporary directory, named by TENSORFFT_TUNER_CACHE while the
+        context is open."""
+        tune_dir = tempfile.mkdtemp(prefix="tfft_tuner_")
+        cache = TunerCache(os.path.join(tune_dir, "tuner_cache.json"))
+        for n_t, entry in entries.items():
+            cache.put(n_t, "bfloat16", "cuda", entry)
+        cache.save()
+        log(f"[{path}] tuner cache {cache.path.name} (platform cuda): "
+            f"{json.dumps({str(k): v for k, v in entries.items()})}; TPU "
+            f"structures used as test plans, not CUDA tuning results")
+        saved_env = os.environ.get("TENSORFFT_TUNER_CACHE")
+        os.environ["TENSORFFT_TUNER_CACHE"] = str(cache.path)
+        try:
+            yield
+        finally:
+            if saved_env is None:
+                os.environ.pop("TENSORFFT_TUNER_CACHE", None)
+            else:
+                os.environ["TENSORFFT_TUNER_CACHE"] = saved_env
+            shutil.rmtree(tune_dir)
+
     # -- tuned: the tuned-plan path, counted, held and gated -----------------
-    tune_dir = tempfile.mkdtemp(prefix="tfft_tuner_")
-    cache = TunerCache(os.path.join(tune_dir, "tuner_cache.json"))
-    for n_t, entry in TUNED_ENTRIES.items():
-        cache.put(n_t, "bfloat16", "cuda", entry)
-    cache.save()
-    log(f"[tuned] tuner cache {cache.path.name} (platform cuda): "
-        f"{json.dumps({str(k): v for k, v in TUNED_ENTRIES.items()})}; the "
-        f"JAX package's TPU-tuned structures (n=2^23 as tuned there, n=4096 "
-        f"with the planar_vpu engine) and n=16384's default radices under "
-        f"planar, used as test structures: these are not CUDA tuning results")
+    log(f"[phase] tuned path from {time.perf_counter() - t_start:.1f} s")
+    # The JAX package's TPU-tuned structures (n=2^23 as tuned there, n=4096
+    # with the planar_vpu engine) and n=16384's default radices under planar.
     tuned_in = {label: inputs(n_t, b_t, torch.bfloat16, SEED + 11 + i)
                 for i, (label, n_t, b_t, _, _) in enumerate(TUNED_CALLS)}
     k4_tuned = {"fft2_col[planar_vpu]": 2, "fft2_row[planar_vpu]": 2}
@@ -743,7 +936,8 @@ def main() -> int:
     def expect(label, before, want):
         """Fail unless the launches since ``before`` are exactly ``want``."""
         after = launch_counts()
-        delta = {k: c - before[k] for k, c in after.items() if c != before[k]}
+        delta = {k: c - before.get(k, 0) for k, c in after.items()
+                 if c != before.get(k, 0)}
         if delta != want:
             raise RuntimeError(f"tuned call {label} launched {delta}, expected {want}")
         log(f"[tuned] {label}: launched {delta}")
@@ -766,9 +960,7 @@ def main() -> int:
         return out
 
     required = sorted({k for *_, want in TUNED_CALLS for k in want} | set(k4_tuned))
-    saved_env = os.environ.get("TENSORFFT_TUNER_CACHE")
-    os.environ["TENSORFFT_TUNER_CACHE"] = str(cache.path)
-    try:
+    with tuner_cache(TUNED_ENTRIES, "tuned"):
         tuned_plans = {label: tt.create_plan(n_t, tuning="auto", fused_layout=layout)
                        for label, n_t, _, layout, _ in TUNED_CALLS}
         plan2d = tt.create_plan(h, tuning="auto")
@@ -785,12 +977,6 @@ def main() -> int:
         back = tt.ifftn_split(*f, axes=(-2, -1))
         torch.cuda.synchronize()
         expect(f"fftn {h}x{w} gate", before, k4_tuned)
-    finally:
-        if saved_env is None:
-            os.environ.pop("TENSORFFT_TUNER_CACHE", None)
-        else:
-            os.environ["TENSORFFT_TUNER_CACHE"] = saved_env
-        shutil.rmtree(tune_dir)
     nd_gate(f"fft2 tuned {plan2d.engine} radices {plan2d.radices}", ND_IMAGE,
             "bfloat16", f, np.fft.fft2(nd_re64 + 1j * nd_im64) / (h * w),
             roundtrip(back, (nd_x_re, nd_x_im), torch.bfloat16))
@@ -877,7 +1063,314 @@ def main() -> int:
     del sig, re64, im64, x_re, x_im, f_re, f_im, r
     torch.cuda.synchronize()
 
+    # -- tpu_tuned: the JAX package's TPU-tuned plans, counted, held, gated --
+    log(f"[phase] tpu_tuned path from {time.perf_counter() - t_start:.1f} s")
+    tpu_jobs = {}  # what timing needs per variant, at the first shape that ran it
+
+    def tpu_job(name, shape, call, plain, args, io_bytes, tables,
+                ops, library=None):
+        """Register the timing of ``name``, a variant this path adds, at
+        ``shape``: ``tables`` the table_bytes arguments of its pass,
+        ``library`` a function giving (torch call, args)."""
+        if name not in TPU_KERNELS:
+            return
+        key = name if name not in tpu_jobs else f"{name} {shape}"
+        tpu_jobs.setdefault(key, dict(name=name, shape=shape, call=call,
+                                      plain=plain, args=args, io_bytes=io_bytes,
+                                      tables=tables, ops=ops, library=library))
+
+    def named(call):
+        """(the one kernel variant ``call`` launched, its output)."""
+        before = launch_counts()
+        out = call()
+        (name,) = [k for k, c in launch_counts().items() if c != before.get(k, 0)]
+        return name, out
+
+    def tol(precision, state_dtype, four_step):
+        """hold() bounds: a bf16 state two bf16 ulps on at most 2 %; else
+        the policy's fused or four-step bound."""
+        if state_dtype == "bfloat16":
+            return dict(max_frac=BF16_STATE_MAX_FRAC, bf16=True,
+                        max_ulps=BF16_STATE_MAX_SCALE_ULPS)
+        return dict(max_frac=FOUR_STEP_MAX_FRAC if four_step else FUSED_MAX_FRAC,
+                    bf16=precision == "bfloat16")
+
+    def axis_fft(x, dim=-1):
+        """The one call for ``tpu_job``: torch.fft.fft along ``dim`` of the
+        planes ``x`` as complex64, built when timed."""
+        return lambda: (lambda v: torch.fft.fft(v, dim=dim),
+                        (torch.complex(x[0].float(), x[1].float()),))
+
+    def tpu_plan(route, n_t, precision, tuning):
+        layout = "batch_major" if route == "batch_major" else None
+        return tt.create_plan(n_t // 2 if route == "r2c" else n_t,
+                              precision=precision, tuning=tuning,
+                              fused_layout=layout)
+
+    def tpu_forward_inverse(route, plan, x, tuning):
+        if route == "r2c":
+            spec = tt.rfft_split(x[0], plan)
+            return spec, (tt.irfft_split(*spec, plan),)
+        if route == "fftn":  # the inner plans read the cache ("auto")
+            spec = tt.fftn_split(*x, axes=(-2, -1))
+            return spec, tt.ifftn_split(*spec, axes=(-2, -1))
+        if tuning == "auto":
+            layout = "batch_major" if route == "batch_major" else "auto"
+            spec = tt.fft_split(*x, tuning="auto", fused_layout=layout)
+            return spec, tt.ifft_split(*spec, tuning="auto", fused_layout=layout)
+        spec = tt.fft_split(*x, plan)
+        return spec, tt.ifft_split(*spec, plan)
+
+    def state_of(plan):
+        """The state dtype the plan's passes run (narrow-panel rule)."""
+        if plan.four_step_split is None:
+            return plan.state_dtype
+        return effective_state_dtype(plan.state_dtype, *plan.four_step_split,
+                                     plan.lane_tile, plan.k1_tile)
+
+    def hold_fused(label, route, plan, x, spec, precision):
+        kw = dict(fused_kw(plan), grouped=plan.grouped,
+                  complex_mult=plan.complex_mult, state_dtype=plan.state_dtype)
+        fn = (four_step_cuda.fused_fft_batch_major if route == "batch_major"
+              else fused_cuda.fused_fft)
+        rows = slice(0, min(x[0].shape[0], TPU_HOLD_ROWS))
+        name, _ = named(lambda: fn(*(t[rows] for t in x), **kw))
+        b, n = x[0].shape
+        hold(name, f"{label} x B={b}, main path rows {rows.start}..{rows.stop - 1}",
+             [t[rows] for t in spec],
+             fused_cuda.fused_fft_reference(*(t[rows] for t in x), round_input=True,
+                                            **kw),
+             **tol(precision, plan.state_dtype, False))
+        item = x[0].element_size()
+        tpu_job(name, f"N={n} x B={b} {precision}",
+                lambda r, i: fn(r, i, **kw),
+                lambda r, i: fused_cuda.fused_fft_reference(r, i, round_input=True,
+                                                            **kw),
+                x, 4 * item * n * b,
+                [(plan, plan.radices, kw["scales"], -1)],
+                pass_flops(plan, plan.radices, n * b), axis_fft(x))
+
+    def pq_bytes(col):
+        t = min(col["lane_tile"], col["n2"])
+        return 2 * 4 * (col["n1"] * col["n2"] // t + col["n1"] * t)
+
+    def hold_passes(label, plan, x, precision, shape, col_call, col_ref, row_call,
+                    row_ref, col, row, elems, col_first_dot=None, library=False):
+        """Hold a column pass on ``x`` and a row pass on the plain column
+        pass's output against their plain versions; register both, with
+        ``torch.fft.fft`` along each pass's axis as its one call where
+        ``library`` (the K4 passes)."""
+        t = tol(precision, col["state_dtype"], True)
+        name_c, mid = named(lambda: col_call(*x, **col))
+        mid_plain = col_ref(*x, **col)
+        hold(name_c, label, mid if isinstance(mid, tuple) else [mid],
+             mid_plain if isinstance(mid_plain, tuple) else [mid_plain], **t)
+        name_r, out = named(lambda: row_call(*mid_plain, **row))
+        want = row_ref(*mid_plain, **row)
+        hold(name_r, label, out if isinstance(out, tuple) else [out],
+             want if isinstance(want, tuple) else [want], **t)
+        item = x[0].element_size()
+        radices_c = col.get("radices1")
+        tpu_job(name_c, shape, lambda *a: col_call(*a, **col),
+                lambda *a: col_ref(*a, **col), x,
+                4 * item * elems + (pq_bytes(col) if "lane_tile" in col else 0),
+                [(plan, radices_c, col["scales1"], col["sign"], col_first_dot)],
+                pass_flops(plan, radices_c, elems, col_first_dot),
+                axis_fft(x, -2) if library else None)
+        tpu_job(name_r, shape, lambda *a: row_call(*a, **row),
+                lambda *a: row_ref(*a, **row), mid_plain, 4 * item * elems,
+                [(plan, row["radices2"], row["scales2"], row["sign"], col_first_dot)],
+                pass_flops(plan, row["radices2"], elems, col_first_dot),
+                axis_fft(mid_plain, -1) if library else None)
+        return mid_plain
+
+    def tpu_holds(label, route, plan, x, spec, precision):
+        """Each kernel of one call against its plain version on the card."""
+        if route == "fftn":
+            k4 = dict(sign=-1, algorithm=plan.precision.dot_algorithm,
+                      engine=plan.engine, grouped=plan.grouped,
+                      complex_mult=plan.complex_mult, state_dtype=plan.state_dtype)
+            scales = stage_scales(plan.radices, plan.scaling, True)
+            n = plan.fft_length
+            hold_passes(label, plan, tuple(p.reshape(1, n, n) for p in x), precision,
+                        f"{n}x{n} {precision}", four_step_cuda.fft2_column_pass,
+                        four_step_cuda.fft2_column_pass_reference,
+                        four_step_cuda.fft2_row_pass,
+                        four_step_cuda.fft2_row_pass_reference,
+                        dict(radices1=plan.radices, scales1=scales, **k4),
+                        dict(radices2=plan.radices, scales2=scales, **k4), n * n,
+                        "default", library=True)
+            return
+        if plan.four_step_split is None:
+            hold_fused(label, route, plan, x, spec, precision)
+            return
+        kw, _, col, row = pass_kwargs(plan, True)
+        b, n = x[0].shape
+        shape = f"N={n} x B={b} {precision}"
+        if route == "c2c":
+            hold_passes(label, plan, x, precision, shape, four_step_cuda.column_pass,
+                        four_step_cuda.column_pass_reference, four_step_cuda.row_pass,
+                        four_step_cuda.row_pass_reference, col, row, n * b)
+            return
+        # R2C: K5 (the packed column pass, then kernel C), untangle; the
+        # inverse's retangle, kernel B (K6g under gridslice) and K6.
+        m = plan.fft_length
+        shape = f"real N={n} x B={b} {precision}"
+        k5_engine = four_step_cuda.pass_engine(plan.engine, col["radices1"],
+                                               plan.grouped, gridslice=False)
+        hold_passes(label, plan, x, precision, shape, four_step_cuda.column_pass_packed,
+                    four_step_cuda.column_pass_packed_reference, four_step_cuda.row_pass,
+                    four_step_cuda.row_pass_reference, dict(col, engine=k5_engine),
+                    dict(row, engine=k5_engine), m * b)
+        fs = float(_output_scale(plan, True))
+        z_fwd = four_step_cuda.four_step_fft_packed_real(x[0], **kw)
+        name, got = named(lambda: rfft_cuda.untangle_fwd(*z_fwd, n=n, scale=fs))
+        hold(name, label, got, rfft_cuda.untangle_fwd_reference(*z_fwd, n=n, scale=fs),
+             **tol(precision, "float32", False))
+        inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
+                   out_dtype=plan.precision.storage_dtype)
+        name, z = named(lambda: rfft_cuda.retangle_inv(*spec, **inv))
+        hold(name, label, z, rfft_cuda.retangle_inv_reference(*spec, **inv),
+             **tol(precision, "float32", False))
+        _, _, inv_col, inv_row = pass_kwargs(plan, False)
+        hold_passes(label, plan, z, precision, shape, four_step_cuda.column_pass,
+                    four_step_cuda.column_pass_reference,
+                    four_step_cuda.row_pass_interleave,
+                    four_step_cuda.row_pass_interleave_reference, inv_col, inv_row,
+                    m * b)
+
+    def tpu_bitwise(label, route, plan, x, spec, back):
+        """The call's output equals the stacked engine's (grouping off
+        under pretwiddle) bit for bit, forward and inverse."""
+        stacked = dataclasses.replace(
+            plan, engine="stacked", grouped=plan.grouped and plan.engine != "pretwiddle")
+        if route == "r2c":
+            pairs = [(spec, tt.rfft_split(x[0], stacked)),
+                     (back, (tt.irfft_split(*spec, stacked),))]
+        else:
+            pairs = [(spec, tt.fft_split(*x, stacked)),
+                     (back, tt.ifft_split(*spec, stacked))]
+        for got, want in pairs:
+            for g, s in zip(got, want):
+                if g.dtype != s.dtype or not torch.equal(g, s):
+                    raise RuntimeError(f"{label} ({plan.engine}) differs from the "
+                                       f"stacked engine")
+        log(f"[tpu_tuned] {label}: {plan.engine} bit-identical to stacked "
+            f"(forward and inverse)")
+
+    def tpu_gate(label, route, plan, want):
+        """The reference gate and round trip through the same kernels."""
+        n_t = plan.fft_length * (2 if route == "r2c" else 1)
+        precision = plan.precision.value
+        storage = plan.precision.storage_dtype
+        rt_tol = ROUNDTRIP_TOL["bfloat16" if state_of(plan) == "bfloat16" else precision]
+        before = launch_counts()
+        if route == "fftn":
+            re64, im64, x_re, x_im = nd_signal((n_t, n_t))
+            f = tt.fftn_split(x_re, x_im, axes=(-2, -1))
+            r = tt.ifftn_split(*f, axes=(-2, -1))
+            oracle = np.fft.fft2(re64 + 1j * im64) / (n_t * n_t)
+            oracle = (oracle.real, oracle.imag)
+            x = (x_re, x_im)
+        elif route == "r2c":
+            x64 = np.stack(make_test_signal(n_t, 42, 42 * 42))  # 2 real rows
+            x = (torch.from_numpy(x64).to(dev),)
+            f = tt.rfft_split(x[0], plan)
+            r = (tt.irfft_split(*f, plan),)
+            oracle = np.fft.rfft(x64, axis=-1) / n_t
+            oracle = (oracle.real, oracle.imag)
+        else:
+            sig = [make_test_signal(n_t, 42 * s, 42 * 42 * s)
+                   for s in range(1, 3 if n_t > 16384 else 9)]
+            planes = [np.stack([p[i] for p in sig]) for i in range(2)]
+            x = tuple(torch.from_numpy(p).to(dev) for p in planes)
+            f = tt.fft_split(*x, plan)
+            r = tt.ifft_split(*f, plan)
+            oracle = fft_oracle(*planes)
+        torch.cuda.synchronize()
+        expect(f"{label} gate", before, want)
+        d = deviation((f[0].double().cpu().numpy(), f[1].double().cpu().numpy()),
+                      oracle)
+        rt = roundtrip(r, x, storage)
+        ok = d.passes_reference_gate() and rt <= rt_tol
+        log(f"[tpu_tuned gate] {precision} {label} rows={x[0].shape[0]}: {d} "
+            f"roundtrip_rel={rt:.3e} (bound {rt_tol:g}) {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"tpu_tuned accuracy gate failed at {label}")
+
+    tpu_in = {}
+    for i, (label, route, n_t, b_t, precision, _, _) in enumerate(TPU_CALLS):
+        storage = torch.bfloat16 if precision == "bfloat16" else torch.float32
+        if route == "r2c":
+            tpu_in[label] = inputs(n_t, b_t, storage, SEED + 31 + i, planes=1)
+        elif route == "fftn":
+            tpu_in[label] = tuple(p.reshape(n_t, n_t) for p in
+                                  inputs(n_t * n_t, 1, storage, SEED + 31 + i))
+        else:
+            tpu_in[label] = inputs(n_t, b_t, storage, SEED + 31 + i)
+
+    def drive_tpu():
+        out = {}
+        for label, route, _, _, _, tuning, want in TPU_CALLS:
+            before = launch_counts()
+            out[label] = tpu_forward_inverse(route, tpu_plans[label], tpu_in[label],
+                                             tuning)
+            torch.cuda.synchronize()
+            expect(label, before, want)
+        return out
+
+    with tuner_cache({4096: TPU_ENTRIES[4096]}, "tpu_tuned"):
+        tpu_plans = {label: tpu_plan(route, n_t, precision, tuning)
+                     for label, route, n_t, _, precision, tuning, _ in TPU_CALLS}
+        for label, plan in tpu_plans.items():
+            ok, why = tt.plan_works_on_device(plan, "cuda")
+            log(f"[tpu_tuned] {label}: {plan.resolve_strategy().value} radices "
+                f"{plan.radices} split {plan.four_step_split} col {plan.col_radices} "
+                f"row {plan.row_radices} engine {plan.engine} grouped {plan.grouped} "
+                f"complex_mult {plan.complex_mult} state {plan.state_dtype} "
+                f"(in effect {state_of(plan)}) first_dot {plan.first_dot} "
+                f"lane_tile {plan.lane_tile} k1_tile {plan.k1_tile}; works on "
+                f"cuda: {ok} ({why})")
+            if not ok:
+                raise RuntimeError(f"tpu_tuned plan {label} refused: {why}")
+        tpu_out = counted("tpu_tuned", sorted({k for *_, want in TPU_CALLS for k in want}),
+                          drive_tpu)
+        for label, route, n_t, b_t, precision, _, want in TPU_CALLS:
+            plan, x = tpu_plans[label], tpu_in[label]
+            spec, back = tpu_out[label]
+            shape = ((b_t, n_t // 2 + 1) if route == "r2c" else x[0].shape)
+            finite(f"tpu_tuned {label}", spec, shape, x[0].dtype)
+            finite(f"tpu_tuned {label}", back, x[0].shape, x[0].dtype)
+            rt_tol = ROUNDTRIP_TOL["bfloat16" if state_of(plan) == "bfloat16"
+                                   else precision]
+            rt = roundtrip(back, x, plan.precision.storage_dtype)
+            log(f"[tpu_tuned] {label} main path roundtrip_rel={rt:.3e} (bound {rt_tol:g})")
+            if rt > rt_tol:
+                raise RuntimeError(f"tpu_tuned {label}: round trip off by {rt:.3e}")
+            tpu_holds(label, route, plan, x, spec, precision)
+            if label in TPU_BITWISE:
+                tpu_bitwise(label, route, plan, x, spec, back)
+            tpu_gate(label, route, plan, want)
+        # The bf16x6 policy with mult3 stages at N = 16384 does not fit one
+        # CTA: the planner says so and the wrapper refuses, with no fallback.
+        p6 = tt.create_plan(16384, precision="float32_x6",
+                            tuning=dict(TPU_ENTRIES[16384], complex_mult="mult3"))
+        ok, why = tt.plan_works_on_device(p6, "cuda")
+        x6 = inputs(16384, 1, torch.float32, SEED + 30)
+        try:
+            tt.fft_split(*x6, p6)
+            refused = False
+        except ValueError:
+            refused = True
+        log(f"[tpu_tuned] float32_x6 mult3 N=16384: works on cuda {ok} ({why}); "
+            f"fft_split raises ValueError: {refused}")
+        if ok or not refused:
+            raise RuntimeError("bf16x6 mult3 at N=16384 must be refused")
+    del tpu_out
+    torch.cuda.synchronize()
+
     # -- 5. timing ---------------------------------------------------------
+    log(f"[phase] timing from {time.perf_counter() - t_start:.1f} s")
     log(f"[card] {smi}; shares against the {H100.kind} data sheet: "
         f"{H100.fp32_flops / 1e12:g} TFLOP/s fp32, "
         f"{H100.bf16_flops / 1e12:g} TFLOP/s bf16, "
@@ -895,11 +1388,12 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def table_bytes(plan, radices, scales, sign, first_dot=None):
+        """Bytes of one pass's fp32 tables (folded slices included)."""
         tables, _ = fused_cuda.kernel_tables(
             tuple(radices), tuple(map(float, scales)), int(sign),
             plan.precision.dot_algorithm,
             plan.first_dot if first_dot is None else first_dot, dev,
-            plan.engine)
+            plan.engine, plan.grouped, plan.complex_mult)
         return tables.numel() * 4
 
     timing = {}  # name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by, shape)
@@ -1148,7 +1642,9 @@ def main() -> int:
     # plain version, torch.fft on the same shape and its bound; the stacked
     # kernel A on the same rows and radices beside it.
     def time_kernel(name, shape, call, plain, library, args, nbytes, ops,
-                    extra=""):
+                    extra="", record=True):
+        """Time ``name`` at ``shape``; ``record`` keeps it for the JSON line
+        (a variant's first shape)."""
         tp1 = measure(plain, args, iters=3)
         tk1 = measure(call, args, iters=10)
         tk2 = measure(call, args, iters=10)
@@ -1158,8 +1654,9 @@ def main() -> int:
         k_ms = min(tk1.average_time_ms, tk2.average_time_ms)
         p_ms = min(tp1.average_time_ms, tp2.average_time_ms)
         b_ms, b_by = bound(nbytes, ops, H100.bf16_flops)
-        timing[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                            bound_ms=b_ms, bound_by=b_by, shape=shape)
+        if record:
+            timing[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                bound_ms=b_ms, bound_by=b_by, shape=shape)
         log(f"[time] {name} {shape}: kernel {k_ms:.4f} ms (runs "
             f"{tk1.average_time_ms:.4f}, {tk2.average_time_ms:.4f}) | plain "
             f"{p_ms:.4f} ms | torch.fft "
@@ -1232,6 +1729,17 @@ def main() -> int:
                     4 * 2 * elems + table_bytes(plan2d, radices, scales, -1, "default"),
                     pass_flops(plan2d, radices, elems, "default"))
     del x_c
+
+    # The tpu_tuned path: each variant at each shape that ran it, with its
+    # bound counting the fp32 tables a folded stage reads.
+    log(f"[phase] tpu_tuned timing from {time.perf_counter() - t_start:.1f} s")
+    for key, job in tpu_jobs.items():
+        library = job["library"]() if job["library"] is not None else None
+        tables = sum(table_bytes(*t) for t in job["tables"])
+        time_kernel(job["name"], job["shape"], job["call"], job["plain"], library,
+                    job["args"], job["io_bytes"] + tables, job["ops"],
+                    extra=f" | tables {tables} B", record=key == job["name"])
+        del library
 
     kernels = []
     for name in KERNELS:

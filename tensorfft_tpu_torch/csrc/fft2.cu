@@ -1,5 +1,5 @@
-// Entry points of the 2D row-column FFT on (B, H, W) planes: the two passes
-// of K4, tensorfft_tpu/ops/four_step_pallas.py:fft2_fused, as the kTwiddle =
+// Entry point of the 2D row-column FFT's column pass on (B, H, W) planes
+// (the row pass is fft2_row.cu): the two passes of K4, tensorfft_tpu/ops/four_step_pallas.py:fft2_fused, as the kTwiddle =
 // false column pass and the kTransposed = false row pass of
 // four_step_passes.cuh.
 //
@@ -22,17 +22,4 @@ extern "C" int tfft_fft2_col(const void* in_re, const void* in_im,
   return tfft::col_pass<false, false>(in_re, in_im, mid_re, mid_im, dtype,
                                       data_terms, batch, h, w, T, tables, meta,
                                       nullptr, nullptr, 0, stream);
-}
-
-// Row pass: W-point FFTs of every row of `mid`, stored in place, so the
-// output (B, H, W) is (B, kh, kw) in natural order.  Replaces the
-// pallas_call at four_step_pallas.py:677.
-extern "C" int tfft_fft2_row(const void* mid_re, const void* mid_im,
-                             void* out_re, void* out_im, int dtype,
-                             int data_terms, long long batch, int h, int w,
-                             int T, const void* tables, const long long* meta,
-                             void* stream) {
-  return tfft::row_pass<false, false>(mid_re, mid_im, out_re, out_im, dtype,
-                                      data_terms, batch, h, w, T, tables, meta,
-                                      stream);
 }

@@ -1,4 +1,5 @@
-// C2C entry points of kernels B and C (four_step_passes.cuh).
+// C2C entry point of kernel B, the column pass (four_step_passes.cuh); kernel
+// C's is four_step_row.cu, compiled in parallel with it.
 #include "four_step_passes.cuh"
 
 // Every entry point returns a cudaError_t code.  p: (n2/t, 2, n1) fp32,
@@ -14,15 +15,4 @@ extern "C" int tfft_four_step_col(const void* in_re, const void* in_im,
   return tfft::col_pass<false, true>(in_re, in_im, mid_re, mid_im, dtype,
                                data_terms, batch, n1, n2, T, tables, meta, p,
                                q, t, stream);
-}
-
-// Row pass (kernel C): `mid` (B, N) planes -> natural-order (B, N) planes.
-extern "C" int tfft_four_step_row(const void* mid_re, const void* mid_im,
-                                  void* out_re, void* out_im, int dtype,
-                                  int data_terms, long long batch, int n1,
-                                  int n2, int T, const void* tables,
-                                  const long long* meta, void* stream) {
-  return tfft::row_pass<false, true>(mid_re, mid_im, out_re, out_im, dtype,
-                               data_terms, batch, n1, n2, T, tables, meta,
-                               stream);
 }

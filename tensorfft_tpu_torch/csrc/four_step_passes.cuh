@@ -1,18 +1,20 @@
 // Kernels B and C: the two passes of the Bailey four-step FFT on batch-major
 // (B, N) planes, N = n1 * n2, viewed as (B, n1, n2).  Templates shared by
-// the C2C entry points (four_step_fft.cu), the R2C ones (four_step_real.cu)
-// and the 2D ones (fft2.cu), which nvcc compiles in parallel.
+// the C2C entry points (four_step_fft.cu, four_step_row.cu), the R2C ones
+// (four_step_real.cu, four_step_real_row.cu) and the 2D ones (fft2.cu,
+// fft2_row.cu), which nvcc compiles in parallel.
 //
 // Kernel B (column pass) replaces K2c, tensorfft_tpu/ops/four_step_pallas.py
-// _col_kernel (pallas_call at :465): n1-point FFTs down the columns, then the
-// four-step twiddle w[k1, j2] = P[k1, j2 / t] * Q[k1, j2 % t] rebuilt from the
-// same rank-separated fp32 tables, and a store of `mid` in the STORAGE dtype
+// _col_kernel (pallas_call at :465), and K2cg, _col_kernel_gridslice (:422):
+// n1-point FFTs down the columns, then the four-step twiddle
+// w[k1, j2] = P[k1, j2 / t] * Q[k1, j2 % t] rebuilt from the same
+// rank-separated fp32 tables, and a store of `mid` in the STORAGE dtype
 // (bf16 under the bf16 policy), exactly where the TPU kernel rounds it.
 //
-// Kernel C (row pass) replaces K2r, _row_kernel (pallas_call at :551):
-// n2-point FFTs of each k1 row of `mid`, stored transposed at
-// out[b, k2, k1], so the output (B, n2, n1) is the natural-order spectrum
-// with no third pass.
+// Kernel C (row pass) replaces K2r, _row_kernel (pallas_call at :551), and
+// K2rg, _row_kernel_gridslice (:516): n2-point FFTs of each k1 row of `mid`,
+// stored transposed at out[b, k2, k1], so the output (B, n2, n1) is the
+// natural-order spectrum with no third pass.
 //
 // The real-to-complex path adds one variant of each, differing only in a
 // load or a store map (the `kPacked` / `kInterleave` template flags):
@@ -38,8 +40,12 @@
 //   32/T consecutive k2, so each row's store is a contiguous run of 32/T
 //   elements, where the transposed store writes runs of T.
 //
-// Every pass but K5's and K6's runs the plan's stage engine, stacked or
-// planar (K1b; fft_stages.cuh), as a template flag chosen at launch.
+// Every pass runs the plan's stage engine (fft_stages.cuh): stacked, stacked
+// with knobs, or planar (K1b), a template parameter chosen at launch
+// from the plan; folds, roundings and mult3 are per stage.  The JAX
+// package's gridslice passes (K2cg, K2rg and K6's column pass) defer a TPU
+// interleave to strided stores; these passes store every output from
+// registers to its place already, so a gridslice plan runs them unchanged.
 //
 // K3 (four_step_pallas.py:fused_fft_batch_major, pallas_call at :768) is the
 // kTransposed = false row pass over a (1, B, N) view: a tile of T adjacent
@@ -59,7 +65,7 @@
 
 namespace tfft {
 
-template <typename S, int BT, bool kPacked, bool kTwiddle, bool kPlanar>
+template <typename S, int BT, bool kPacked, bool kTwiddle, int kEngine>
 __global__ void __launch_bounds__(kThreads)
     col_pass_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
                     S* __restrict__ mid_re, S* __restrict__ mid_im, int n1,
@@ -100,10 +106,10 @@ __global__ void __launch_bounds__(kThreads)
     mid_re[at] = from_float<S>(o_re);
     mid_im[at] = from_float<S>(o_im);
   };
-  run_fft<BT, kPlanar>(op, n1, T, plan, tables, load, store);
+  run_fft<BT, kEngine>(op, n1, T, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kInterleave, bool kTransposed, bool kPlanar>
+template <typename S, int BT, bool kInterleave, bool kTransposed, int kEngine>
 __global__ void __launch_bounds__(kThreads)
     row_pass_kernel(const S* __restrict__ mid_re, const S* __restrict__ mid_im,
                     S* __restrict__ out_re, S* __restrict__ out_im, int n1,
@@ -136,10 +142,10 @@ __global__ void __launch_bounds__(kThreads)
       out_im[at] = from_float<S>(im);
     }
   };
-  run_fft<BT, kPlanar>(op, n2, T, plan, tables, load, store);
+  run_fft<BT, kEngine>(op, n2, T, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kPacked, bool kTwiddle, bool kPlanar>
+template <typename S, int BT, bool kPacked, bool kTwiddle, int kEngine>
 cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
                        void* mid_im, long long batch, int n1, int n2, int T,
                        const StagePlan& plan, const float* tables,
@@ -147,8 +153,8 @@ cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
                        cudaStream_t stream) {
   const int elems = n1 * T;
   const int threads = elems < kThreads ? elems : kThreads;
-  const size_t smem = operand_bytes(elems, BT);
-  auto kern = col_pass_kernel<S, BT, kPacked, kTwiddle, kPlanar>;
+  const size_t smem = operand_bytes(elems, BT, plan.sum_plane);
+  auto kern = col_pass_kernel<S, BT, kPacked, kTwiddle, kEngine>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -160,15 +166,15 @@ cudaError_t launch_col(const void* in_re, const void* in_im, void* mid_re,
   return cudaGetLastError();
 }
 
-template <typename S, int BT, bool kInterleave, bool kTransposed, bool kPlanar>
+template <typename S, int BT, bool kInterleave, bool kTransposed, int kEngine>
 cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
                        void* out_im, long long batch, int n1, int n2, int T,
                        const StagePlan& plan, const float* tables,
                        cudaStream_t stream) {
   const int elems = n2 * T;
   const int threads = elems < kThreads ? elems : kThreads;
-  const size_t smem = operand_bytes(elems, BT);
-  auto kern = row_pass_kernel<S, BT, kInterleave, kTransposed, kPlanar>;
+  const size_t smem = operand_bytes(elems, BT, plan.sum_plane);
+  auto kern = row_pass_kernel<S, BT, kInterleave, kTransposed, kEngine>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -180,26 +186,22 @@ cudaError_t launch_row(const void* mid_re, const void* mid_im, void* out_re,
   return cudaGetLastError();
 }
 
-// The plan's engine: planar or stacked.  The R2C variants (K5, K6) take the
-// stacked engine only and are not instantiated for the planar ones.
+// The plan's engine: stacked, stacked with knobs, or planar.
 template <typename S, int BT, bool kPacked, bool kTwiddle>
 cudaError_t launch_col_engine(const void* in_re, const void* in_im,
                               void* mid_re, void* mid_im, long long batch,
                               int n1, int n2, int T, const StagePlan& plan,
                               const float* tables, const float* p,
                               const float* q, int t, cudaStream_t stream) {
-  if (plan.planar) {
-    if constexpr (kPacked) {
-      return cudaErrorInvalidValue;
-    } else {
-      return launch_col<S, BT, kPacked, kTwiddle, true>(
-          in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tables, p, q,
-          t, stream);
-    }
-  }
-  return launch_col<S, BT, kPacked, kTwiddle, false>(
-      in_re, in_im, mid_re, mid_im, batch, n1, n2, T, plan, tables, p, q, t,
-      stream);
+#define TFFT_COL_ENGINE(E)                                                  \
+  return launch_col<S, BT, kPacked, kTwiddle, E>(in_re, in_im, mid_re,     \
+                                                 mid_im, batch, n1, n2, T, \
+                                                 plan, tables, p, q, t,    \
+                                                 stream)
+  if (plan.engine == kEngPlanar) TFFT_COL_ENGINE(kEngPlanar);
+  if (plan.engine == kEngKnobs) TFFT_COL_ENGINE(kEngKnobs);
+  TFFT_COL_ENGINE(kEngStacked);
+#undef TFFT_COL_ENGINE
 }
 
 template <typename S, int BT, bool kInterleave, bool kTransposed>
@@ -207,17 +209,13 @@ cudaError_t launch_row_engine(const void* mid_re, const void* mid_im,
                               void* out_re, void* out_im, long long batch,
                               int n1, int n2, int T, const StagePlan& plan,
                               const float* tables, cudaStream_t stream) {
-  if (plan.planar) {
-    if constexpr (kInterleave) {
-      return cudaErrorInvalidValue;
-    } else {
-      return launch_row<S, BT, kInterleave, kTransposed, true>(
-          mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tables,
-          stream);
-    }
-  }
-  return launch_row<S, BT, kInterleave, kTransposed, false>(
-      mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tables, stream);
+#define TFFT_ROW_ENGINE(E)                                                 \
+  return launch_row<S, BT, kInterleave, kTransposed, E>(                  \
+      mid_re, mid_im, out_re, out_im, batch, n1, n2, T, plan, tables, stream)
+  if (plan.engine == kEngPlanar) TFFT_ROW_ENGINE(kEngPlanar);
+  if (plan.engine == kEngKnobs) TFFT_ROW_ENGINE(kEngKnobs);
+  TFFT_ROW_ENGINE(kEngStacked);
+#undef TFFT_ROW_ENGINE
 }
 
 inline bool lanes_ok(int n, int other, int T) {

@@ -1,11 +1,16 @@
 // Kernel A: whole-transform FFT of batch-major (B, N) rows, one CTA per row.
 //
 // Replaces the TPU kernel K1, tensorfft_tpu/ops/fused_pallas.py:fused_fft
-// (pallas_call at :971, body fused_fft_kernel_body / stage_loop) with fp32
-// state, under the stacked engine and, as K1b, the planar and planar_vpu
-// engines (stage_loop_planar; fft_stages.cuh).  The TPU kernel runs on
-// transform-major (N, B) panels behind two XLA transposes; here a CTA reads
-// its (B, N) row directly, so no transpose exists.
+// (pallas_call at :971, body fused_fft_kernel_body / stage_loop), under the
+// stacked engine with every numeric knob (grouped, mult3, bf16 state), its
+// pretwiddle variant and, as K1b, the planar and planar_vpu engines
+// (stage_loop_planar; fft_stages.cuh).  It also replaces K1a, the gridslice
+// pallas_call at :923 (gridslice_kernel_body), which computes the stacked
+// function and defers the last stage's K-way interleave to strided output
+// stores: here the last stage already stores each output from registers to
+// its natural bin, so a gridslice plan runs this kernel unchanged.  The TPU
+// kernel runs on transform-major (N, B) panels behind two XLA transposes;
+// here a CTA reads its (B, N) row directly, so no transpose exists.
 //
 // What bounds it on the H100: the stage matmuls are scalar fp32 FMAs on the
 // CUDA cores, 4R FMAs per complex element per stage per product term, fed by
@@ -20,7 +25,7 @@
 
 namespace tfft {
 
-template <typename S, int BT, bool kPlanar>
+template <typename S, int BT, int kEngine>
 __global__ void __launch_bounds__(kThreads)
     fused_fft_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
                      S* __restrict__ out_re, S* __restrict__ out_im, int n,
@@ -37,17 +42,17 @@ __global__ void __launch_bounds__(kThreads)
     out_re[base + k] = from_float<S>(re);
     out_im[base + k] = from_float<S>(im);
   };
-  run_fft<BT, kPlanar>(op, n, 1, plan, tables, load, store);
+  run_fft<BT, kEngine>(op, n, 1, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kPlanar>
+template <typename S, int BT, int kEngine>
 cudaError_t launch_fused(const void* in_re, const void* in_im, void* out_re,
                          void* out_im, long long batch, int n,
                          const StagePlan& plan, const float* tables,
                          cudaStream_t stream) {
   const int threads = n < kThreads ? n : kThreads;
-  const size_t smem = operand_bytes(n, BT);
-  auto kern = fused_fft_kernel<S, BT, kPlanar>;
+  const size_t smem = operand_bytes(n, BT, plan.sum_plane);
+  auto kern = fused_fft_kernel<S, BT, kEngine>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -77,12 +82,16 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
     return static_cast<int>(cudaErrorInvalidValue);
   const float* t = static_cast<const float*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_FUSED(S, BT)                                                   \
-  return static_cast<int>(                                                 \
-      plan.planar ? launch_fused<S, BT, true>(in_re, in_im, out_re, out_im, \
-                                              batch, n, plan, t, s)         \
-                  : launch_fused<S, BT, false>(in_re, in_im, out_re,        \
-                                               out_im, batch, n, plan, t, s))
+#define TFFT_FUSED(S, BT)                                                     \
+  return static_cast<int>(                                                   \
+      plan.engine == kEngPlanar                                              \
+          ? launch_fused<S, BT, kEngPlanar>(in_re, in_im, out_re, out_im,    \
+                                            batch, n, plan, t, s)            \
+      : plan.engine == kEngKnobs                                             \
+          ? launch_fused<S, BT, kEngKnobs>(in_re, in_im, out_re, out_im,     \
+                                           batch, n, plan, t, s)             \
+          : launch_fused<S, BT, kEngStacked>(in_re, in_im, out_re, out_im,   \
+                                             batch, n, plan, t, s))
   if (dtype == 0 && data_terms == 1) TFFT_FUSED(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_FUSED(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_FUSED(float, 3);

@@ -15,8 +15,8 @@ device the tensors are on.  Strategies (``plan.resolve_strategy()``):
   * TORCH      — ``torch.fft.fft`` in complex64, the comparison baseline.
 
 CPU tensors run the plain-torch versions of the kernels, CUDA tensors the
-kernels themselves.  Every kernel runs the plan's stage engine (``stacked``,
-``planar`` or ``planar_vpu``).
+kernels themselves.  Every kernel runs the plan's stage engine and numeric
+knobs (``grouped``, ``complex_mult``, ``state_dtype``).
 
 The N-D transforms (``fftn_split``, ``ifftn_split``, ``fftn``, ``ifftn``,
 ``fft2``, ``ifft2``) are row-column decompositions over the 1D engine.  A
@@ -56,8 +56,9 @@ def stage_scales(radices, scaling: str, forward: bool) -> Tuple[float, ...]:
 
 
 def four_step_call_kwargs(plan: FFTPlan, forward: bool) -> dict:
-    """Keyword arguments of ``ops.four_step_cuda.four_step_fft`` for ``plan``
-    (the TPU row kernel's ``k1_tile`` has no counterpart and is not passed)."""
+    """Keyword arguments of ``ops.four_step_cuda.four_step_fft`` (and of its
+    R2C variants) for ``plan``: every knob the JAX package's call passes;
+    ``lane_tile`` and ``k1_tile`` decide the narrow-panel state rule."""
     n1, n2 = plan.four_step_split
     return dict(
         n1=n1, n2=n2,
@@ -72,6 +73,7 @@ def four_step_call_kwargs(plan: FFTPlan, forward: bool) -> dict:
         complex_mult=plan.complex_mult,
         first_dot=plan.first_dot,
         engine=plan.engine,
+        k1_tile=plan.k1_tile,
     )
 
 

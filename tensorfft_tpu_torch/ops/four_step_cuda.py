@@ -39,8 +39,16 @@ K3 (``four_step_pallas.fused_fft_batch_major``) is that row pass over a
 CTA, read row-contiguous and transposed into the shared-memory operand
 (``fused_fft_batch_major``, ``csrc/fused_batch_major.cu``).
 
-Every pass but K5's and K6's takes the stage engine (``stacked``,
-``planar``, ``planar_vpu``) of ``fused_cuda``.
+Every pass takes the stage engines and numeric knobs of ``fused_cuda``
+(``grouped``, ``complex_mult``, ``state_dtype``).  The JAX package's
+gridslice kernels (K2cg, K2rg and K6's column pass) defer a TPU interleave
+that the port's passes do not have, so here a gridslice pass is the stacked
+pass, computed bit for bit, counted under its engine's name where the JAX
+gate would run the gridslice kernel and as stacked where the JAX package
+falls back to the stacked one.  The four-step pairs (C2C, K5, K6) keep the
+JAX narrow-panel rule: bf16 state falls back to fp32 when the plan's
+``lane_tile`` or ``k1_tile`` panel is narrower than 128
+(``plan.effective_state_dtype``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels,
 and anything else raises.
@@ -60,14 +68,17 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     check_kernel_operands,
     check_planes,
     count_launch,
+    fit_lanes,
     fused_fft_reference,
     kernel_tables,
     launch,
+    pass_stages,
     plain_pass,
     policy_codes,
-    require_ported_knobs,
     reset_launches,
+    variant,
 )
+from tensorfft_tpu_torch.plan import effective_state_dtype, gridslice_fits
 from tensorfft_tpu_torch.ops.rfft_cuda import (
     interleave_split_reference,
     pack_split_reference,
@@ -150,15 +161,34 @@ def _twiddle(n1, n2, lane_tile, sign, device):
     return w_re.reshape(n1, n2), w_im.reshape(n1, n2)
 
 
+def pass_engine(engine: str, radices, grouped: bool,
+                gridslice: bool = True) -> str:
+    """The engine a pass runs under the plan's ``engine``: a gridslice
+    engine names the JAX package's gridslice pass where its gate holds (the
+    last stage emits whole slices, a multiple of the slice block, of radix
+    >= 8: ``four_step_pallas.py:366-372``, ``:490-496``, ``:1102-1104``) and
+    the stacked pass where it falls back, or always with ``gridslice=False``
+    (K5's passes, K6's row pass, K3 and K4: ``:938``, ``:978``, ``:1225``)."""
+    if not engine.startswith("gridslice"):
+        return engine
+    if gridslice and gridslice_fits(engine, radices, grouped) and radices[-1] >= 8:
+        return engine
+    return "stacked"
+
+
 def column_pass_reference(re, im, *, n1, n2, radices1, scales1,
                           sign=dft.FORWARD, lane_tile=128, algorithm="bf16",
-                          first_dot="default", engine="stacked"):
-    """Plain-torch kernel B: (B, N) planes -> ``mid`` (B, N), input dtype."""
+                          first_dot="default", engine="stacked", grouped=False,
+                          complex_mult="block", state_dtype="float32"):
+    """Plain-torch kernel B: (B, N) planes -> ``mid`` (B, N), input dtype.
+    The stage output, in the state dtype, is upcast for the fp32 P.Q
+    twiddle (``four_step_pallas.py:126-131``)."""
     b = re.shape[0]
     cols = lambda x: x.reshape(b, n1, n2).transpose(1, 2).reshape(b * n2, n1)
     s_re, s_im = plain_pass(cols(re), cols(im), radices=radices1,
                             scales=scales1, sign=sign, algorithm=algorithm,
-                            first_dot=first_dot, engine=engine)
+                            first_dot=first_dot, engine=engine, grouped=grouped,
+                            complex_mult=complex_mult, state_dtype=state_dtype)
     s_re = s_re.reshape(b, n2, n1).transpose(1, 2)
     s_im = s_im.reshape(b, n2, n1).transpose(1, 2)
     w_re, w_im = _twiddle(n1, n2, lane_tile, sign, re.device)
@@ -170,13 +200,15 @@ def column_pass_reference(re, im, *, n1, n2, radices1, scales1,
 
 def row_pass_reference(mid_re, mid_im, *, n1, n2, radices2, scales2,
                        sign=dft.FORWARD, algorithm="bf16",
-                       first_dot="default", engine="stacked"):
+                       first_dot="default", engine="stacked", grouped=False,
+                       complex_mult="block", state_dtype="float32"):
     """Plain-torch kernel C: ``mid`` (B, N) -> natural-order (B, N)."""
     b = mid_re.shape[0]
     s_re, s_im = plain_pass(mid_re.reshape(b * n1, n2),
                             mid_im.reshape(b * n1, n2), radices=radices2,
                             scales=scales2, sign=sign, algorithm=algorithm,
-                            first_dot=first_dot, engine=engine)
+                            first_dot=first_dot, engine=engine, grouped=grouped,
+                            complex_mult=complex_mult, state_dtype=state_dtype)
     out = lambda s, x: s.reshape(b, n1, n2).transpose(1, 2).to(x.dtype)
     return (out(s_re, mid_re).reshape(b, n1 * n2),
             out(s_im, mid_im).reshape(b, n1 * n2))
@@ -187,28 +219,45 @@ def _check_split(re, n1, n2, what):
         raise ValueError(f"{what}: N={re.shape[1]} != n1*n2 = {n1}*{n2}")
 
 
-def _pass_lanes(re, im, n, other, algorithm, what):
-    """Shared launcher checks; returns the pass's lanes per CTA."""
+def _pass_lanes(re, im, n, other, algorithm, stages, what):
+    """Shared launcher checks; returns the pass's lanes per CTA, halved
+    while mult3's third operand plane does not fit one CTA."""
     check_kernel_operands(re, im, algorithm, what)
-    lanes = pass_lanes(n, other)
-    if n * lanes > MAX_CTA_ELEMS:
+    if n > MAX_CTA_ELEMS:
         raise ValueError(
             f"{what}: length {n} exceeds one CTA ({MAX_CTA_ELEMS}); lower "
             f"max_fused_length"
         )
-    return lanes
+    return fit_lanes(n, pass_lanes(n, other), algorithm, stages, what)
+
+
+def _knobs(engine, grouped, complex_mult, state_dtype):
+    return dict(engine=engine, grouped=grouped, complex_mult=complex_mult,
+                state_dtype=state_dtype)
+
+
+def _pass_tables(radices, scales, sign, algorithm, first_dot, device, knobs):
+    """(stages, tables, meta) of one pass: every pass but kernel A's rounds
+    its input to a bf16 state."""
+    stages = pass_stages(tuple(radices), knobs["engine"], knobs["grouped"],
+                         knobs["complex_mult"], knobs["state_dtype"])
+    tables, meta = kernel_tables(tuple(radices), tuple(map(float, scales)),
+                                 int(sign), algorithm, first_dot, device,
+                                 knobs["engine"], knobs["grouped"],
+                                 knobs["complex_mult"], knobs["state_dtype"],
+                                 True)
+    return stages, tables, meta
 
 
 def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
-                sign, lane_tile, first_dot, engine="stacked"):
+                sign, lane_tile, first_dot, knobs):
     """Launch column pass ``symbol`` from ``src`` (planes or one real row
-    tensor) into the ``mid`` planes; ``lanes`` columns per CTA.  A
+    tensor) into the ``mid`` planes; returns the pass's variant.  A
     ``lane_tile`` of None launches a pass without the four-step twiddle (no
     P/Q operands)."""
-    lanes = _pass_lanes(src[0], src[-1], n1, n2, algorithm, symbol)
-    tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
-                                 int(sign), algorithm, first_dot,
-                                 src[0].device, engine)
+    stages, tables, meta = _pass_tables(radices1, scales1, sign, algorithm,
+                                        first_dot, src[0].device, knobs)
+    lanes = _pass_lanes(src[0], src[-1], n1, n2, algorithm, stages, symbol)
     pq = ()
     if lane_tile is not None:
         p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
@@ -216,139 +265,171 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
     launch(symbol, (*src, *mid), policy_codes(src[0], algorithm),
            src[0].shape[0], n1, n2, lanes, tables.data_ptr(),
            meta.ctypes.data, *pq)
+    return variant(knobs["engine"], stages, knobs["state_dtype"])
 
 
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
-                first_dot, engine="stacked"):
+                first_dot, knobs):
     """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
-    (planes or one real row tensor); ``lanes`` rows per CTA."""
-    lanes = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, symbol)
-    tables, meta = kernel_tables(tuple(radices2), tuple(map(float, scales2)),
-                                 int(sign), algorithm, first_dot,
-                                 mid[0].device, engine)
+    (planes or one real row tensor); returns the pass's variant."""
+    stages, tables, meta = _pass_tables(radices2, scales2, sign, algorithm,
+                                        first_dot, mid[0].device, knobs)
+    lanes = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, stages, symbol)
     launch(symbol, (*mid, *dst), policy_codes(mid[0], algorithm),
            mid[0].shape[0], n1, n2, lanes, tables.data_ptr(),
            meta.ctypes.data)
+    return variant(knobs["engine"], stages, knobs["state_dtype"])
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
                 lane_tile=128, algorithm="bf16", first_dot="default",
-                engine="stacked"):
+                engine="stacked", grouped=False, complex_mult="block",
+                state_dtype="float32"):
     """Column pass on (B, N) planes; CUDA tensors launch kernel B, counted
-    in ``column_pass.launches`` and ``column_pass.engine_launches``."""
-    require_ported_knobs(False, "block", "float32", engine)
+    in ``column_pass.launches`` and ``column_pass.variant_launches``
+    (``gridslice*`` where the JAX package runs K2cg)."""
     check_planes(re, im, "column_pass")
     _check_split(re, n1, n2, "column_pass")
+    knobs = _knobs(pass_engine(engine, radices1, grouped), grouped,
+                   complex_mult, state_dtype)
     if re.device.type == "cpu":
         return column_pass_reference(
             re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1,
             sign=sign, lane_tile=lane_tile, algorithm=algorithm,
-            first_dot=first_dot, engine=engine)
+            first_dot=first_dot, **knobs)
     mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
     if re.shape[0] == 0:
         check_kernel_operands(re, im, algorithm, "column_pass")
         return mid_re, mid_im
-    _col_launch("tfft_four_step_col", (re, im), (mid_re, mid_im), algorithm,
-                n1, n2, radices1, scales1, sign, lane_tile, first_dot, engine)
-    count_launch(column_pass, engine)
+    count_launch(column_pass, _col_launch(
+        "tfft_four_step_col", (re, im), (mid_re, mid_im), algorithm, n1, n2,
+        radices1, scales1, sign, lane_tile, first_dot, knobs))
     return mid_re, mid_im
 
 
 def row_pass(mid_re, mid_im, *, n1, n2, radices2, scales2, sign=dft.FORWARD,
-             algorithm="bf16", first_dot="default", engine="stacked"):
+             algorithm="bf16", first_dot="default", engine="stacked",
+             grouped=False, complex_mult="block", state_dtype="float32"):
     """Row pass on ``mid`` (B, N) planes; CUDA tensors launch kernel C,
-    counted in ``row_pass.launches`` and ``row_pass.engine_launches``."""
-    require_ported_knobs(False, "block", "float32", engine)
+    counted in ``row_pass.launches`` and ``row_pass.variant_launches``
+    (``gridslice*`` where the JAX package runs K2rg)."""
     check_planes(mid_re, mid_im, "row_pass")
     _check_split(mid_re, n1, n2, "row_pass")
+    knobs = _knobs(pass_engine(engine, radices2, grouped), grouped,
+                   complex_mult, state_dtype)
     if mid_re.device.type == "cpu":
         return row_pass_reference(
             mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-            sign=sign, algorithm=algorithm, first_dot=first_dot,
-            engine=engine)
+            sign=sign, algorithm=algorithm, first_dot=first_dot, **knobs)
     out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
     if mid_re.shape[0] == 0:
         check_kernel_operands(mid_re, mid_im, algorithm, "row_pass")
         return out_re, out_im
-    _row_launch("tfft_four_step_row", (mid_re, mid_im), (out_re, out_im),
-                algorithm, n1, n2, radices2, scales2, sign, first_dot, engine)
-    count_launch(row_pass, engine)
+    count_launch(row_pass, _row_launch(
+        "tfft_four_step_row", (mid_re, mid_im), (out_re, out_im), algorithm,
+        n1, n2, radices2, scales2, sign, first_dot, knobs))
     return out_re, out_im
 
 
 def column_pass_packed_reference(x, *, n1, n2, radices1, scales1,
                                  sign=dft.FORWARD, lane_tile=128,
-                                 algorithm="bf16", first_dot="default"):
+                                 algorithm="bf16", first_dot="default",
+                                 **knobs):
     """Plain-torch K5 column pass: plain pack, then the plain column pass."""
     re, im = pack_split_reference(x)
     return column_pass_reference(
         re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot, **knobs)
 
 
 def row_pass_interleave_reference(mid_re, mid_im, *, n1, n2, radices2,
                                   scales2, sign=dft.FORWARD, algorithm="bf16",
-                                  first_dot="default"):
+                                  first_dot="default", **knobs):
     """Plain-torch K6 row pass: the plain row pass, then the plain
     interleave."""
     return interleave_split_reference(*row_pass_reference(
         mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot))
+        sign=sign, algorithm=algorithm, first_dot=first_dot, **knobs))
 
 
 def column_pass_packed(x, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
-                       lane_tile=128, algorithm="bf16", first_dot="default"):
+                       lane_tile=128, algorithm="bf16", first_dot="default",
+                       engine="stacked", grouped=False, complex_mult="block",
+                       state_dtype="float32"):
     """Column pass on the half-length packed view of real (B, 2N) rows ->
     ``mid`` (B, N) planes in x's dtype; CUDA tensors launch the packed
-    kernel B, counted in ``column_pass_packed.launches``."""
+    kernel B, counted in ``column_pass_packed.launches`` and
+    ``.variant_launches``.  As in the JAX package, a gridslice engine runs
+    the stacked pass."""
     if not isinstance(x, torch.Tensor) or x.ndim != 2 or x.shape[1] != 2 * n1 * n2:
         raise ValueError(
             f"column_pass_packed expects (B, 2*n1*n2) real rows, got "
             f"{getattr(x, 'shape', None)} for n1*n2 = {n1 * n2}")
+    knobs = _knobs(pass_engine(engine, radices1, grouped, gridslice=False),
+                   grouped, complex_mult, state_dtype)
     if x.device.type == "cpu":
         return column_pass_packed_reference(
             x, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-            lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
+            lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot,
+            **knobs)
     b = x.shape[0]
     mid_re = torch.empty((b, n1 * n2), dtype=x.dtype, device=x.device)
     mid_im = torch.empty_like(mid_re)
     if b == 0:
         check_kernel_operands(x, x, algorithm, "column_pass_packed")
         return mid_re, mid_im
-    _col_launch("tfft_four_step_col_packed", (x,), (mid_re, mid_im),
-                algorithm, n1, n2, radices1, scales1, sign, lane_tile,
-                first_dot)
-    column_pass_packed.launches += 1
+    count_launch(column_pass_packed, _col_launch(
+        "tfft_four_step_col_packed", (x,), (mid_re, mid_im), algorithm, n1,
+        n2, radices1, scales1, sign, lane_tile, first_dot, knobs))
     return mid_re, mid_im
 
 
 def row_pass_interleave(mid_re, mid_im, *, n1, n2, radices2, scales2,
                         sign=dft.FORWARD, algorithm="bf16",
-                        first_dot="default"):
+                        first_dot="default", engine="stacked", grouped=False,
+                        complex_mult="block", state_dtype="float32"):
     """Row pass on ``mid`` (B, N) planes with the natural-order output
     interleaved into real (B, 2N) rows; CUDA tensors launch the interleaving
-    kernel C, counted in ``row_pass_interleave.launches``."""
+    kernel C, counted in ``row_pass_interleave.launches`` and
+    ``.variant_launches``.  A gridslice engine runs the stacked pass."""
     check_planes(mid_re, mid_im, "row_pass_interleave")
     _check_split(mid_re, n1, n2, "row_pass_interleave")
+    knobs = _knobs(pass_engine(engine, radices2, grouped, gridslice=False),
+                   grouped, complex_mult, state_dtype)
     if mid_re.device.type == "cpu":
         return row_pass_interleave_reference(
             mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-            sign=sign, algorithm=algorithm, first_dot=first_dot)
+            sign=sign, algorithm=algorithm, first_dot=first_dot, **knobs)
     b = mid_re.shape[0]
     x = torch.empty((b, 2 * n1 * n2), dtype=mid_re.dtype, device=mid_re.device)
     if b == 0:
         check_kernel_operands(mid_re, mid_im, algorithm, "row_pass_interleave")
         return x
-    _row_launch("tfft_four_step_row_interleave", (mid_re, mid_im), (x,),
-                algorithm, n1, n2, radices2, scales2, sign, first_dot)
-    row_pass_interleave.launches += 1
+    count_launch(row_pass_interleave, _row_launch(
+        "tfft_four_step_row_interleave", (mid_re, mid_im), (x,), algorithm,
+        n1, n2, radices2, scales2, sign, first_dot, knobs))
     return x
 
 
 reset_launches(column_pass)
 reset_launches(row_pass)
-column_pass_packed.launches = 0
-row_pass_interleave.launches = 0
+reset_launches(column_pass_packed)
+reset_launches(row_pass_interleave)
+
+
+def _pair_kwargs(n1, n2, radices1, radices2, scales1, scales2, sign,
+                 lane_tile, algorithm, grouped, state_dtype, complex_mult,
+                 first_dot, engine, k1_tile):
+    """(column kwargs, row kwargs) of a four-step pair; the state dtype
+    after the JAX narrow-panel rule."""
+    common = dict(n1=n1, n2=n2, sign=sign, algorithm=algorithm,
+                  first_dot=first_dot, engine=engine, grouped=grouped,
+                  complex_mult=complex_mult,
+                  state_dtype=effective_state_dtype(state_dtype, n1, n2,
+                                                    lane_tile, k1_tile))
+    return (dict(radices1=radices1, scales1=scales1, lane_tile=lane_tile,
+                 **common),
+            dict(radices2=radices2, scales2=scales2, **common))
 
 
 def four_step_fft(
@@ -369,31 +450,29 @@ def four_step_fft(
     complex_mult: str = "block",
     first_dot: str = "default",
     engine: str = "stacked",
+    k1_tile: int = 128,
 ):
     """Large-N FFT on batch-major (B, N) planes, N = n1*n2; returns (B, N)
-    planes in natural frequency order in the input dtype."""
-    require_ported_knobs(grouped, complex_mult, state_dtype, engine)
-    mid_re, mid_im = column_pass(
-        re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot,
-        engine=engine)
-    return row_pass(
-        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot, engine=engine)
+    planes in natural frequency order in the input dtype.  ``k1_tile`` is
+    read only by the narrow-panel rule."""
+    col, row = _pair_kwargs(n1, n2, radices1, radices2, scales1, scales2,
+                            sign, lane_tile, algorithm, grouped, state_dtype,
+                            complex_mult, first_dot, engine, k1_tile)
+    return row_pass(*column_pass(re, im, **col), **row)
 
 
 def four_step_fft_reference(re, im, *, n1, n2, radices1, radices2, scales1,
                             scales2, sign=dft.FORWARD, lane_tile=128,
                             algorithm="bf16", first_dot="default",
-                            engine="stacked"):
-    """Plain-torch four-step: the two plain passes back to back."""
-    mid_re, mid_im = column_pass_reference(
-        re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot,
-        engine=engine)
-    return row_pass_reference(
-        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot, engine=engine)
+                            engine="stacked", grouped=False,
+                            complex_mult="block", state_dtype="float32",
+                            k1_tile=128):
+    """Plain-torch four-step: the two plain passes back to back (a gridslice
+    engine computes the stacked passes)."""
+    col, row = _pair_kwargs(n1, n2, radices1, radices2, scales1, scales2,
+                            sign, lane_tile, algorithm, grouped, state_dtype,
+                            complex_mult, first_dot, engine, k1_tile)
+    return row_pass_reference(*column_pass_reference(re, im, **col), **row)
 
 
 def four_step_fft_packed_real(
@@ -413,22 +492,18 @@ def four_step_fft_packed_real(
     complex_mult: str = "block",
     first_dot: str = "default",
     engine: str = "stacked",
+    k1_tile: int = 128,
 ):
     """Four-step FFT of the half-length packed view of real (B, 2N) rows,
     N = n1*n2: ``four_step_fft(x[:, 0::2], x[:, 1::2])`` with the
     deinterleave folded into the column pass's loads.  Returns (B, N) planes
     in x's dtype.  As in the JAX package, a gridslice engine runs the
-    stacked passes (the outputs are bit-identical); the planar engines are
-    not ported to this pair."""
-    require_ported_knobs(grouped, complex_mult, state_dtype,
-                         "stacked" if engine.startswith("gridslice") else engine,
-                         engines=("stacked",))
-    mid_re, mid_im = column_pass_packed(
-        x, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
-    return row_pass(
-        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot)
+    stacked passes (the outputs are bit-identical)."""
+    engine = pass_engine(engine, radices1, grouped, gridslice=False)
+    col, row = _pair_kwargs(n1, n2, radices1, radices2, scales1, scales2,
+                            sign, lane_tile, algorithm, grouped, state_dtype,
+                            complex_mult, first_dot, engine, k1_tile)
+    return row_pass(*column_pass_packed(x, **col), **row)
 
 
 def four_step_fft_to_real(
@@ -449,19 +524,17 @@ def four_step_fft_to_real(
     complex_mult: str = "block",
     first_dot: str = "default",
     engine: str = "stacked",
+    k1_tile: int = 128,
 ):
     """Four-step FFT of (B, N) planes whose natural-order output is
     interleaved into real (B, 2N) rows inside the row pass's store
-    (``interleave_split(*four_step_fft(re, im))``), in the input dtype; the
-    planar engines are not ported to this pair."""
-    require_ported_knobs(grouped, complex_mult, state_dtype, engine,
-                         engines=("stacked",))
-    mid_re, mid_im = column_pass(
-        re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
-        lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot)
-    return row_pass_interleave(
-        mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
-        sign=sign, algorithm=algorithm, first_dot=first_dot)
+    (``interleave_split(*four_step_fft(re, im))``), in the input dtype.  The
+    column pass follows ``engine`` (gridslice included), the interleaving
+    row pass runs a gridslice engine as stacked."""
+    col, row = _pair_kwargs(n1, n2, radices1, radices2, scales1, scales2,
+                            sign, lane_tile, algorithm, grouped, state_dtype,
+                            complex_mult, first_dot, engine, k1_tile)
+    return row_pass_interleave(*column_pass(re, im, **col), **row)
 
 
 def four_step_fft_packed_real_reference(x, **kwargs):
@@ -477,40 +550,52 @@ def four_step_fft_to_real_reference(re, im, **kwargs):
 # -- K4: the 2D row-column FFT on (B, H, W) planes ---------------------------
 
 def fft2_column_pass_reference(re, im, *, radices1, scales1, sign=dft.FORWARD,
-                               algorithm="bf16", engine="stacked"):
+                               algorithm="bf16", engine="stacked",
+                               grouped=False, complex_mult="block",
+                               state_dtype="float32"):
     """Plain-torch K4 column pass: (B, H, W) planes -> ``mid`` (B, H, W) in
     the input dtype (``_col_kernel(twiddle=False)``)."""
     b, h, w = re.shape
     cols = lambda x: x.transpose(1, 2).reshape(b * w, h)
     s_re, s_im = plain_pass(cols(re), cols(im), radices=radices1,
                             scales=scales1, sign=sign, algorithm=algorithm,
-                            engine=engine)
+                            engine=engine, grouped=grouped,
+                            complex_mult=complex_mult, state_dtype=state_dtype)
     out = lambda s, x: s.reshape(b, w, h).transpose(1, 2).to(x.dtype).contiguous()
     return out(s_re, re), out(s_im, im)
 
 
 def fft2_row_pass_reference(mid_re, mid_im, *, radices2, scales2,
                             sign=dft.FORWARD, algorithm="bf16",
-                            engine="stacked"):
+                            engine="stacked", grouped=False,
+                            complex_mult="block", state_dtype="float32"):
     """Plain-torch K4 row pass: ``mid`` (B, H, W) -> (B, kh, kw) in the
     input dtype (``_row_kernel(transposed=False)``)."""
     b, h, w = mid_re.shape
     s_re, s_im = plain_pass(mid_re.reshape(b * h, w), mid_im.reshape(b * h, w),
                             radices=radices2, scales=scales2, sign=sign,
-                            algorithm=algorithm, engine=engine)
+                            algorithm=algorithm, engine=engine, grouped=grouped,
+                            complex_mult=complex_mult, state_dtype=state_dtype)
     return (s_re.reshape(b, h, w).to(mid_re.dtype),
             s_im.reshape(b, h, w).to(mid_im.dtype))
 
 
+def _fft2_grouped(grouped):
+    return grouped if isinstance(grouped, tuple) else (grouped,) * 2
+
+
 def fft2_fused_reference(re, im, *, radices1, radices2, scales1, scales2,
-                         sign=dft.FORWARD, algorithm="bf16", engine="stacked"):
+                         sign=dft.FORWARD, algorithm="bf16", engine="stacked",
+                         grouped=False, complex_mult="block",
+                         state_dtype="float32"):
     """Plain-torch K4: the two plain passes back to back."""
+    g1, g2 = _fft2_grouped(grouped)
+    kw = dict(sign=sign, algorithm=algorithm, engine=engine,
+              complex_mult=complex_mult, state_dtype=state_dtype)
     mid = fft2_column_pass_reference(re, im, radices1=radices1,
-                                     scales1=scales1, sign=sign,
-                                     algorithm=algorithm, engine=engine)
+                                     scales1=scales1, grouped=g1, **kw)
     return fft2_row_pass_reference(*mid, radices2=radices2, scales2=scales2,
-                                   sign=sign, algorithm=algorithm,
-                                   engine=engine)
+                                   grouped=g2, **kw)
 
 
 def _check_volumes(re, im, axis, radices, what):
@@ -522,46 +607,50 @@ def _check_volumes(re, im, axis, radices, what):
 
 
 def fft2_column_pass(re, im, *, radices1, scales1, sign=dft.FORWARD,
-                     algorithm="bf16", engine="stacked"):
+                     algorithm="bf16", engine="stacked", grouped=False,
+                     complex_mult="block", state_dtype="float32"):
     """K4 column pass on (B, H, W) planes; CUDA tensors launch the column
     kernel, counted in ``fft2_column_pass.launches`` and
-    ``fft2_column_pass.engine_launches``."""
-    require_ported_knobs(False, "block", "float32", engine)
+    ``fft2_column_pass.variant_launches``."""
     _check_volumes(re, im, 1, radices1, "fft2_column_pass")
+    knobs = _knobs(pass_engine(engine, radices1, grouped, gridslice=False),
+                   grouped, complex_mult, state_dtype)
     if re.device.type == "cpu":
         return fft2_column_pass_reference(re, im, radices1=radices1,
                                           scales1=scales1, sign=sign,
-                                          algorithm=algorithm, engine=engine)
+                                          algorithm=algorithm, **knobs)
     b, h, w = re.shape
     mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         check_kernel_operands(re, im, algorithm, "fft2_column_pass")
         return mid_re, mid_im
-    _col_launch("tfft_fft2_col", (re, im), (mid_re, mid_im), algorithm, h, w,
-                radices1, scales1, sign, None, "default", engine)
-    count_launch(fft2_column_pass, engine)
+    count_launch(fft2_column_pass, _col_launch(
+        "tfft_fft2_col", (re, im), (mid_re, mid_im), algorithm, h, w,
+        radices1, scales1, sign, None, "default", knobs))
     return mid_re, mid_im
 
 
 def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
-                  algorithm="bf16", engine="stacked"):
+                  algorithm="bf16", engine="stacked", grouped=False,
+                  complex_mult="block", state_dtype="float32"):
     """K4 row pass on ``mid`` (B, H, W) planes; CUDA tensors launch the row
     kernel, counted in ``fft2_row_pass.launches`` and
-    ``fft2_row_pass.engine_launches``."""
-    require_ported_knobs(False, "block", "float32", engine)
+    ``fft2_row_pass.variant_launches``."""
     _check_volumes(mid_re, mid_im, 2, radices2, "fft2_row_pass")
+    knobs = _knobs(pass_engine(engine, radices2, grouped, gridslice=False),
+                   grouped, complex_mult, state_dtype)
     if mid_re.device.type == "cpu":
         return fft2_row_pass_reference(mid_re, mid_im, radices2=radices2,
                                        scales2=scales2, sign=sign,
-                                       algorithm=algorithm, engine=engine)
+                                       algorithm=algorithm, **knobs)
     b, h, w = mid_re.shape
     out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
     if b == 0:
         check_kernel_operands(mid_re, mid_im, algorithm, "fft2_row_pass")
         return out_re, out_im
-    _row_launch("tfft_fft2_row", (mid_re, mid_im), (out_re, out_im),
-                algorithm, h, w, radices2, scales2, sign, "default", engine)
-    count_launch(fft2_row_pass, engine)
+    count_launch(fft2_row_pass, _row_launch(
+        "tfft_fft2_row", (mid_re, mid_im), (out_re, out_im), algorithm, h, w,
+        radices2, scales2, sign, "default", knobs))
     return out_re, out_im
 
 
@@ -588,14 +677,15 @@ def fft2_fused(
     the column pass, then the row pass stored in place.  Returns (B, kh, kw)
     planes in natural order in the input dtype.  As in the JAX package, both
     passes run the plain (``"default"``) first stage whatever the plans'
-    ``first_dot``."""
-    grouped1, grouped2 = grouped if isinstance(grouped, tuple) else (grouped,) * 2
-    require_ported_knobs(grouped1 or grouped2, complex_mult, state_dtype, engine)
+    ``first_dot``; ``grouped`` may differ per pass, the other knobs apply to
+    both."""
+    g1, g2 = _fft2_grouped(grouped)
+    kw = dict(sign=sign, algorithm=algorithm, engine=engine,
+              complex_mult=complex_mult, state_dtype=state_dtype)
     mid_re, mid_im = fft2_column_pass(re, im, radices1=radices1,
-                                      scales1=scales1, sign=sign,
-                                      algorithm=algorithm, engine=engine)
+                                      scales1=scales1, grouped=g1, **kw)
     return fft2_row_pass(mid_re, mid_im, radices2=radices2, scales2=scales2,
-                         sign=sign, algorithm=algorithm, engine=engine)
+                         grouped=g2, **kw)
 
 
 # -- K3: the whole transform on (B, N) row tiles -------------------------------
@@ -629,23 +719,28 @@ def fused_fft_batch_major(
     engine: str = "stacked",
 ):
     """Whole-transform FFT along the last axis of (B, N) planes, a tile of
-    ``batch_major_lanes(N, B)`` rows per CTA (K3,
-    ``four_step_pallas.fused_fft_batch_major``; ``csrc/fused_batch_major.cu``).
+    ``batch_major_lanes(N, B)`` rows per CTA (halved while mult3's operand
+    plane does not fit; K3, ``four_step_pallas.fused_fft_batch_major``;
+    ``csrc/fused_batch_major.cu``).
 
     The same function as kernel A (``fused_cuda.fused_fft``), whose plain
-    version it shares.  CUDA tensors launch the kernel, counted in
-    ``fused_fft_batch_major.launches`` and ``.engine_launches``.
+    version it shares, except that it rounds its input to a bf16 state
+    under every engine (``four_step_pallas.py:760``), and that a gridslice
+    engine runs the stacked pass.  CUDA tensors launch the kernel, counted
+    in ``fused_fft_batch_major.launches`` and ``.variant_launches``.
     """
-    require_ported_knobs(grouped, complex_mult, state_dtype, engine)
     check_planes(re, im, "fused_fft_batch_major")
     b, n = re.shape
     radices = tuple(int(r) for r in radices)
     if math.prod(radices) != n:
         raise ValueError(f"radices {radices} do not multiply to N={n}")
+    knobs = _knobs(pass_engine(engine, radices, grouped, gridslice=False),
+                   grouped, complex_mult, state_dtype)
     if re.device.type == "cpu":
         return fused_fft_reference(re, im, radices=radices, scales=scales,
                                    sign=sign, algorithm=algorithm,
-                                   first_dot=first_dot, engine=engine)
+                                   first_dot=first_dot, round_input=True,
+                                   **knobs)
     check_kernel_operands(re, im, algorithm, "fused_fft_batch_major")
     if n > MAX_CTA_ELEMS:
         raise ValueError(f"fused_fft_batch_major: N={n} exceeds one CTA "
@@ -653,13 +748,15 @@ def fused_fft_batch_major(
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return out_re, out_im
-    tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
-                                 int(sign), algorithm, first_dot, re.device,
-                                 engine)
+    stages, tables, meta = _pass_tables(radices, scales, sign, algorithm,
+                                        first_dot, re.device, knobs)
+    lanes = fit_lanes(n, batch_major_lanes(n, b), algorithm, stages,
+                      "fused_fft_batch_major")
     launch("tfft_fused_batch_major", (re, im, out_re, out_im),
-           policy_codes(re, algorithm), b, n, batch_major_lanes(n, b),
-           tables.data_ptr(), meta.ctypes.data)
-    count_launch(fused_fft_batch_major, engine)
+           policy_codes(re, algorithm), b, n, lanes, tables.data_ptr(),
+           meta.ctypes.data)
+    count_launch(fused_fft_batch_major,
+                 variant(knobs["engine"], stages, state_dtype))
     return out_re, out_im
 
 

@@ -6,11 +6,23 @@ The TPU kernel (``tensorfft_tpu/ops/fused_pallas.py:fused_fft``) holds an
 batch-major (B, N) row in shared memory, so no (B, N) <-> (N, B) transpose
 exists on either side of the kernel.  Two stage engines:
 
-* ``stacked`` (the default): each stage is the block-complex product
-  BD = [[D_re, -D_im], [D_im, D_re]] applied to [z_re; z_im] with the 1/R
-  scale folded into D, after an fp32 twiddle multiply by W[r, k] on every
-  stage but the first (the ``first`` and ``kloop``/``big`` stages of the
-  TPU's ``stage_loop``);
+* the stacked engine (``stacked``, ``pretwiddle`` and the ``gridslice``
+  engines; ``fused_pallas.stage_loop``): each stage is the block-complex
+  product BD = [[D_re, -D_im], [D_im, D_re]] applied to [z_re; z_im] with
+  the 1/R scale folded into D, after an fp32 twiddle multiply by W[r, k]
+  on every stage but the first.  Its stages follow ``plan.stage_kinds``:
+  under ``grouped`` a 'grouped' stage takes no twiddle and applies the
+  per-slice M_kk = D diag(W[:, kk]) instead (built in fp64, rounded once);
+  under ``complex_mult='mult3'`` every stage of radix >= 128 runs three
+  real products, t1 = D_re.z_re, t2 = D_im.z_im, t3 = S.(z_re + z_im),
+  out = (t1 - t2, (t3 - t1) - t2), where S is the grouped stage's fp64 sum
+  M_re + M_im or, on the other stages, the sum of the already-rounded D_re
+  and D_im.  ``pretwiddle`` is the stacked engine with grouping off whose
+  twiddled operand is rounded to the state dtype before every stage (the
+  port applies each twiddle in the previous stage's epilogue, which is what
+  the TPU engine moves); the gridslice engines defer a TPU interleave the
+  port does not have (its last stage stores each output to its bin) and
+  compute the stacked function bit for bit;
 * ``planar`` and ``planar_vpu`` (K1b, ``fused_pallas.stage_loop_planar``):
   each stage applies A = [A_re; A_im] to the real and the imaginary plane
   as two products, u = A @ re and v = A @ im, and combines them as
@@ -20,15 +32,18 @@ exists on either side of the kernel.  Two stage engines:
   stages with K > 128 and every ``planar_vpu`` stage use the shared
   [D_re; D_im] after the fp32 twiddle.
 
+``state_dtype='bfloat16'`` rounds each stage's outputs to bf16, and, as the
+JAX engines do, the input, the twiddled operand of a stacked 'kloop' stage
+(of every stage under ``pretwiddle``) and mult3's z_re + z_im on every
+stage but a 'big' one.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel, and
-anything else raises.  The knobs the kernels do not implement
-(``state_dtype='bfloat16'``, the gridslice and pretwiddle engines, and
-``grouped`` or ``complex_mult='mult3'`` under the stacked engine) raise
-``NotImplementedError`` on every device; under a planar engine ``grouped``
-and ``complex_mult`` change nothing, as in the JAX package.
+anything else raises.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import functools
 import math
 from typing import Sequence, Tuple
@@ -38,11 +53,23 @@ import torch
 
 from tensorfft_tpu_torch import dft
 from tensorfft_tpu_torch.ops import _build, dots
-from tensorfft_tpu_torch.plan import PLANAR_ENGINES, PORTED_ENGINES, unported_knob
+from tensorfft_tpu_torch.plan import (
+    COMPLEX_MULTS,
+    ENGINES,
+    MAX_KLOOP,
+    PLANAR_ENGINES,
+    STATE_DTYPES,
+    gridslice_fits,
+    grouped_mult3,
+    stage_kinds,
+)
+from tensorfft_tpu_torch.utils.device import H100
 
 __all__ = [
     "block_dft_tables",
-    "stage_table_arrays",
+    "Stage",
+    "pass_stages",
+    "stage_matrices",
     "run_stages",
     "planar_stage_tables",
     "run_stages_planar",
@@ -50,10 +77,11 @@ __all__ = [
     "fused_fft",
     "fused_fft_reference",
     "kernel_tables",
+    "variant",
     "cta_smem_bytes",
+    "fit_lanes",
     "check_planes",
     "check_kernel_operands",
-    "require_ported_knobs",
     "count_launch",
     "reset_launches",
     "launch",
@@ -70,9 +98,11 @@ MAX_CTA_ELEMS = 16384
 DATA_TERMS = {"bf16": 1, "bf16ax2": 1, "bf16x3": 2, "bf16x6": 3}
 _MATRIX_TERMS = {"bf16": 1, "bf16ax2": 2, "bf16x3": 2, "bf16x6": 3}
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# Stages of the planar engine with 1 < K <= this many sub-transforms fold the
-# twiddle into per-slice matrices (fused_pallas._MAX_KLOOP).
-MAX_KLOOP = 128
+# Stage modes of the kernels' meta (csrc/fft_stages.cuh StageMode).
+_STACKED, _PLANAR_SHARED, _PLANAR_FOLDED, _STACKED_FOLDED = 0, 1, 2, 3
+# Per-stage flag bits and pass flag bits of the meta.
+_MULT3, _ROUND_TW, _ROUND_SUM = 1, 2, 4
+_BF16_STATE, _ROUND_INPUT = 1, 2
 
 
 def block_dft_tables(
@@ -104,67 +134,199 @@ def _first_algorithm(algorithm: str, first_dot: str) -> str:
     return first_dot if (first_dot != "default" and algorithm == "bf16") else algorithm
 
 
-def stage_table_arrays(radices, scales, sign, algorithm,
-                       first_dot: str = "default"):
-    """Table operands in consumption order: BD per stage, then W_re, W_im for
-    every stage after the first (CPU tensors).
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """One stage of a pass as the stage engines run it.
 
-    BD is rounded to bf16 under the plain 'bf16' algorithm (f64 -> f32 ->
-    bf16, as the JAX package rounds it) and kept fp32 otherwise; a
-    compensated ``first_dot`` keeps the first stage's BD fp32 for its split.
+    ``kind`` is 'first', 'grouped', 'kloop' or 'big' (``plan.stage_kinds``;
+    the planar engines take no 'grouped'), ``k`` the sub-transforms built
+    before it; ``fold``: its twiddle is folded into per-slice matrices
+    (a grouped stage, or a planar one at 1 < K <= 128); ``mult3``: three
+    real products; ``round_tw`` and ``round_sum``: the twiddled operand and
+    mult3's z_re + z_im are rounded to the bf16 state.
     """
-    d_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
-    arrays = []
+
+    kind: str
+    radix: int
+    k: int
+    fold: bool = False
+    mult3: bool = False
+    round_tw: bool = False
+    round_sum: bool = False
+
+
+@functools.lru_cache(maxsize=256)
+def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
+                grouped: bool = False, complex_mult: str = "block",
+                state_dtype: str = "float32") -> Tuple[Stage, ...]:
+    """The stages of one pass under ``engine`` and the numeric knobs.
+
+    The stacked engine follows ``stage_kinds(radices, grouped)``, with
+    grouping off under ``pretwiddle`` (``fused_pallas.py:520``); its bf16
+    state rounds the twiddled operand of a 'kloop' stage, and of every
+    stage under ``pretwiddle``, but not of a 'big' one (``:592-593``,
+    ``:651-653``, ``:678``), and mult3's z_re + z_im in the state dtype on
+    every stage but a 'big' one, whose twiddled operands are fp32.  A knob
+    value ``FFTPlan`` rejects raises ``ValueError``.
+    """
+    for name, value, allowed in (("engine", engine, ENGINES),
+                                 ("state_dtype", state_dtype, STATE_DTYPES),
+                                 ("complex_mult", complex_mult, COMPLEX_MULTS)):
+        if value not in allowed:
+            raise ValueError(f"bad {name} {value!r}; one of {allowed}")
+    bf16 = state_dtype == "bfloat16"
+    out, k = [], 1
+    if engine in PLANAR_ENGINES:
+        for r in radices:
+            kind = "first" if k == 1 else ("kloop" if k <= MAX_KLOOP else "big")
+            out.append(Stage(kind, r, k, engine == "planar" and kind == "kloop"))
+            k *= r
+        return tuple(out)
+    pretwiddle = engine == "pretwiddle"
+    for kind, r, k, p in stage_kinds(radices, grouped and not pretwiddle):
+        mult3 = (grouped_mult3(kind, r, p, complex_mult) if kind == "grouped"
+                 else complex_mult == "mult3" and r >= 128)
+        out.append(Stage(
+            kind, r, k, fold=kind == "grouped", mult3=mult3,
+            round_tw=bf16 and (kind == "kloop" or (pretwiddle and kind == "big")),
+            round_sum=bf16 and mult3 and kind != "big"))
+    return tuple(out)
+
+
+def variant(engine: str, stages: Sequence[Stage], state_dtype: str) -> str:
+    """The launch counters' name for a pass: the engine (none for stacked)
+    and the numeric knobs in effect, e.g. ``grouped,mult3`` or
+    ``pretwiddle,bf16_state``; ``stacked`` when there are none."""
+    tags = [] if engine == "stacked" else [engine]
+    if any(st.kind == "grouped" for st in stages):
+        tags.append("grouped")
+    if any(st.mult3 for st in stages):
+        tags.append("mult3")
+    if state_dtype == "bfloat16":
+        tags.append("bf16_state")
+    return ",".join(tags) or "stacked"
+
+
+def _stage_dtype(j: int, algorithm: str, first_dot: str):
+    """A stage's matrix dtype: bf16 under the plain 'bf16' algorithm, fp32
+    under a split one, and fp32 for a compensated first stage."""
+    if algorithm != "bf16" or (j == 0 and first_dot != "default"):
+        return torch.float32
+    return torch.bfloat16
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_g3_table(radix: int, k: int, scale: float, sign: int):
+    """(K, 3, R, R) fp64 mult3 tables of a grouped stage: slice kk holds
+    Re(M_kk), Im(M_kk) and their sum formed in fp64
+    (``fused_pallas._grouped_g3_table``)."""
+    m = _planar_a_table(radix, k, scale, sign, True).reshape(k, 2, radix, radix)
+    return np.concatenate([m, m[:, :1] + m[:, 1:]], axis=1)
+
+
+def stage_matrices(radices, scales, sign, algorithm, first_dot="default",
+                   stages=None):
+    """Per stage of the stacked engine (CPU tensors): (M, W).
+
+    M is (slices, 2 or 3, R, R) in the stage's matrix dtype: [D_re, D_im]
+    from the stage's BD (one slice; the blocks of the JAX package's
+    ``stage_table_arrays`` BD, rounded f64 -> f32 -> bf16 under the plain
+    'bf16' algorithm), or on a grouped stage the K per-slice
+    [Re(M_kk), Im(M_kk)] of ``_planar_a_table`` (the values of the JAX
+    package's block-diagonal ``_grouped_g_table``, whose zeros and row
+    permutation are a TPU layout); a mult3 stage adds its third matrix S.
+    W is the fp32 (2, R, K) twiddle [re, im] of a stage after the first
+    that is not grouped, else None: the JAX package's stage twiddles and,
+    transposed, its pretwiddle ``epilogue_twiddle_tables``.
+    """
+    if stages is None:
+        stages = pass_stages(tuple(radices))
     plain = block_dft_tables(radices, scales, sign, d_dtype=np.float64)
-    for j, (bd, w_re, w_im) in enumerate(plain):
-        dt = torch.float32 if (j == 0 and first_dot != "default") else d_dtype
-        arrays.append(torch.from_numpy(bd.astype(np.float32)).to(dt))
+    out = []
+    for j, (st, (bd, w_re, w_im), scale) in enumerate(zip(stages, plain, scales)):
+        r = st.radix
+        dt = _stage_dtype(j, algorithm, first_dot)
+        if st.fold:
+            if st.mult3:
+                m = torch.from_numpy(_grouped_g3_table(
+                    r, st.k, float(scale), sign).astype(np.float32)).to(dt)
+            else:
+                m = torch.from_numpy(_planar_a_table(
+                    r, st.k, float(scale), sign, True).astype(np.float32))
+                m = m.to(dt).reshape(st.k, 2, r, r)
+            out.append((m, None))
+            continue
+        b = torch.from_numpy(bd.astype(np.float32)).to(dt)
+        mats = [b[:r, :r], b[r:, :r]]
+        if st.mult3:  # fused_pallas._mult3: the rounded D_re + D_im, rounded
+            mats.append((mats[0].float() + mats[1].float()).to(dt))
+        w = None
         if j > 0:
-            arrays += [torch.from_numpy(w_re), torch.from_numpy(w_im)]
-    return arrays
+            w = torch.from_numpy(np.stack([w_re, w_im]))
+        out.append((torch.stack(mats)[None], w))
+    return out
 
 
-def run_stages(re: torch.Tensor, im: torch.Tensor, radices, tables,
-               algorithm: str, first_dot: str = "default"):
-    """Plain-torch stage sequence on batch-major (rows, n) planes.
+def _round(x: torch.Tensor, bf16: bool) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32) if bf16 else x
 
-    The math of the kernels' shared engine (csrc/fft_stages.cuh), stage for
-    stage: fp32 state, fp32 twiddle, ``dots.dot`` block-complex products.
-    Returns fp32 (re, im) planes in natural order.
+
+def _slice_dot(a: torch.Tensor, z: torch.Tensor, algorithm: str):
+    """(slices, R_out, R_in) matrices on (rows, k, R_in, m) data: one
+    matrix for every sub-transform, or K slices, slice kk on sub-transform
+    kk, batched over the slices alone (a broadcast over the rows would copy
+    the K tables once per row)."""
+    if a.shape[0] == 1:
+        return dots.dot(a, z, algorithm)
+    rows, k, r_in, m = z.shape
+    zz = z.permute(1, 2, 0, 3).reshape(k, r_in, rows * m)
+    out = dots.dot(a, zz, algorithm).reshape(k, a.shape[1], rows, m)
+    return out.permute(2, 0, 1, 3)
+
+
+def run_stages(re: torch.Tensor, im: torch.Tensor, stages, matrices,
+               algorithm: str, first_dot: str = "default",
+               bf16_state: bool = False, round_input: bool = True):
+    """Plain-torch stacked stage sequence on batch-major (rows, n) planes.
+
+    The math of the kernels' shared engine (csrc/fft_stages.cuh) and of
+    ``fused_pallas.stage_loop``, stage for stage: fp32 twiddle, ``dots.dot``
+    products (the block-complex one, or mult3's three), and under
+    ``bf16_state`` the bf16 rounding points of :class:`Stage`.  Returns fp32
+    (re, im) planes in natural order.
     """
     rows, n = re.shape
-    s_re = re.to(torch.float32)
-    s_im = im.to(torch.float32)
-    tables = [t.to(re.device) for t in tables]
-    k, m, ti = 1, n, 0
-    for j, r in enumerate(radices):
+    s_re = _round(re.to(torch.float32), bf16_state and round_input)
+    s_im = _round(im.to(torch.float32), bf16_state and round_input)
+    m = n
+    for j, (st, (mat, w)) in enumerate(zip(stages, matrices)):
+        r, k = st.radix, st.k
         m //= r
-        bd = tables[ti]
-        ti += 1
+        mat = mat.to(re.device)
         z_re = s_re.reshape(rows, k, r, m)
         z_im = s_im.reshape(rows, k, r, m)
-        if j > 0:
-            w_re = tables[ti].T.reshape(1, k, r, 1)
-            w_im = tables[ti + 1].T.reshape(1, k, r, 1)
-            ti += 2
+        if w is not None:
+            w = w.to(re.device)
+            w_re = w[0].T.reshape(1, k, r, 1)
+            w_im = w[1].T.reshape(1, k, r, 1)
             z_re, z_im = z_re * w_re - z_im * w_im, z_re * w_im + z_im * w_re
+            z_re, z_im = _round(z_re, st.round_tw), _round(z_im, st.round_tw)
         alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
-        out = dots.dot(bd, torch.cat([z_re, z_im], dim=2), alg)
-        # (rows, k, [re; im] x r_out, m) -> state index (r_out*k + kk)*m + mm
-        out = out.reshape(rows, k, 2, r, m).permute(2, 0, 3, 1, 4)
-        s_re = out[0].reshape(rows, n)
-        s_im = out[1].reshape(rows, n)
-        k *= r
+        prod = lambda a, z: _slice_dot(a, z, alg)
+        if st.mult3:  # t1 = M_re.z_re, t2 = M_im.z_im, t3 = S.(z_re + z_im)
+            t1 = prod(mat[:, 0], z_re)
+            t2 = prod(mat[:, 1], z_im)
+            t3 = prod(mat[:, 2], _round(z_re + z_im, st.round_sum))
+            o_re, o_im = t1 - t2, (t3 - t1) - t2
+        else:  # [[M_re, -M_im], [M_im, M_re]] @ [z_re; z_im], per slice
+            bd = torch.cat([torch.cat([mat[:, 0], -mat[:, 1]], -1),
+                            torch.cat([mat[:, 1], mat[:, 0]], -1)], -2)
+            out = prod(bd, torch.cat([z_re, z_im], dim=2))
+            o_re, o_im = out[:, :, :r], out[:, :, r:]
+        # (rows, k, r_out, m) -> state index (r_out*k + kk)*m + mm
+        s_re = _round(o_re, bf16_state).transpose(1, 2).reshape(rows, n)
+        s_im = _round(o_im, bf16_state).transpose(1, 2).reshape(rows, n)
     return s_re, s_im
-
-
-def _stage_folds(radices, fold: bool):
-    """Per stage of the planar engine: whether its twiddle is folded into
-    per-slice matrices (1 < K <= MAX_KLOOP under ``fold``)."""
-    k = 1
-    for r in radices:
-        yield fold and 1 < k <= MAX_KLOOP
-        k *= r
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,98 +353,97 @@ def planar_stage_tables(radices, scales, sign, algorithm, fold: bool = True,
     fp32 otherwise; a compensated ``first_dot`` keeps the first stage's fp32
     for its split (``fused_pallas.planar_stage_tables``).
     """
-    d_dtype = torch.bfloat16 if algorithm == "bf16" else torch.float32
-    arrays, k = [], 1
-    for radix, scale, stage_fold in zip(radices, scales,
-                                        _stage_folds(radices, fold)):
-        dt = torch.float32 if (k == 1 and first_dot != "default") else d_dtype
-        a = _planar_a_table(radix, k, float(scale), sign, stage_fold)
-        arrays.append(torch.from_numpy(a.astype(np.float32)).to(dt))
-        if k > 1 and not stage_fold:
-            w_re, w_im = dft.stage_twiddle(radix, k, dtype=np.float32, sign=sign)
+    arrays = []
+    stages = pass_stages(tuple(radices), "planar" if fold else "planar_vpu")
+    for j, (st, scale) in enumerate(zip(stages, scales)):
+        a = _planar_a_table(st.radix, st.k, float(scale), sign, st.fold)
+        arrays.append(torch.from_numpy(a.astype(np.float32)).to(
+            _stage_dtype(j, algorithm, first_dot)))
+        if j > 0 and not st.fold:
+            w_re, w_im = dft.stage_twiddle(st.radix, st.k, dtype=np.float32,
+                                           sign=sign)
             arrays += [torch.from_numpy(w_re), torch.from_numpy(w_im)]
-        k *= radix
     return arrays
 
 
 def run_stages_planar(re: torch.Tensor, im: torch.Tensor, radices, tables,
                       algorithm: str, first_dot: str = "default",
-                      fold: bool = True):
+                      fold: bool = True, bf16_state: bool = False,
+                      round_input: bool = True):
     """Plain-torch planar stage sequence on batch-major (rows, n) planes.
 
-    The math of ``fused_pallas.stage_loop_planar`` with fp32 state: per stage
-    u = A @ z_re and v = A @ z_im as two ``dots.dot`` products, then
-    out_re = u[:R] - v[R:] and out_im = u[R:] + v[:R].  Returns fp32 (re, im)
-    planes in natural order.
+    The math of ``fused_pallas.stage_loop_planar``: per stage u = A @ z_re
+    and v = A @ z_im as two ``dots.dot`` products, then out_re = u[:R] -
+    v[R:] and out_im = u[R:] + v[:R], rounded to bf16 under ``bf16_state``
+    (the twiddled operands stay fp32).  Returns fp32 (re, im) planes in
+    natural order.
     """
     rows, n = re.shape
-    s_re = re.to(torch.float32)
-    s_im = im.to(torch.float32)
+    s_re = _round(re.to(torch.float32), bf16_state and round_input)
+    s_im = _round(im.to(torch.float32), bf16_state and round_input)
     tables = [t.to(re.device) for t in tables]
-    k, m, ti = 1, n, 0
-    for j, (r, stage_fold) in enumerate(zip(radices, _stage_folds(radices, fold))):
+    m, ti = n, 0
+    stages = pass_stages(tuple(radices), "planar" if fold else "planar_vpu")
+    for j, st in enumerate(stages):
+        r, k = st.radix, st.k
         m //= r
         a = tables[ti]
         ti += 1
         # (k, r, rows, m): digit r of sub-transform kk, every row and mm.
         z_re = s_re.reshape(rows, k, r, m).permute(1, 2, 0, 3)
         z_im = s_im.reshape(rows, k, r, m).permute(1, 2, 0, 3)
-        if k > 1 and not stage_fold:
+        if j > 0 and not st.fold:
             w_re = tables[ti].T.reshape(k, r, 1, 1)
             w_im = tables[ti + 1].T.reshape(k, r, 1, 1)
             ti += 2
             z_re, z_im = z_re * w_re - z_im * w_im, z_re * w_im + z_im * w_re
         alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
-        if stage_fold:  # slice kk's own A_kk: (k, 2R, R) @ (k, R, rows*m)
+        if st.fold:  # slice kk's own A_kk: (k, 2R, R) @ (k, R, rows*m)
             prod = lambda z: dots.dot(a, z.reshape(k, r, rows * m), alg)
-        else:           # the shared A: (2R, R) @ (R, k*rows*m)
+        else:        # the shared A: (2R, R) @ (R, k*rows*m)
             prod = lambda z: dots.dot(a[0], z.transpose(0, 1).reshape(r, -1),
                                       alg).reshape(2 * r, k, -1).transpose(0, 1)
         u, v = prod(z_re), prod(z_im)  # (k, 2R, rows*m)
-        o_re = u[:, :r] - v[:, r:]
-        o_im = u[:, r:] + v[:, :r]
+        o_re = _round(u[:, :r] - v[:, r:], bf16_state)
+        o_im = _round(u[:, r:] + v[:, :r], bf16_state)
         # (k, r_out, rows, m) -> state index (r_out*k + kk)*m + mm
         s_re = o_re.reshape(k, r, rows, m).permute(2, 1, 0, 3).reshape(rows, n)
         s_im = o_im.reshape(k, r, rows, m).permute(2, 1, 0, 3).reshape(rows, n)
-        k *= r
     return s_re, s_im
 
 
 def plain_pass(re, im, *, radices, scales, sign, algorithm,
-               first_dot="default", engine="stacked"):
-    """One pass's stage sequence in plain torch under ``engine``: fp32
-    (re, im) planes in natural order from (rows, n) planes."""
+               first_dot="default", engine="stacked", grouped=False,
+               complex_mult="block", state_dtype="float32", round_input=True):
+    """One pass's stage sequence in plain torch under ``engine`` and the
+    knobs: fp32 (re, im) planes in natural order from (rows, n) planes.
+    ``round_input=False`` keeps an fp32 input unrounded under bf16 state,
+    as the JAX fused kernel's planar engine does."""
+    bf16 = state_dtype == "bfloat16"
     if engine in PLANAR_ENGINES:
+        fold = engine == "planar"
         tables = planar_stage_tables(radices, scales, sign, algorithm,
-                                     fold=engine == "planar", first_dot=first_dot)
+                                     fold=fold, first_dot=first_dot)
         return run_stages_planar(re, im, radices, tables, algorithm, first_dot,
-                                 fold=engine == "planar")
-    tables = stage_table_arrays(radices, scales, sign, algorithm, first_dot)
-    return run_stages(re, im, radices, tables, algorithm, first_dot)
-
-
-def require_ported_knobs(grouped, complex_mult, state_dtype, engine,
-                         engines=PORTED_ENGINES):
-    """Raise ``NotImplementedError`` for a knob the kernels and their plain
-    versions do not implement (``plan.unported_knob``)."""
-    bad = unported_knob(engine, state_dtype, grouped, complex_mult, engines)
-    if bad is not None:
-        raise NotImplementedError(
-            f"{bad} is not ported: the CUDA kernels and their plain versions "
-            f"implement the engines {', '.join(engines)} with fp32 state"
-        )
+                                 fold=fold, bf16_state=bf16,
+                                 round_input=round_input)
+    stages = pass_stages(tuple(radices), engine, grouped, complex_mult,
+                         state_dtype)
+    matrices = stage_matrices(radices, scales, sign, algorithm, first_dot, stages)
+    return run_stages(re, im, stages, matrices, algorithm, first_dot,
+                      bf16_state=bf16, round_input=round_input)
 
 
 def reset_launches(wrapper) -> None:
-    """Set a kernel wrapper's launch count, and its count per engine, to 0."""
+    """Set a kernel wrapper's launch count, and its count per variant, to 0."""
     wrapper.launches = 0
-    wrapper.engine_launches = dict.fromkeys(PORTED_ENGINES, 0)
+    wrapper.variant_launches = collections.Counter()
 
 
-def count_launch(wrapper, engine: str) -> None:
-    """Count one launch of ``wrapper``'s kernel under ``engine``."""
+def count_launch(wrapper, variant_name: str) -> None:
+    """Count one launch of ``wrapper``'s kernel as ``variant_name``."""
     wrapper.launches += 1
-    wrapper.engine_launches[engine] += 1
+    wrapper.variant_launches[variant_name] += 1
 
 
 _LAYOUTS = {2: "(B, N)", 3: "(B, H, W)"}
@@ -333,12 +494,33 @@ def check_kernel_operands(re: torch.Tensor, im: torch.Tensor, algorithm: str,
         raise ValueError(f"{what}: kernel needs contiguous planes")
 
 
-def cta_smem_bytes(n: int, lanes: int, algorithm: str):
+def cta_smem_bytes(n: int, lanes: int, algorithm: str, mult3: bool = False):
     """Dynamic shared memory of one CTA holding ``lanes`` transforms of
-    length ``n`` (the split operand), or None if they exceed one CTA."""
+    length ``n`` (the split operand, and under ``mult3`` the split
+    z_re + z_im plane), or None if they exceed one CTA."""
     if n * lanes > MAX_CTA_ELEMS or algorithm not in DATA_TERMS:
         return None
-    return n * lanes * 2 * 2 * DATA_TERMS[algorithm]
+    planes = 3 if mult3 else 2
+    return n * lanes * planes * 2 * DATA_TERMS[algorithm]
+
+
+def fit_lanes(n: int, lanes: int, algorithm: str, stages, what: str) -> int:
+    """``lanes`` transforms of length ``n`` per CTA, halved while they need
+    more shared memory than one CTA has (mult3's third operand plane);
+    ``ValueError`` where one transform alone does not fit (bf16x6 with mult3
+    stages at n = 16384): no other engine runs in its place."""
+    mult3 = any(st.mult3 for st in stages)
+    limit = H100.smem_per_block_bytes
+    while lanes > 1 and cta_smem_bytes(n, lanes, algorithm, mult3) > limit:
+        lanes //= 2
+    smem = cta_smem_bytes(n, lanes, algorithm, mult3)
+    if smem is None or smem > limit:
+        raise ValueError(
+            f"{what}: a transform of length {n} under {algorithm!r}"
+            f"{' with mult3 stages' if mult3 else ''} does not fit one CTA "
+            f"({limit} B of shared memory); the plan does not work on this "
+            f"device")
+    return lanes
 
 
 def launch(symbol: str, tensors, dtype_codes, *args) -> None:
@@ -361,62 +543,79 @@ def policy_codes(t: torch.Tensor, algorithm: str):
 @functools.lru_cache(maxsize=64)
 def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
                   sign: int, algorithm: str, first_dot: str, device,
-                  engine: str = "stacked"):
+                  engine: str = "stacked", grouped: bool = False,
+                  complex_mult: str = "block", state_dtype: str = "float32",
+                  round_input: bool = True):
     """Kernel operands of one pass: (tables, meta).
 
     ``tables`` is one fp32 tensor on ``device`` holding, per stage, the
-    matrix terms [term][slice][re, im][R][R] split as the stage's dot
+    matrix terms [term][slice][matrix][R][R] split as the stage's dot
     algorithm splits them (the same ``dots.split_bf16`` the plain versions
     apply), then for every stage after the first that is not folded the
-    twiddle [re, im][R][K].  The matrix is D = BD[:, :R] (stacked) or the
-    planar A table: one slice, or K per-slice A_kk on a folded stage.
-    ``meta`` is the int64 host array the C launchers read: n_stages, then
-    per stage (radix, matrix terms, matrix offset, twiddle offset), then per
-    stage its mode: 0 stacked, 1 planar with the shared table, 2 planar
-    folded.
+    twiddle [re, im][R][K].  The matrices of a slice are [D_re, D_im]
+    (stacked), mult3's [M_re, M_im, S], or the planar A table; a folded
+    stage has K slices, every other stage one.  ``meta`` is the int64 host
+    array the C launchers read: n_stages, then per stage (radix, matrix
+    terms, matrix offset, twiddle offset), then per stage its mode (0
+    stacked, 1 planar with the shared table, 2 planar folded, 3 stacked
+    folded), then per stage its flags (1 mult3, 2 round the twiddled
+    operand, 4 round mult3's sum), then the pass's flags (1 bf16 state,
+    2 round the input to it).
     """
     planar = engine in PLANAR_ENGINES
+    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
     if planar:
-        arrays = planar_stage_tables(radices, scales, sign, algorithm,
-                                     fold=engine == "planar", first_dot=first_dot)
-        folds = list(_stage_folds(radices, engine == "planar"))
+        arrays = iter(planar_stage_tables(radices, scales, sign, algorithm,
+                                          fold=engine == "planar",
+                                          first_dot=first_dot))
+        mats = []
+        for j, st in enumerate(stages):
+            a = next(arrays).reshape(-1, 2, st.radix, st.radix)
+            w = (torch.stack([next(arrays), next(arrays)])
+                 if j > 0 and not st.fold else None)
+            mats.append((a, w))
+        modes = [_PLANAR_FOLDED if st.fold else _PLANAR_SHARED for st in stages]
     else:
-        arrays = stage_table_arrays(radices, scales, sign, algorithm, first_dot)
-        folds = [False] * len(radices)
-    chunks, meta, modes, off, ti = [], [len(radices)], [], 0, 0
-    for j, (r, fold) in enumerate(zip(radices, folds)):
-        mat = arrays[ti]
-        ti += 1
+        mats = stage_matrices(radices, scales, sign, algorithm, first_dot, stages)
+        modes = [_STACKED_FOLDED if st.fold else _STACKED for st in stages]
+    chunks, meta, flags, off = [], [len(radices)], [], 0
+    for j, (st, (mat, w)) in enumerate(zip(stages, mats)):
         alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
         terms = _MATRIX_TERMS[alg]
-        if planar:
-            d = mat.reshape(-1, 2, r, r)  # (slices, 2, R, R): A_re, A_im
-        else:
-            d = torch.stack([mat[:r, :r], mat[r:, :r]])  # (2, R, R): D_re, D_im
-        parts = [d] if alg == "bf16" else dots.split_bf16(d, terms)
+        parts = [mat] if alg == "bf16" else dots.split_bf16(mat, terms)
         d_off = off
         for p in parts:
             chunks.append(p.to(torch.float32).reshape(-1))
             off += p.numel()
         w_off = 0
-        if j > 0 and not fold:
+        if w is not None:
             w_off = off
-            w = torch.stack([arrays[ti], arrays[ti + 1]])  # (2, R, K)
-            ti += 2
             chunks.append(w.reshape(-1))
             off += w.numel()
-        meta += [r, terms, d_off, w_off]
-        modes.append(2 if fold else int(planar))
+        meta += [st.radix, terms, d_off, w_off]
+        flags.append(_MULT3 * st.mult3 + _ROUND_TW * st.round_tw
+                     + _ROUND_SUM * st.round_sum)
+    bf16 = state_dtype == "bfloat16"
+    pass_flags = _BF16_STATE * bf16 + _ROUND_INPUT * (bf16 and round_input)
     tables = torch.cat(chunks).to(device)
-    return tables, np.asarray(meta + modes, dtype=np.int64)
+    return tables, np.asarray(meta + modes + flags + [pass_flags], dtype=np.int64)
 
 
 def fused_fft_reference(re, im, *, radices, scales, sign=dft.FORWARD,
-                        algorithm="bf16", first_dot="default", engine="stacked"):
-    """Plain-torch kernel A on (B, N) planes; output in the input dtype."""
+                        algorithm="bf16", first_dot="default", engine="stacked",
+                        grouped=False, complex_mult="block",
+                        state_dtype="float32", round_input=None):
+    """Plain-torch kernel A on (B, N) planes; output in the input dtype.
+    Under bf16 state the input is rounded to it except by the planar
+    engines, which read it raw, as the JAX fused kernel does
+    (``round_input`` overrides that: K3 rounds it under every engine)."""
+    if round_input is None:
+        round_input = engine not in PLANAR_ENGINES
     o_re, o_im = plain_pass(re, im, radices=radices, scales=scales, sign=sign,
                             algorithm=algorithm, first_dot=first_dot,
-                            engine=engine)
+                            engine=engine, grouped=grouped,
+                            complex_mult=complex_mult, state_dtype=state_dtype,
+                            round_input=round_input)
     return o_re.to(re.dtype), o_im.to(im.dtype)
 
 
@@ -439,34 +638,45 @@ def fused_fft(
     Output dtype matches the input (storage rounding at the HBM boundary);
     compute is fp32 with ``algorithm`` matmul operands.  CPU tensors run
     :func:`fused_fft_reference`; CUDA tensors launch kernel A, counted in
-    ``fused_fft.launches`` and, per engine, ``fused_fft.engine_launches``.
+    ``fused_fft.launches`` and, per :func:`variant`,
+    ``fused_fft.variant_launches``.  A gridslice engine whose layout the JAX
+    kernel refuses raises ``ValueError`` on every device.
     """
-    require_ported_knobs(grouped, complex_mult, state_dtype, engine)
     check_planes(re, im, "fused_fft")
     b, n = re.shape
     radices = tuple(int(r) for r in radices)
     if math.prod(radices) != n:
         raise ValueError(f"radices {radices} do not multiply to N={n}")
+    if engine.startswith("gridslice") and not gridslice_fits(engine, radices,
+                                                             grouped):
+        raise ValueError(  # the JAX kernel's gate, fused_pallas.py:895-905
+            f"engine={engine!r} unsupported for radices {radices} "
+            f"(grouped={grouped}): last stage must emit whole slices with a "
+            f"sublane-multiple slice count divisible by the slice block")
+    knobs = dict(first_dot=first_dot, engine=engine, grouped=grouped,
+                 complex_mult=complex_mult, state_dtype=state_dtype)
     if re.device.type == "cpu":
         return fused_fft_reference(re, im, radices=radices, scales=scales,
-                                   sign=sign, algorithm=algorithm,
-                                   first_dot=first_dot, engine=engine)
+                                   sign=sign, algorithm=algorithm, **knobs)
     check_kernel_operands(re, im, algorithm, "fused_fft")
     if n > MAX_CTA_ELEMS:
         raise ValueError(
             f"fused_fft: N={n} exceeds one CTA ({MAX_CTA_ELEMS}); use the "
             f"four-step plan"
         )
+    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
+    fit_lanes(n, 1, algorithm, stages, "fused_fft")
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return out_re, out_im
     tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
                                  int(sign), algorithm, first_dot, re.device,
-                                 engine)
+                                 engine, grouped, complex_mult, state_dtype,
+                                 engine not in PLANAR_ENGINES)
     launch("tfft_fused_fft", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, tables.data_ptr(),
            meta.ctypes.data)
-    count_launch(fused_fft, engine)
+    count_launch(fused_fft, variant(engine, stages, state_dtype))
     return out_re, out_im
 
 

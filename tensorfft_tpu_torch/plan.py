@@ -25,10 +25,24 @@ __all__ = [
     "balanced_radices",
     "optimal_radices",
     "default_four_step_split",
+    "ENGINES",
+    "STATE_DTYPES",
+    "COMPLEX_MULTS",
     "PLANAR_ENGINES",
-    "PORTED_ENGINES",
-    "unported_knob",
+    "MAX_KLOOP",
+    "stage_kinds",
+    "grouped_mult3",
+    "gridslice_layout",
+    "gridslice_fits",
+    "effective_state_dtype",
 ]
+
+# The values of the engine and numeric knobs.  Every one runs on the CPU
+# (plain torch) and on the card (the CUDA kernels).
+ENGINES = ("stacked", "planar", "planar_vpu", "pretwiddle", "gridslice",
+           "gridslice8", "gridslice16")
+STATE_DTYPES = ("float32", "bfloat16")
+COMPLEX_MULTS = ("block", "mult3")
 
 # Largest transform the default plan runs as one fused whole-transform pass;
 # longer transforms take the four-step route.  Kept equal to the JAX
@@ -170,9 +184,11 @@ class FFTPlan:
     the TPU kernels' layout (``lane_tile``, ``kloop_width``, ``k1_tile``,
     ``interleave_downcast``) are kept so plans compare equal; the CUDA
     kernels do not read them.  ``lane_tile`` still fixes how the four-step
-    twiddle is factored into P/Q tables, which the port reproduces, and
-    ``fused_layout="batch_major"`` selects the batch-major fused kernel (K3)
-    where the JAX dispatch does.
+    twiddle is factored into P/Q tables, which the port reproduces;
+    ``lane_tile`` and ``k1_tile`` decide the four-step passes' narrow-panel
+    fallback to fp32 state (:func:`effective_state_dtype`), as in the JAX
+    package; and ``fused_layout="batch_major"`` selects the batch-major
+    fused kernel (K3) where the JAX dispatch does.
     """
 
     fft_length: int
@@ -211,13 +227,11 @@ class FFTPlan:
             raise ValueError(f"bad scaling {self.scaling!r}")
         if self.fused_layout not in ("auto", "batch_major", "transform_major"):
             raise ValueError(f"bad fused_layout {self.fused_layout!r}")
-        if self.state_dtype not in ("float32", "bfloat16"):
+        if self.state_dtype not in STATE_DTYPES:
             raise ValueError(f"bad state_dtype {self.state_dtype!r}")
-        if self.complex_mult not in ("block", "mult3"):
+        if self.complex_mult not in COMPLEX_MULTS:
             raise ValueError(f"bad complex_mult {self.complex_mult!r}")
-        if self.engine not in ("stacked", "planar", "planar_vpu",
-                               "pretwiddle", "gridslice", "gridslice8",
-                               "gridslice16"):
+        if self.engine not in ENGINES:
             raise ValueError(f"bad engine {self.engine!r}")
         if self.first_dot not in ("default", "bf16ax2"):
             raise ValueError(f"bad first_dot {self.first_dot!r}")
@@ -394,44 +408,97 @@ def create_plan(
     )
 
 
-# Stage engines the CUDA kernels implement.  Under a planar engine the
-# ``grouped`` and ``complex_mult`` knobs change nothing, as in the JAX
-# package, whose planar stage loop never reads them.
+# The planar engines keep re and im apart; under them ``grouped`` and
+# ``complex_mult`` change nothing, as in the JAX package, whose planar stage
+# loop never reads them.  Every other engine (stacked, pretwiddle,
+# gridslice*) runs the stacked stage engine.
 PLANAR_ENGINES = ("planar", "planar_vpu")
-PORTED_ENGINES = ("stacked",) + PLANAR_ENGINES
+
+# Stages whose accumulated sub-transform count K exceeds this are 'big'
+# stages (fused_pallas._MAX_KLOOP); under the planar engine, stages with
+# 1 < K <= this many fold the twiddle into per-slice matrices.
+MAX_KLOOP = 128
 
 
-def unported_knob(engine: str, state_dtype: str, grouped: bool = False,
-                  complex_mult: str = "block",
-                  engines: Sequence[str] = PORTED_ENGINES) -> Optional[str]:
-    """Name of the first knob the CUDA kernels (and their plain versions)
-    do not implement, or None: an engine outside ``engines``, bf16 state,
-    and ``grouped`` or ``mult3`` under the stacked engine."""
-    if engine not in engines:
-        return f"engine={engine!r}"
-    if state_dtype != "float32":
-        return f"state_dtype={state_dtype!r}"
-    if engine in PLANAR_ENGINES:
-        return None
-    if grouped:
-        return "grouped=True"
-    if complex_mult != "block":
-        return f"complex_mult={complex_mult!r}"
+def stage_kinds(radices, grouped: bool):
+    """Per stage (kind, radix, k, p): the JAX package's
+    ``fused_pallas._stage_kinds``, which the stacked engine's tables and
+    rounding follow.
+
+    kind is 'first' (k == 1), 'grouped' (the twiddle folded into per-slice
+    matrices; p slices per TPU matmul), 'kloop' (k <= MAX_KLOOP) or 'big';
+    k is the number of sub-transforms built before the stage.  A stage is
+    grouped only under ``grouped`` when k // p <= MAX_KLOOP, p >= 2 or the
+    radix is at least 64, and the TPU's block-diagonal table of
+    4 * k * p * R^2 entries stays within 2^24.
+    """
+    k = 1
+    for radix in radices:
+        p = max(1, 128 // (2 * radix))
+        p = min(p, k)
+        if k == 1:
+            yield ("first", radix, k, 1)
+        elif (grouped and k % p == 0 and (k // p) <= MAX_KLOOP
+              and (p >= 2 or radix >= 64)
+              and 4 * k * p * radix * radix <= (1 << 24)):
+            yield ("grouped", radix, k, p)
+        elif k <= MAX_KLOOP:
+            yield ("kloop", radix, k, 1)
+        else:
+            yield ("big", radix, k, 1)
+        k *= radix
+
+
+def grouped_mult3(kind: str, radix: int, p: int, complex_mult: str) -> bool:
+    """Whether a grouped stage runs as three real products on the folded
+    (K, 3R, R) tables (``fused_pallas._grouped_mult3``): p == 1 stages of
+    radix >= 128 under ``complex_mult='mult3'``."""
+    return (kind == "grouped" and complex_mult == "mult3"
+            and p == 1 and radix >= 128)
+
+
+def gridslice_layout(radices, grouped: bool) -> Optional[int]:
+    """The last stage's slice count S, or None where a gridslice engine
+    cannot take the plan (``fused_pallas.gridslice_layout``): the last stage
+    must be a kloop or a p == 1 grouped stage, and S a multiple of 8."""
+    kind, _, k, p = list(stage_kinds(radices, grouped))[-1]
+    if (kind == "kloop" or (kind == "grouped" and p == 1)) and k % 8 == 0:
+        return k
     return None
+
+
+def gridslice_fits(engine: str, radices, grouped: bool) -> bool:
+    """Whether the gridslice ``engine`` can take the plan: its last stage
+    emits whole slices (:func:`gridslice_layout`) in blocks of the engine's
+    slice block, 8 or its suffix (``fused_pallas.py:895-905``)."""
+    s_total = gridslice_layout(radices, grouped)
+    return s_total is not None and s_total % int(engine[len("gridslice"):] or 8) == 0
+
+
+def effective_state_dtype(state_dtype: str, n1: int, n2: int, lane_tile: int,
+                          k1_tile: int) -> str:
+    """The state dtype a four-step pass pair (C2C, K5, K6) runs: the JAX
+    package falls back to fp32 state when a TPU panel is narrower than 128
+    lanes, min(lane_tile, n2) or min(k1_tile, n1)
+    (``four_step_pallas.py:335-339``); read from the plan, so both packages
+    round alike."""
+    if min(min(lane_tile, n2), min(k1_tile, n1)) < 128:
+        return "float32"
+    return state_dtype
 
 
 def plan_works_on_device(plan: FFTPlan, device="cuda") -> Tuple[bool, str]:
     """Check that ``plan`` can run on ``device``; returns (ok, reason).
 
     A CPU device runs the plain-torch versions, which take every plan the
-    planner makes.  A CUDA device runs the hand-written kernels: every pass
-    must fit one CTA's shared memory on the H100 (``utils.device.H100``),
-    every knob must be one the kernels implement, and the float64 policy has
-    no kernel.
+    planner makes.  A CUDA device runs the hand-written kernels, which take
+    every engine and knob: every pass must fit one CTA's shared memory on
+    the H100 (``utils.device.H100``), with the third operand plane of a pass
+    that runs mult3 stages, and the float64 policy has no kernel.
     """
     import torch
 
-    from tensorfft_tpu_torch.ops.fused_cuda import cta_smem_bytes
+    from tensorfft_tpu_torch.ops.fused_cuda import cta_smem_bytes, pass_stages
     from tensorfft_tpu_torch.utils.device import device_spec
 
     device = torch.device(device)
@@ -443,19 +510,19 @@ def plan_works_on_device(plan: FFTPlan, device="cuda") -> Tuple[bool, str]:
         return (True, "ok")
     if plan.precision is Precision.FLOAT64:
         return (False, "float64 plans are CPU/oracle-only")
-    knob = unported_knob(plan.engine, plan.state_dtype, plan.grouped,
-                         plan.complex_mult)
-    if knob is not None:
-        return (False, f"{knob} has no CUDA kernel yet")
-    lengths = ([plan.fft_length] if resolved is Strategy.FUSED
-               else list(plan.four_step_split))
+    passes = ([(plan.fft_length, plan.radices)] if resolved is Strategy.FUSED
+              else list(zip(plan.four_step_split,
+                            (plan.col_radices, plan.row_radices))))
     algorithm = plan.precision.dot_algorithm
-    for n in lengths:
-        smem = cta_smem_bytes(n, 1, algorithm)
+    for n, radices in passes:
+        mult3 = any(st.mult3 for st in pass_stages(
+            tuple(radices), plan.engine, plan.grouped, plan.complex_mult))
+        smem = cta_smem_bytes(n, 1, algorithm, mult3)
         if smem is None or smem > spec.smem_per_block_bytes:
             return (
                 False,
-                f"a length-{n} pass does not fit one CTA on {spec.kind} "
+                f"a length-{n} pass{' with mult3 stages' if mult3 else ''} "
+                f"does not fit one CTA on {spec.kind} "
                 f"({spec.smem_per_block_bytes} B shared memory per block); "
                 f"lower max_fused_length",
             )

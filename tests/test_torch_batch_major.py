@@ -110,9 +110,9 @@ def test_fused_fft_batch_major_checks_its_operands():
     x = torch.zeros(8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="radices"):
         four_step_cuda.fused_fft_batch_major(x, x, radices=(8,), scales=(1.0,))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="state_dtype"):
         four_step_cuda.fused_fft_batch_major(x, x, radices=(64,), scales=(1.0,),
-                                             grouped=True)
+                                             state_dtype="float16")
     meta = torch.empty(8, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         four_step_cuda.fused_fft_batch_major(meta, meta, radices=(64,),

@@ -142,10 +142,10 @@ def test_fft2_wrappers_check_their_operands():
         four_step_cuda.fft2_column_pass(x[0], x[0], **kw)
     with pytest.raises(ValueError, match="dtype"):
         four_step_cuda.fft2_column_pass(x, x.double(), **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="engine"):
         four_step_cuda.fft2_fused(x, x, radices1=(8,), radices2=(16,),
                                   scales1=(1.0,), scales2=(1.0,),
-                                  grouped=(False, True))
+                                  grouped=(False, True), engine="bogus")
 
 
 @pytest.mark.parametrize("precision", PRECISIONS)

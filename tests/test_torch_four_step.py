@@ -153,7 +153,17 @@ def test_pass_lanes():
 
 
 def test_unported_knobs_raise():
-    plan = tt.create_plan(4096, max_fused_length=64, tuning={"grouped": True})
-    x = torch.zeros(1, 4096, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
-        four_step_cuda.four_step_fft(x, x, **t_kwargs(plan, True))
+    # A grouped plan runs and matches the JAX package; a knob value FFTPlan
+    # rejects raises ValueError.
+    tuning = {"grouped": True}
+    tplan = tt.create_plan(4096, max_fused_length=64, tuning=tuning)
+    jplan = tfft.create_plan(4096, max_fused_length=64, tuning=tuning)
+    (re, im), (jre, jim) = _inputs(1, 4096, "bfloat16", seed=5)
+    got = four_step_cuda.four_step_fft(re, im, **t_kwargs(tplan, True))
+    want = four_step_pallas.four_step_fft(jre, jim, **j_kwargs(jplan, True),
+                                          interpret=True)
+    a = agreement(_numpy(got), _numpy(want), bf16=True)
+    assert a.within(FOUR_STEP_MAX_FRAC), a
+    with pytest.raises(ValueError, match="engine"):
+        four_step_cuda.four_step_fft(re, im, **dict(t_kwargs(tplan, True),
+                                                    engine="bogus"))

@@ -81,14 +81,27 @@ def test_block_dft_tables_identical():
     ("bf16", "default"), ("bf16", "bf16ax2"), ("bf16x3", "default"),
 ])
 def test_stage_table_arrays_identical(algorithm, first_dot):
+    # The stacked engine's tables (stage_matrices) hold the JAX tables'
+    # values bit for bit: D_re and D_im as the blocks of its BD, in its
+    # dtype, and every stage's twiddle after the first.
     radices, scales = (32, 64, 8), (1 / 32, 1 / 64, 1 / 8)
-    got = fused_cuda.stage_table_arrays(radices, scales, -1, algorithm, first_dot)
-    want = fused_pallas.stage_table_arrays(radices, scales, -1, algorithm,
-                                           False, first_dot=first_dot)
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert str(g.dtype).split(".")[-1] == str(w.dtype)
-        assert np.array_equal(g.float().numpy(), np.asarray(w, np.float32))
+    got = fused_cuda.stage_matrices(radices, scales, -1, algorithm, first_dot)
+    want = iter(fused_pallas.stage_table_arrays(radices, scales, -1, algorithm,
+                                                False, first_dot=first_dot))
+    for j, ((mat, w), r) in enumerate(zip(got, radices)):
+        bd = next(want)
+        assert mat.shape == (1, 2, r, r)
+        assert str(mat.dtype).split(".")[-1] == str(bd.dtype)
+        bd = np.asarray(bd, np.float32)
+        assert np.array_equal(mat[0, 0].float().numpy(), bd[:r, :r])
+        assert np.array_equal(mat[0, 1].float().numpy(), bd[r:, :r])
+        assert np.array_equal(-bd[r:, :r], bd[:r, r:])
+        if j == 0:
+            assert w is None
+        else:
+            assert np.array_equal(w[0].numpy(), np.asarray(next(want)))
+            assert np.array_equal(w[1].numpy(), np.asarray(next(want)))
+    assert next(want, None) is None
 
 
 @pytest.mark.parametrize("algorithm,first_dot,terms", [
@@ -97,39 +110,37 @@ def test_stage_table_arrays_identical(algorithm, first_dot):
 ])
 def test_kernel_tables_layout(algorithm, first_dot, terms):
     # The flat kernel table holds, per stage, the split terms of D_re and
-    # D_im (the blocks of BD) and the (2, R, K) twiddle, at meta's offsets.
+    # D_im and the (2, R, K) twiddle, at meta's offsets.
     radices, scales = (8, 32), (1 / 8, 1 / 32)
     tables, meta = fused_cuda.kernel_tables(radices, scales, -1, algorithm,
                                             first_dot, torch.device("cpu"))
-    arrays = fused_cuda.stage_table_arrays(radices, scales, -1, algorithm,
-                                           first_dot)
+    mats = fused_cuda.stage_matrices(radices, scales, -1, algorithm, first_dot)
     assert meta[0] == len(radices)
-    bds = [arrays[0], arrays[1]]
     for s, r in enumerate(radices):
         radix, n_terms, d_off, w_off = meta[1 + 4 * s: 5 + 4 * s]
         assert radix == r and n_terms == terms[s]
         d = tables[d_off:d_off + n_terms * 2 * r * r].reshape(n_terms, 2, r, r)
-        bd = bds[s].float()
-        want = ([bd] if n_terms == 1 and algorithm == "bf16"
-                else dots.split_bf16(bd, n_terms))
+        m = mats[s][0][0].float()
+        want = ([m] if n_terms == 1 and algorithm == "bf16"
+                else dots.split_bf16(m, n_terms))
         for t in range(n_terms):
-            w = want[t].float()
-            assert torch.equal(d[t, 0], w[:r, :r])
-            assert torch.equal(d[t, 1], w[r:, :r])
-            assert torch.equal(w[:r, r:], -w[r:, :r])  # BD's -D_im block
+            assert torch.equal(d[t], want[t].float())
         if s > 0:
             k = radices[0]
             w = tables[w_off:w_off + 2 * r * k].reshape(2, r, k)
-            assert torch.equal(w[0], arrays[2]) and torch.equal(w[1], arrays[3])
+            assert torch.equal(w, mats[s][1])
 
 
 @pytest.mark.parametrize("knob", [
-    dict(grouped=True), dict(complex_mult="mult3"),
-    dict(state_dtype="bfloat16"), dict(engine="gridslice"),
+    dict(state_dtype="float16"), dict(complex_mult="gauss"),
+    dict(engine="bogus"), dict(engine="gridslice"),
 ])
 def test_unported_knobs_raise(knob):
+    # Every knob value FFTPlan accepts runs (tests/test_torch_knobs.py); a
+    # value it rejects raises ValueError, as does a gridslice engine whose
+    # last stage emits no whole slices (fused_pallas.py:895-905).
     x = torch.zeros(2, 64, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         fused_cuda.fused_fft(x, x, radices=(64,), scales=(1 / 64,), **knob)
 
 

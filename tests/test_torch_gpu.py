@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain-torch versions on the card:
 kernels A, B and C, the packed/interleaving four-step variants (K5, K6),
-the R2C epilogue kernels (K7-K10) and the 2D row-column passes (K4).
+the R2C epilogue kernels (K7-K10), the 2D row-column passes (K4), K3, and
+every engine and numeric knob of the shared stage engine.
 
 Run on a machine with a CUDA device:
 
@@ -43,10 +44,17 @@ def _planes(b, n, dtype, device, seed=0):
             torch.from_numpy(x[1]).to(device, dtype))
 
 
-def _hold(got, want, bf16, max_frac=1e-3):
+def _hold(got, want, bf16, max_frac=1e-3, max_ulps=1.0):
     a = agreement([g.float().cpu() for g in got],
                   [w.float().cpu() for w in want], bf16=bf16)
-    assert a.within(max_frac), a
+    assert a.within(max_frac, max_ulps), a
+
+
+def _bound(state_dtype, max_frac):
+    """The agreement bound: a bf16 state allows 2 bf16 ulps on 2 %."""
+    if state_dtype == "bfloat16":
+        return dict(max_frac=2e-2, max_ulps=2.0)
+    return dict(max_frac=max_frac)
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32", "float32_x6"])
@@ -297,7 +305,7 @@ PLANAR = ["planar", "planar_vpu"]
 
 
 def _engine_count(wrapper, engine):
-    return wrapper.engine_launches[engine]
+    return wrapper.variant_launches[engine]
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
@@ -407,3 +415,144 @@ def test_fft_split_dispatches_batch_major_on_card(cuda):
     assert (four_step_cuda.fused_fft_batch_major.launches,
             fused_cuda.fused_fft.launches) == (k3 + 1, a)
     _bitwise(got, tt.fft_split(re, im))
+
+
+# -- the numeric knobs and the pretwiddle / gridslice engines ---------------
+
+@pytest.mark.parametrize("precision,radices,knobs,variant", [
+    ("bfloat16", (64, 256), dict(grouped=True), "grouped"),
+    ("bfloat16", (64, 256), dict(grouped=True, complex_mult="mult3"),
+     "grouped,mult3"),
+    ("bfloat16", (32, 128), dict(grouped=True), "grouped"),
+    ("bfloat16", (32, 16), dict(grouped=True), "grouped"),
+    ("bfloat16", (128, 8), dict(complex_mult="mult3"), "mult3"),
+    ("bfloat16", (64, 64), dict(state_dtype="bfloat16"), "bf16_state"),
+    ("bfloat16", (16, 16, 16), dict(grouped=True, state_dtype="bfloat16"),
+     "grouped,bf16_state"),
+    ("bfloat16", (8, 128, 16), dict(grouped=True, complex_mult="mult3",
+                                    state_dtype="bfloat16"),
+     "grouped,mult3,bf16_state"),
+    ("float32", (64, 256), dict(grouped=True, complex_mult="mult3"),
+     "grouped,mult3"),
+    ("float32", (64, 64), dict(state_dtype="bfloat16"), "bf16_state"),
+    ("float32", (128, 128), dict(engine="pretwiddle", state_dtype="bfloat16"),
+     "pretwiddle,bf16_state"),
+    ("float32_x6", (32, 256), dict(complex_mult="mult3"), "mult3"),
+    ("float32", (64, 64), dict(engine="planar", state_dtype="bfloat16"),
+     "planar,bf16_state"),
+])
+def test_knob_fused_kernel_matches_plain(cuda, precision, radices, knobs,
+                                         variant):
+    n = int(np.prod(radices))
+    plan = tt.create_plan(n, precision=precision)
+    dtype = plan.precision.storage_dtype
+    re, im = _planes(6, n, dtype, cuda, seed=n + 3)
+    kw = dict(radices=radices, scales=stage_scales(radices, "forward", True),
+              algorithm=plan.precision.dot_algorithm,
+              first_dot=plan.first_dot, **knobs)
+    before = fused_cuda.fused_fft.variant_launches[variant]
+    got = fused_cuda.fused_fft(re, im, **kw)
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_fft.variant_launches[variant] == before + 1
+    bf16 = dtype is torch.bfloat16 or knobs.get("state_dtype") == "bfloat16"
+    _hold(got, fused_cuda.fused_fft_reference(re, im, **kw), bf16,
+          **_bound(knobs.get("state_dtype"), 1e-3))
+
+
+@pytest.mark.parametrize("engine,radices,grouped", [
+    ("pretwiddle", (64, 256), True), ("gridslice", (128, 128), False),
+    ("gridslice8", (64, 256), True), ("gridslice16", (32, 128), True)])
+def test_layout_engines_bitwise_stacked_on_card(cuda, engine, radices, grouped):
+    n = int(np.prod(radices))
+    re, im = _planes(8, n, torch.bfloat16, cuda, seed=n)
+    kw = dict(radices=radices, scales=stage_scales(radices, "forward", True))
+    got = fused_cuda.fused_fft(re, im, engine=engine, grouped=grouped, **kw)
+    _bitwise(got, fused_cuda.fused_fft(
+        re, im, grouped=grouped and engine != "pretwiddle", **kw))
+
+
+def test_bf16x6_mult3_does_not_fit_one_cta(cuda):
+    plan = tt.create_plan(16384, precision="float32_x6",
+                          tuning={"radices": (128, 128), "complex_mult": "mult3"})
+    assert not tt.plan_works_on_device(plan, cuda)[0]
+    re, im = _planes(1, 16384, torch.float32, cuda)
+    before = fused_cuda.fused_fft.launches
+    with pytest.raises(ValueError, match="mult3"):
+        tt.fft_split(re, im, plan)
+    assert fused_cuda.fused_fft.launches == before
+
+
+@pytest.mark.parametrize("n,precision,tuning", [
+    (1 << 20, "bfloat16", dict(strategy="four_step", four_step_split=(512, 2048),
+                               col_radices=(32, 16), row_radices=(64, 32),
+                               grouped=True, state_dtype="bfloat16",
+                               lane_tile=256, k1_tile=512)),
+    (32768, "bfloat16", dict(strategy="four_step", four_step_split=(128, 256),
+                             complex_mult="mult3", state_dtype="bfloat16")),
+    (1 << 17, "float32_x6", dict(strategy="four_step",
+                                 four_step_split=(256, 512),
+                                 col_radices=(256,), complex_mult="mult3")),
+    (1 << 20, "bfloat16", dict(strategy="four_step",
+                               four_step_split=(1024, 1024),
+                               engine="gridslice16")),
+])
+def test_knob_four_step_kernels_match_plain(cuda, n, precision, tuning):
+    plan = tt.create_plan(n, precision=precision, tuning=tuning)
+    kw = four_step_call_kwargs(plan, True)
+    col_kw, row_kw = four_step_cuda._pair_kwargs(**kw)
+    bf16 = precision == "bfloat16" or col_kw["state_dtype"] == "bfloat16"
+    frac = _bound(col_kw["state_dtype"], FOUR_STEP_MAX_FRAC)
+    re, im = _planes(2, n, plan.precision.storage_dtype, cuda, seed=n)
+    mid = four_step_cuda.column_pass_reference(re, im, **col_kw)
+    _hold(four_step_cuda.column_pass(re, im, **col_kw), mid, bf16, **frac)
+    _hold(four_step_cuda.row_pass(*mid, **row_kw),
+          four_step_cuda.row_pass_reference(*mid, **row_kw), bf16, **frac)
+    if plan.engine.startswith("gridslice"):
+        _bitwise(tt.fft_split(re, im, plan), tt.fft_split(
+            re, im, tt.create_plan(n, precision=precision,
+                                   tuning=dict(tuning, engine="stacked"))))
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(grouped=True, state_dtype="bfloat16"), dict(engine="planar"),
+    dict(engine="planar_vpu"), dict(complex_mult="mult3", grouped=True)])
+def test_knob_real_pair_kernels_match_plain(cuda, knobs):
+    n = 1 << 20
+    plan = tt.create_plan(n, tuning=dict(strategy="four_step",
+                                         four_step_split=(512, 2048),
+                                         col_radices=(32, 16),
+                                         row_radices=(128, 16), lane_tile=256,
+                                         k1_tile=512, **knobs))
+    kw = four_step_call_kwargs(plan, True)
+    col_kw, row_kw = four_step_cuda._pair_kwargs(**kw)
+    frac = _bound(col_kw["state_dtype"], FOUR_STEP_MAX_FRAC)
+    (x,) = _planes(2, 2 * n, torch.bfloat16, cuda, seed=5)[:1]
+    _hold(four_step_cuda.column_pass_packed(x, **col_kw),
+          four_step_cuda.column_pass_packed_reference(x, **col_kw), True, **frac)
+    re, im = _planes(2, n, torch.bfloat16, cuda, seed=6)
+    _hold([four_step_cuda.row_pass_interleave(re, im, **row_kw)],
+          [four_step_cuda.row_pass_interleave_reference(re, im, **row_kw)],
+          True, **frac)
+
+
+@pytest.mark.parametrize("knobs", [dict(grouped=True),
+                                   dict(grouped=True, complex_mult="mult3"),
+                                   dict(state_dtype="bfloat16")])
+def test_knob_fft2_and_batch_major_match_plain(cuda, knobs):
+    h = w = 4096
+    r = (32, 128)
+    common = dict(sign=-1, algorithm="bf16", **knobs)
+    col = dict(radices1=r, scales1=stage_scales(r, "forward", True), **common)
+    row = dict(radices2=r, scales2=stage_scales(r, "forward", True), **common)
+    re, im = (p.reshape(1, h, w) for p in _planes(1, h * w, torch.bfloat16,
+                                                   cuda, seed=9))
+    frac = _bound(knobs.get("state_dtype"), FOUR_STEP_MAX_FRAC)
+    mid = four_step_cuda.fft2_column_pass_reference(re, im, **col)
+    _hold(four_step_cuda.fft2_column_pass(re, im, **col), mid, True, **frac)
+    _hold(four_step_cuda.fft2_row_pass(*mid, **row),
+          four_step_cuda.fft2_row_pass_reference(*mid, **row), True, **frac)
+    rows = (re.reshape(h, w)[:256], im.reshape(h, w)[:256])
+    kw = dict(radices=r, scales=col["scales1"], **common)
+    got = four_step_cuda.fused_fft_batch_major(*rows, **kw)
+    _hold(got, fused_cuda.fused_fft_reference(*rows, round_input=True, **kw),
+          True, **_bound(knobs.get("state_dtype"), 1e-3))

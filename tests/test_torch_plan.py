@@ -106,9 +106,16 @@ def test_plan_works_on_device():
     assert not ok and "one CTA" in why
     ok, why = tt.plan_works_on_device(tt.create_plan(4096, precision="float64"), "cuda")
     assert not ok and "float64" in why
-    ok, why = tt.plan_works_on_device(
-        tt.create_plan(4096, tuning={"engine": "gridslice"}), "cuda")
-    assert not ok and "engine" in why
+    # Every engine and knob has a kernel; mult3's third operand plane makes
+    # one bf16x6 transform of 16384 too large for a CTA.
+    for tuning in ({"engine": "gridslice"}, {"state_dtype": "bfloat16"},
+                   {"grouped": True, "complex_mult": "mult3"}):
+        assert tt.plan_works_on_device(tt.create_plan(4096, tuning=tuning),
+                                       "cuda") == (True, "ok")
+    ok, why = tt.plan_works_on_device(tt.create_plan(
+        16384, precision="float32_x6",
+        tuning={"radices": (128, 128), "complex_mult": "mult3"}), "cuda")
+    assert not ok and "mult3" in why
     # CPU tensors take the plain versions, which run every plan.
     assert tt.plan_works_on_device(tt.create_plan(32768, max_fused_length=32768), "cpu")[0]
 

@@ -11,12 +11,18 @@ import pytest
 import torch
 
 import tensorfft_tpu as tfft
+from tensorfft_tpu.fft import four_step_call_kwargs as j_kwargs
 from tensorfft_tpu.fft import stage_scales
 from tensorfft_tpu.ops import four_step_pallas, fused_pallas
 import tensorfft_tpu_torch as tt
+from tensorfft_tpu_torch.fft import four_step_call_kwargs as t_kwargs
 from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda
 from tensorfft_tpu_torch.testing import agreement
-from tensorfft_tpu_torch.testing.metrics import FOUR_STEP_MAX_FRAC
+from tensorfft_tpu_torch.testing.metrics import (
+    BF16_STATE_MAX_FRAC,
+    BF16_STATE_MAX_SCALE_ULPS,
+    FOUR_STEP_MAX_FRAC,
+)
 
 torch.set_num_threads(1)
 
@@ -26,11 +32,11 @@ STORAGE = {"bfloat16": (torch.bfloat16, jnp.bfloat16),
 ENGINES = ["planar", "planar_vpu"]
 
 
-def _planes(shape, precision, seed):
+def _planes(shape, precision, seed, count=2):
     rng = np.random.default_rng(seed)
     tdt, jdt = STORAGE[precision]
     out = []
-    for _ in range(2):
+    for _ in range(count):
         t = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(tdt)
         out.append((t, jnp.asarray(t.float().numpy(), jdt)))
     return out
@@ -140,18 +146,33 @@ def test_planar_ignores_grouped_and_mult3():
 
 
 def test_planar_knobs_raise_where_not_ported():
-    x = torch.zeros(2, 64, dtype=torch.bfloat16)
-    kw = dict(radices=(64,), scales=(1 / 64,), engine="planar")
-    with pytest.raises(NotImplementedError, match="state_dtype"):
-        fused_cuda.fused_fft(x, x, state_dtype="bfloat16", **kw)
-    # The R2C four-step pair (K5, K6) keeps the stacked engine only.
-    args = dict(n1=8, n2=8, radices1=(8,), radices2=(8,), scales1=(1.0,),
-                scales2=(1.0,), engine="planar")
-    with pytest.raises(NotImplementedError, match="engine"):
-        four_step_cuda.four_step_fft_packed_real(torch.zeros(1, 128), **args)
-    with pytest.raises(NotImplementedError, match="engine"):
-        four_step_cuda.four_step_fft_to_real(torch.zeros(1, 64),
-                                             torch.zeros(1, 64), **args)
+    # Nothing raises any more under the planar engines: bf16 state in
+    # kernel A, and the R2C four-step pair (K5, K6), each against the JAX
+    # package.  bf16 state: <= 2 bf16 ulps of the output scale on <= 2 % of
+    # elements; K5, K6 (fp32 state): the four-step bound.
+    n = 4096
+    (re, jre), (im, jim) = _planes((2, n), "bfloat16", seed=21)
+    (x, jx), = _planes((1, 2 * n), "bfloat16", seed=22, count=1)
+    for engine in ENGINES:
+        kw = dict(radices=(64, 64), scales=stage_scales((64, 64), "forward", True),
+                  engine=engine, state_dtype="bfloat16")
+        got = fused_cuda.fused_fft(re, im, **kw)
+        want = fused_pallas.fused_fft(jre.T, jim.T, interpret=True, **kw)
+        a = agreement([_np(g) for g in got], [_np(w.T) for w in want], bf16=True)
+        assert a.within(BF16_STATE_MAX_FRAC, BF16_STATE_MAX_SCALE_ULPS), (engine, a)
+        plan = tt.create_plan(n, max_fused_length=64, tuning={"engine": engine})
+        jplan = tfft.create_plan(n, max_fused_length=64, tuning={"engine": engine})
+        got = four_step_cuda.four_step_fft_packed_real(x, **t_kwargs(plan, True))
+        want = four_step_pallas.four_step_fft_packed_real(
+            jx, **j_kwargs(jplan, True), interpret=True)
+        a = agreement([_np(g) for g in got], [_np(w) for w in want], bf16=True)
+        assert a.within(FOUR_STEP_MAX_FRAC), (engine, a)
+        got = four_step_cuda.four_step_fft_to_real(re[:1], im[:1],
+                                                   **t_kwargs(plan, False))
+        want = four_step_pallas.four_step_fft_to_real(
+            jre[:1], jim[:1], **j_kwargs(jplan, False), interpret=True)
+        a = agreement([_np(got)], [_np(want)], bf16=True)
+        assert a.within(FOUR_STEP_MAX_FRAC), (engine, a)
 
 
 @pytest.mark.parametrize("algorithm,terms", [("bf16", 1), ("bf16x3", 2)])
@@ -165,7 +186,7 @@ def test_planar_kernel_tables_layout(algorithm, terms):
                                             "default", torch.device("cpu"),
                                             "planar")
     arrays = fused_cuda.planar_stage_tables(radices, scales, -1, algorithm)
-    assert list(meta[1 + 4 * 3:]) == [1, 2, 1]
+    assert list(meta[1 + 4 * 3:1 + 5 * 3]) == [1, 2, 1]
     slices = (1, 16, 1)
     mats = [arrays[0], arrays[1], arrays[2]]
     for s, r in enumerate(radices):
@@ -180,4 +201,4 @@ def test_planar_kernel_tables_layout(algorithm, terms):
     assert torch.equal(w[0], arrays[3]) and torch.equal(w[1], arrays[4])
     _, stacked_meta = fused_cuda.kernel_tables(radices, scales, -1, algorithm,
                                                "default", torch.device("cpu"))
-    assert list(stacked_meta[1 + 4 * 3:]) == [0, 0, 0]
+    assert list(stacked_meta[1 + 4 * 3:1 + 5 * 3]) == [0, 0, 0]

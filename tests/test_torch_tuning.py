@@ -314,14 +314,16 @@ def test_tuning_auto_reads_the_cuda_platform_on_a_card(tmp_path, monkeypatch):
 
 
 def test_planar_knobs_work_on_device():
+    # Every engine and numeric knob has a kernel on the card, the planar
+    # engines under grouped/mult3 (which they ignore) and a bf16 state
+    # included; a knob value FFTPlan rejects raises ValueError.
     for tuning in ({"engine": "planar"}, {"engine": "planar_vpu"},
                    {"engine": "planar", "grouped": True},
-                   {"engine": "planar", "complex_mult": "mult3"}):
+                   {"engine": "planar", "complex_mult": "mult3"},
+                   {"engine": "planar", "state_dtype": "bfloat16"},
+                   {"grouped": True}, {"complex_mult": "mult3"},
+                   {"engine": "pretwiddle"}):
         ok, why = tt.plan_works_on_device(tt.create_plan(4096, tuning=tuning), "cuda")
         assert ok, (tuning, why)
-    for tuning, knob in (({"engine": "planar", "state_dtype": "bfloat16"}, "state_dtype"),
-                         ({"grouped": True}, "grouped"),
-                         ({"complex_mult": "mult3"}, "complex_mult"),
-                         ({"engine": "pretwiddle"}, "engine")):
-        ok, why = tt.plan_works_on_device(tt.create_plan(4096, tuning=tuning), "cuda")
-        assert not ok and knob in why
+    with pytest.raises(ValueError, match="state_dtype"):
+        tt.create_plan(4096, tuning={"state_dtype": "float16"})
