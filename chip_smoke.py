@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from ``tensorfft_tpu_torch/csrc`` (nvcc, at
 first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills);
-  2. drives the five main paths, each with every launch counter reset
+  2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
        C2C: ``fft_split`` with the default bf16 plans over the flagship
@@ -51,8 +51,21 @@ first use, one process per source), then:
             exactly the variants listed, each variant is held against its
             plain version (two bf16 ulps on at most 2 % under a bf16 state),
             pretwiddle and gridslice must equal the stacked engine bit for
-            bit, each plan passes the gate and the round trip, and the
-            bf16x6 mult3 plan at N=16384 must be refused;
+            bit, and each plan passes the gate and the round trip;
+       bign: the plans the JAX package runs past one CTA (BIGN_CALLS),
+            each on a thread-block cluster, through ``fft_split``/
+            ``ifft_split`` (and K3, ``rfft_split``/``irfft_split``): kernel
+            A on 2 CTAs at N=32768 x 2048 (bf16, and float32 with a bf16
+            state), on 4 at N=65536 x 1024 (bf16 state) and 65536 x 64
+            (float32, mult3), and on 2 for bf16x6 with mult3 at N=16384 x
+            256; kernel C, then kernel B, on 2 CTAs for the 32768-point pass
+            of N=2^27 x 1 at splits (4096, 32768) and (32768, 4096); K3 at
+            N=32768 x 2048; the fused R2C route at real N=65536 x 1024; each
+            call must launch exactly the cluster variants listed, each
+            variant is held against its plain version (at 2^27 on the
+            first 2^22 outputs), each plan passes the gate and the round
+            trip, kernel A on 2 CTAs must equal the one-CTA kernel bit for
+            bit at N=16384, and a plan past 8 CTAs must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -132,8 +145,8 @@ R2C_GATE_F32 = [8192, 32768, 1 << 21]
 # Round trip: max |inverse(forward(x)) - x| relative to max |x|.  bf16
 # storage keeps 8 significant bits, so the passes' storage rounding leaves
 # ~2^-7; bf16x3 keeps 16 bits per operand, ~1.5e-5 per stage over up to 6
-# stages.
-ROUNDTRIP_TOL = {"bfloat16": 2e-2, "float32": 3e-4}
+# stages; bf16x6 keeps 24 bits, inside bf16x3's bound.
+ROUNDTRIP_TOL = {"bfloat16": 2e-2, "float32": 3e-4, "float32_x6": 3e-4}
 # fft_convolve_real (float32 policy) against the fp64 convolution, relative
 # to the output's largest magnitude: three bf16x3 transforms at ~1e-5 each.
 CONVOLVE_TOL = 1e-3
@@ -351,6 +364,65 @@ TPU_CALLS = [
     ("K1 bf16 state float32 N=4096", "c2c", 4096, 256, "float32",
      {"state_dtype": "bfloat16"}, {"fused_fft[bf16_state]": 2}),
 ]
+# The bign path: the plans the JAX package runs past one CTA, each on a
+# thread-block cluster (fused_cuda.fit_cta), in TPU_CALLS' format.  The
+# single-pass plans at N = 32768 and 65536 are the JAX tuner's fused_bign
+# challengers (tensorfft_tpu/tuning/tuner.py:279-303; 32768 in float32 with
+# a bf16 state is tests/test_fused_pallas.py:134's plan, 65536 (128, 4, 128)
+# under mult3 its :337 structure); the four-step splits put a 32768-point
+# pass in kernel C, then in kernel B (tests/test_plan.py:101); bf16x6 with
+# mult3 is the bench headline's structure; K3 and the fused R2C route take
+# the cluster too.
+_FUSED_32K = {"strategy": "fused", "radices": [256, 128], "max_fused_length": 32768}
+BIGN_CALLS = [
+    ("K1 cluster N=32768", "c2c", 32768, 2048, "bfloat16", _FUSED_32K,
+     {"fused_fft[cluster2]": 2}),
+    ("K1 cluster bf16 state float32 N=32768", "c2c", 32768, 2048, "float32",
+     {"strategy": "fused", "radices": [32, 32, 32], "max_fused_length": 32768,
+      "state_dtype": "bfloat16"}, {"fused_fft[bf16_state,cluster2]": 2}),
+    ("K1 cluster bf16 state N=65536", "c2c", 65536, 1024, "bfloat16",
+     {"strategy": "fused", "radices": [256, 256], "max_fused_length": 65536,
+      "state_dtype": "bfloat16"}, {"fused_fft[bf16_state,cluster4]": 2}),
+    ("K1 cluster mult3 float32 N=65536", "c2c", 65536, 64, "float32",
+     {"strategy": "fused", "radices": [128, 4, 128], "max_fused_length": 65536,
+      "complex_mult": "mult3"}, {"fused_fft[mult3,cluster4]": 2}),
+    ("K2r cluster N=2^27 (4096, 32768)", "c2c", 1 << 27, 1, "bfloat16",
+     {"strategy": "four_step", "four_step_split": [4096, 32768]},
+     {"four_step_col": 2, "four_step_row[cluster2]": 2}),
+    ("K2c cluster N=2^27 (32768, 4096)", "c2c", 1 << 27, 1, "bfloat16",
+     {"strategy": "four_step", "four_step_split": [32768, 4096]},
+     {"four_step_col[cluster2]": 2, "four_step_row": 2}),
+    ("K1 bf16x6 mult3 N=16384", "c2c", 16384, 256, "float32_x6",
+     dict(TPU_ENTRIES[16384], complex_mult="mult3"),
+     {"fused_fft[grouped,mult3,cluster2]": 2}),
+    ("K3 cluster N=32768", "batch_major", 32768, 2048, "bfloat16", _FUSED_32K,
+     {"fused_fft_batch_major[cluster2]": 2}),
+    ("R2C cluster real N=65536", "r2c", 65536, 1024, "bfloat16",
+     {"max_fused_length": 32768},
+     {"pack_split": 1, "fused_fft[cluster2]": 2, "untangle_fwd": 1,
+      "retangle_inv": 1, "interleave_split": 1}),
+]
+BIGN_KERNELS = {
+    "fused_fft[cluster2]": _FUSED,
+    "fused_fft[bf16_state,cluster2]": _FUSED,
+    "fused_fft[bf16_state,cluster4]": _FUSED,
+    "fused_fft[mult3,cluster4]": _FUSED,
+    "fused_fft[grouped,mult3,cluster2]": _FUSED,
+    "four_step_row[cluster2]": _ROW,
+    "four_step_col[cluster2]": _COL,
+    "fused_fft_batch_major[cluster2]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+                                        "tensorfft_tpu/ops/four_step_pallas.py:768"),
+}
+KERNELS.update(BIGN_KERNELS)
+# The K1-cluster plans the JAX tuner weighs against the default four-step
+# plan at the same N (split (128, 256) at 32768, (128, 512) at 65536).
+BIGN_VS_FOUR_STEP = ("K1 cluster N=32768", "K1 cluster bf16 state N=65536")
+# Outputs held against the plain versions where a pass is larger than
+# 2^24 elements (the 2^27 four-step passes; every earlier path's pass is
+# held whole): the first 2^22 elements of each plane.
+BIGN_SLICE_ABOVE = 1 << 24
+BIGN_HOLD_ELEMS = 1 << 22
+
 # Calls whose output must equal the stacked engine's bit for bit (fp32
 # state): pretwiddle runs with grouping off, gridslice keeps it.
 TPU_BITWISE = ("pretwiddle N=16384", "pretwiddle N=2^20", "K1a gridslice N=16384",
@@ -444,6 +516,7 @@ def main() -> int:
                                          rfft_cuda)
     from tensorfft_tpu_torch.rfft import _inverse_pre_scale, _output_scale
     from tensorfft_tpu_torch.testing import (agreement, deviation, fft_oracle,
+                                             get_random_weights,
                                              make_test_signal, measure)
     from tensorfft_tpu_torch.plan import effective_state_dtype
     from tensorfft_tpu_torch.testing.metrics import (
@@ -476,6 +549,33 @@ def main() -> int:
         rng = np.random.default_rng(seed)
         x = rng.standard_normal((planes, b, n), dtype=np.float32)
         return tuple(torch.from_numpy(p).to(dev, dtype) for p in x)
+
+    def device_inputs(n, b, dtype, seed, planes=2):
+        """Seeded normal planes made on the card (the bign path's 2^26- and
+        2^27-element inputs, which numpy makes in ~2 s each)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn((b, n), generator=gen, device=dev).to(dtype)
+                     for _ in range(planes))
+
+    def sine_signal(n):
+        """make_test_signal(n, 42, 42 * 42), one row, built on the card in
+        fp64 (sum_h w_h sin(2 pi h j / N), the direct form of its sine
+        superposition), and its exact forward spectrum / N: bin h holds
+        (w_im[h] - i w_re[h]) / 2 and bin N - h (i w_re[h] - w_im[h]) / 2.
+        At N = 2^27 numpy's three FFTs of the spectral form take ~35 s."""
+        weights = [get_random_weights(20, 42), get_random_weights(20, 42 * 42)]
+        j = torch.arange(n, dtype=torch.float64, device=dev)
+        x = []
+        for w in weights:
+            row = torch.zeros(n, dtype=torch.float64, device=dev)
+            for h in range(1, len(w)):
+                row += float(w[h]) * torch.sin((2.0 * math.pi * h / n) * j)
+            x.append(row[None])
+        o_re, o_im = np.zeros((1, n)), np.zeros((1, n))
+        for h in range(1, len(weights[0])):
+            o_re[0, h], o_im[0, h] = weights[1][h] / 2, -weights[0][h] / 2
+            o_re[0, n - h], o_im[0, n - h] = -weights[1][h] / 2, weights[0][h] / 2
+        return tuple(x), (o_re, o_im)
 
     wrappers = {
         "fused_fft": fused_cuda.fused_fft,
@@ -939,8 +1039,8 @@ def main() -> int:
         delta = {k: c - before.get(k, 0) for k, c in after.items()
                  if c != before.get(k, 0)}
         if delta != want:
-            raise RuntimeError(f"tuned call {label} launched {delta}, expected {want}")
-        log(f"[tuned] {label}: launched {delta}")
+            raise RuntimeError(f"call {label} launched {delta}, expected {want}")
+        log(f"[launches] {label}: {delta}")
 
     def drive_tuned():
         out = {}
@@ -1069,10 +1169,10 @@ def main() -> int:
 
     def tpu_job(name, shape, call, plain, args, io_bytes, tables,
                 ops, library=None):
-        """Register the timing of ``name``, a variant this path adds, at
-        ``shape``: ``tables`` the table_bytes arguments of its pass,
-        ``library`` a function giving (torch call, args)."""
-        if name not in TPU_KERNELS:
+        """Register the timing of ``name``, a variant the tpu_tuned or bign
+        path adds, at ``shape``: ``tables`` the table_bytes arguments of its
+        pass, ``library`` a function giving (torch call, args)."""
+        if name not in TPU_KERNELS and name not in BIGN_KERNELS:
             return
         key = name if name not in tpu_jobs else f"{name} {shape}"
         tpu_jobs.setdefault(key, dict(name=name, shape=shape, call=call,
@@ -1088,7 +1188,8 @@ def main() -> int:
 
     def tol(precision, state_dtype, four_step):
         """hold() bounds: a bf16 state two bf16 ulps on at most 2 %; else
-        the policy's fused or four-step bound."""
+        the policy's fused or four-step bound (the latter also for a fused
+        transform past N = 16384, testing/metrics.py)."""
         if state_dtype == "bfloat16":
             return dict(max_frac=BF16_STATE_MAX_FRAC, bf16=True,
                         max_ulps=BF16_STATE_MAX_SCALE_ULPS)
@@ -1140,7 +1241,7 @@ def main() -> int:
              [t[rows] for t in spec],
              fused_cuda.fused_fft_reference(*(t[rows] for t in x), round_input=True,
                                             **kw),
-             **tol(precision, plan.state_dtype, False))
+             **tol(precision, plan.state_dtype, n > 16384))
         item = x[0].element_size()
         tpu_job(name, f"N={n} x B={b} {precision}",
                 lambda r, i: fn(r, i, **kw),
@@ -1161,14 +1262,20 @@ def main() -> int:
         ``torch.fft.fft`` along each pass's axis as its one call where
         ``library`` (the K4 passes)."""
         t = tol(precision, col["state_dtype"], True)
+        # At 2^27 the hold is on a slice: the first BIGN_HOLD_ELEMS of each
+        # plane of the outputs (the plain versions run whole on the card).
+        keep = BIGN_HOLD_ELEMS if elems > BIGN_SLICE_ABOVE else elems
+        cut = (lambda ts: [v.reshape(-1)[:keep]
+                           for v in (ts if isinstance(ts, tuple) else [ts])])
+        where = f"{label}, first {keep} elements" if keep < elems else label
         name_c, mid = named(lambda: col_call(*x, **col))
         mid_plain = col_ref(*x, **col)
-        hold(name_c, label, mid if isinstance(mid, tuple) else [mid],
-             mid_plain if isinstance(mid_plain, tuple) else [mid_plain], **t)
+        hold(name_c, where, cut(mid), cut(mid_plain), **t)
+        del mid
         name_r, out = named(lambda: row_call(*mid_plain, **row))
         want = row_ref(*mid_plain, **row)
-        hold(name_r, label, out if isinstance(out, tuple) else [out],
-             want if isinstance(want, tuple) else [want], **t)
+        hold(name_r, where, cut(out), cut(want), **t)
+        del out, want
         item = x[0].element_size()
         radices_c = col.get("radices1")
         tpu_job(name_c, shape, lambda *a: col_call(*a, **col),
@@ -1183,6 +1290,30 @@ def main() -> int:
                 pass_flops(plan, row["radices2"], elems, col_first_dot),
                 axis_fft(mid_plain, -1) if library else None)
         return mid_plain
+
+    def hold_r2c_fused(label, plan, x, spec, precision):
+        """The fused R2C route: kernel A on the packed rows (a slice), K9 on
+        its output, K10 on the main path's spectrum, K7 and K8 bit for
+        bit."""
+        b, n = x[0].shape
+        rows = slice(0, min(b, TPU_HOLD_ROWS))
+        z = rfft_cuda.pack_split(x[0][rows])
+        bitwise("pack_split", label, z, rfft_cuda.pack_split_reference(x[0][rows]))
+        zf = tt.fft_split(*z, plan)
+        hold_fused(label, "c2c", plan, z, zf, precision)
+        fs = float(_output_scale(plan, True))
+        name, got = named(lambda: rfft_cuda.untangle_fwd(*zf, n=n, scale=fs))
+        hold(name, label, got, rfft_cuda.untangle_fwd_reference(*zf, n=n, scale=fs),
+             **tol(precision, "float32", False))
+        inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
+                   out_dtype=plan.precision.storage_dtype)
+        s_rows = [t[rows] for t in spec]
+        name, zi = named(lambda: rfft_cuda.retangle_inv(*s_rows, **inv))
+        hold(name, label, zi, rfft_cuda.retangle_inv_reference(*s_rows, **inv),
+             **tol(precision, "float32", False))
+        o = tt.ifft_split(*zi, plan)
+        bitwise("interleave_split", label, [rfft_cuda.interleave_split(*o)],
+                [rfft_cuda.interleave_split_reference(*o)])
 
     def tpu_holds(label, route, plan, x, spec, precision):
         """Each kernel of one call against its plain version on the card."""
@@ -1200,6 +1331,9 @@ def main() -> int:
                         dict(radices1=plan.radices, scales1=scales, **k4),
                         dict(radices2=plan.radices, scales2=scales, **k4), n * n,
                         "default", library=True)
+            return
+        if plan.four_step_split is None and route == "r2c":
+            hold_r2c_fused(label, plan, x, spec, precision)
             return
         if plan.four_step_split is None:
             hold_fused(label, route, plan, x, spec, precision)
@@ -1279,6 +1413,10 @@ def main() -> int:
             r = (tt.irfft_split(*f, plan),)
             oracle = np.fft.rfft(x64, axis=-1) / n_t
             oracle = (oracle.real, oracle.imag)
+        elif n_t >= 1 << 26:
+            x, oracle = sine_signal(n_t)
+            f = tt.fft_split(*x, plan)
+            r = tt.ifft_split(*f, plan)
         else:
             sig = [make_test_signal(n_t, 42 * s, 42 * 42 * s)
                    for s in range(1, 3 if n_t > 16384 else 9)]
@@ -1293,80 +1431,109 @@ def main() -> int:
                       oracle)
         rt = roundtrip(r, x, storage)
         ok = d.passes_reference_gate() and rt <= rt_tol
-        log(f"[tpu_tuned gate] {precision} {label} rows={x[0].shape[0]}: {d} "
+        log(f"[{path_of[label]} gate] {precision} {label} rows={x[0].shape[0]}: {d} "
             f"roundtrip_rel={rt:.3e} (bound {rt_tol:g}) {'PASS' if ok else 'FAIL'}")
         if not ok:
-            raise RuntimeError(f"tpu_tuned accuracy gate failed at {label}")
+            raise RuntimeError(f"{path_of[label]} accuracy gate failed at {label}")
 
-    tpu_in = {}
-    for i, (label, route, n_t, b_t, precision, _, _) in enumerate(TPU_CALLS):
-        storage = torch.bfloat16 if precision == "bfloat16" else torch.float32
-        if route == "r2c":
-            tpu_in[label] = inputs(n_t, b_t, storage, SEED + 31 + i, planes=1)
-        elif route == "fftn":
-            tpu_in[label] = tuple(p.reshape(n_t, n_t) for p in
-                                  inputs(n_t * n_t, 1, storage, SEED + 31 + i))
-        else:
-            tpu_in[label] = inputs(n_t, b_t, storage, SEED + 31 + i)
+    path_of = {}  # call label -> its path
 
-    def drive_tpu():
-        out = {}
-        for label, route, _, _, _, tuning, want in TPU_CALLS:
-            before = launch_counts()
-            out[label] = tpu_forward_inverse(route, tpu_plans[label], tpu_in[label],
-                                             tuning)
-            torch.cuda.synchronize()
-            expect(label, before, want)
-        return out
+    def knob_path(path, calls, entries, seed, make=inputs):
+        """Drive ``calls`` (TPU_CALLS' format) through the public entry
+        points, counted as ``path`` (a tuner cache holding ``entries`` open
+        for ``tuning="auto"``), each call launching exactly its variants, on
+        inputs from ``make``; then per call its finite outputs, round trip,
+        holds against the plain versions, bitwise checks and gate.  Returns
+        the plans and inputs."""
+        ins, plans = {}, {}
+        for i, (label, route, n_t, b_t, precision, _, _) in enumerate(calls):
+            path_of[label] = path
+            storage = torch.bfloat16 if precision == "bfloat16" else torch.float32
+            if route == "r2c":
+                ins[label] = make(n_t, b_t, storage, seed + i, planes=1)
+            elif route == "fftn":
+                ins[label] = tuple(p.reshape(n_t, n_t) for p in
+                                   make(n_t * n_t, 1, storage, seed + i))
+            else:
+                ins[label] = make(n_t, b_t, storage, seed + i)
 
-    with tuner_cache({4096: TPU_ENTRIES[4096]}, "tpu_tuned"):
-        tpu_plans = {label: tpu_plan(route, n_t, precision, tuning)
-                     for label, route, n_t, _, precision, tuning, _ in TPU_CALLS}
-        for label, plan in tpu_plans.items():
-            ok, why = tt.plan_works_on_device(plan, "cuda")
-            log(f"[tpu_tuned] {label}: {plan.resolve_strategy().value} radices "
-                f"{plan.radices} split {plan.four_step_split} col {plan.col_radices} "
-                f"row {plan.row_radices} engine {plan.engine} grouped {plan.grouped} "
-                f"complex_mult {plan.complex_mult} state {plan.state_dtype} "
-                f"(in effect {state_of(plan)}) first_dot {plan.first_dot} "
-                f"lane_tile {plan.lane_tile} k1_tile {plan.k1_tile}; works on "
-                f"cuda: {ok} ({why})")
-            if not ok:
-                raise RuntimeError(f"tpu_tuned plan {label} refused: {why}")
-        tpu_out = counted("tpu_tuned", sorted({k for *_, want in TPU_CALLS for k in want}),
-                          drive_tpu)
-        for label, route, n_t, b_t, precision, _, want in TPU_CALLS:
-            plan, x = tpu_plans[label], tpu_in[label]
-            spec, back = tpu_out[label]
-            shape = ((b_t, n_t // 2 + 1) if route == "r2c" else x[0].shape)
-            finite(f"tpu_tuned {label}", spec, shape, x[0].dtype)
-            finite(f"tpu_tuned {label}", back, x[0].shape, x[0].dtype)
-            rt_tol = ROUNDTRIP_TOL["bfloat16" if state_of(plan) == "bfloat16"
-                                   else precision]
-            rt = roundtrip(back, x, plan.precision.storage_dtype)
-            log(f"[tpu_tuned] {label} main path roundtrip_rel={rt:.3e} (bound {rt_tol:g})")
-            if rt > rt_tol:
-                raise RuntimeError(f"tpu_tuned {label}: round trip off by {rt:.3e}")
-            tpu_holds(label, route, plan, x, spec, precision)
-            if label in TPU_BITWISE:
-                tpu_bitwise(label, route, plan, x, spec, back)
-            tpu_gate(label, route, plan, want)
-        # The bf16x6 policy with mult3 stages at N = 16384 does not fit one
-        # CTA: the planner says so and the wrapper refuses, with no fallback.
-        p6 = tt.create_plan(16384, precision="float32_x6",
-                            tuning=dict(TPU_ENTRIES[16384], complex_mult="mult3"))
-        ok, why = tt.plan_works_on_device(p6, "cuda")
-        x6 = inputs(16384, 1, torch.float32, SEED + 30)
-        try:
-            tt.fft_split(*x6, p6)
-            refused = False
-        except ValueError:
-            refused = True
-        log(f"[tpu_tuned] float32_x6 mult3 N=16384: works on cuda {ok} ({why}); "
-            f"fft_split raises ValueError: {refused}")
-        if ok or not refused:
-            raise RuntimeError("bf16x6 mult3 at N=16384 must be refused")
-    del tpu_out
+        def drive():
+            out = {}
+            for label, route, _, _, _, tuning, want in calls:
+                before = launch_counts()
+                out[label] = tpu_forward_inverse(route, plans[label], ins[label],
+                                                 tuning)
+                torch.cuda.synchronize()
+                expect(label, before, want)
+            return out
+
+        with (tuner_cache(entries, path) if entries else contextlib.nullcontext()):
+            for label, route, n_t, _, precision, tuning, _ in calls:
+                plans[label] = plan = tpu_plan(route, n_t, precision, tuning)
+                ok, why = tt.plan_works_on_device(plan, "cuda")
+                log(f"[{path}] {label}: {plan.resolve_strategy().value} radices "
+                    f"{plan.radices} split {plan.four_step_split} col "
+                    f"{plan.col_radices} row {plan.row_radices} engine "
+                    f"{plan.engine} grouped {plan.grouped} complex_mult "
+                    f"{plan.complex_mult} state {plan.state_dtype} (in effect "
+                    f"{state_of(plan)}) first_dot {plan.first_dot} lane_tile "
+                    f"{plan.lane_tile} k1_tile {plan.k1_tile}; works on cuda: "
+                    f"{ok} ({why})")
+                if not ok:
+                    raise RuntimeError(f"{path} plan {label} refused: {why}")
+            log(f"[{path}] inputs and plans at {time.perf_counter() - t_start:.1f} s")
+            outs = counted(path, sorted({k for *_, want in calls for k in want}),
+                           drive)
+            for label, route, n_t, b_t, precision, _, want in calls:
+                plan, x = plans[label], ins[label]
+                spec, back = outs.pop(label)
+                shape = ((b_t, n_t // 2 + 1) if route == "r2c" else x[0].shape)
+                finite(f"{path} {label}", spec, shape, x[0].dtype)
+                finite(f"{path} {label}", back, x[0].shape, x[0].dtype)
+                rt_tol = ROUNDTRIP_TOL["bfloat16" if state_of(plan) == "bfloat16"
+                                       else precision]
+                rt = roundtrip(back, x, plan.precision.storage_dtype)
+                log(f"[{path}] {label} main path roundtrip_rel={rt:.3e} "
+                    f"(bound {rt_tol:g}; at {time.perf_counter() - t_start:.1f} s)")
+                if rt > rt_tol:
+                    raise RuntimeError(f"{path} {label}: round trip off by {rt:.3e}")
+                tpu_holds(label, route, plan, x, spec, precision)
+                if label in TPU_BITWISE:
+                    tpu_bitwise(label, route, plan, x, spec, back)
+                del spec, back
+                tpu_gate(label, route, plan, want)
+        torch.cuda.synchronize()
+        return plans, ins
+
+    knob_path("tpu_tuned", TPU_CALLS, {4096: TPU_ENTRIES[4096]}, SEED + 31)
+
+    # -- bign: plans past one CTA, on thread-block clusters -----------------
+    log(f"[phase] bign path from {time.perf_counter() - t_start:.1f} s")
+    bign_plans, bign_in = knob_path("bign", BIGN_CALLS, {}, SEED + 61,
+                                    device_inputs)
+    # The exchange logic alone: a row one CTA holds, on a cluster of two
+    # through the private launcher, equals the one-CTA kernel bit for bit.
+    x16 = inputs(16384, 256, torch.bfloat16, SEED + 60)
+    kw16 = dict(radices=(128, 128), scales=stage_scales((128, 128), "forward", True),
+                sign=-1, algorithm="bf16", first_dot="default", engine="stacked",
+                grouped=False, complex_mult="block", state_dtype="float32")
+    bitwise("fused_fft[cluster2]", "N=16384 x B=256 on 2 CTAs vs one CTA",
+            fused_cuda._launch_fused(*x16, cluster=2, **kw16),
+            fused_cuda.fused_fft(*x16, **kw16))
+    del x16
+    # Past a cluster of 8 CTAs a plan is refused, before any launch.
+    big = tt.create_plan(1 << 18, max_fused_length=1 << 18)
+    ok, why = tt.plan_works_on_device(big, "cuda")
+    before = launch_counts()
+    try:
+        tt.fft_split(*inputs(1 << 18, 1, torch.bfloat16, SEED + 59), big)
+        refused = False
+    except ValueError:
+        refused = True
+    log(f"[bign] N=2^18 fused: works on cuda {ok} ({why}); fft_split raises "
+        f"ValueError: {refused}")
+    if ok or not refused or launch_counts() != before:
+        raise RuntimeError("a plan past 8 CTAs must be refused with no launch")
     torch.cuda.synchronize()
 
     # -- 5. timing ---------------------------------------------------------
@@ -1740,6 +1907,33 @@ def main() -> int:
                     job["args"], job["io_bytes"] + tables, job["ops"],
                     extra=f" | tables {tables} B", record=key == job["name"])
         del library
+
+    # The choice the JAX tuner's fused_bign branch makes: K1 on a cluster
+    # against the default four-step plan at the same N and rows, in turns
+    # (K1, four-step, K1, four-step), beside torch.fft.fft.
+    log(f"[phase] bign comparison from {time.perf_counter() - t_start:.1f} s")
+    for label in BIGN_VS_FOUR_STEP:
+        plan, x = bign_plans[label], bign_in[label]
+        b_t, n_t = x[0].shape
+        default = tt.create_plan(n_t)
+        plans = {f"K1 {plan.radices} {plan.state_dtype} state": plan,
+                 f"four-step {default.four_step_split}": default}
+        if plan.state_dtype != "float32":
+            plans[f"K1 {plan.radices} float32 state"] = dataclasses.replace(
+                plan, state_dtype="float32")
+        times = {k: [] for k in plans}
+        for _ in range(2):
+            for k, pl in plans.items():
+                times[k].append(measure(lambda r, i, pl=pl: tt.fft_split(r, i, pl),
+                                        x, iters=10).average_time_ms)
+        x_c = torch.complex(x[0].float(), x[1].float())
+        t_lib = measure(lambda v: torch.fft.fft(v, dim=-1), (x_c,), iters=10)
+        flops = 5.0 * n_t * math.log2(n_t) * b_t
+        log(f"[time] fft_split N={n_t} x B={b_t} bf16: " + " | ".join(
+            f"{k} {min(v):.4f} ms ({flops / min(v) / 1e6:.1f} GFLOP/s; runs "
+            f"{', '.join(f'{t:.4f}' for t in v)})" for k, v in times.items())
+            + f" | torch.fft.fft c64 {t_lib.average_time_ms:.4f} ms | {smi}")
+        del x_c
 
     kernels = []
     for name in KERNELS:

@@ -10,16 +10,18 @@
 // contiguously and stores them in place in runs of 32/T elements.
 #include "four_step_passes.cuh"
 
-// Every entry point returns a cudaError_t code.  n1 = H, n2 = W.
+// Every entry point returns a cudaError_t code (or kErrClusterUnschedulable;
+// cluster: CTAs per column or row, four_step_passes.cuh).  n1 = H, n2 = W.
 
 // Column pass: H-point FFTs down every column, no twiddle -> `mid` (B, H, W)
 // in the storage dtype.  Replaces the pallas_call at four_step_pallas.py:646.
 extern "C" int tfft_fft2_col(const void* in_re, const void* in_im,
                              void* mid_re, void* mid_im, int dtype,
                              int data_terms, long long batch, int h, int w,
-                             int T, const void* tables, const long long* meta,
-                             void* stream) {
+                             int T, int cluster, const void* tables,
+                             const long long* meta, void* stream) {
   return tfft::col_pass<false, false>(in_re, in_im, mid_re, mid_im, dtype,
-                                      data_terms, batch, h, w, T, tables, meta,
-                                      nullptr, nullptr, 0, stream);
+                                      data_terms, batch, h, w, T, cluster,
+                                      tables, meta, nullptr, nullptr, 0,
+                                      stream);
 }

@@ -2,7 +2,8 @@
 // see fft2.cu).
 #include "four_step_passes.cuh"
 
-// Returns a cudaError_t code.  n1 = H, n2 = W.
+// Returns a cudaError_t code (or kErrClusterUnschedulable; cluster: CTAs
+// per row, four_step_passes.cuh).  n1 = H, n2 = W.
 
 // Row pass: W-point FFTs of every row of `mid`, stored in place, so the
 // output (B, H, W) is (B, kh, kw) in natural order.  Replaces the
@@ -10,9 +11,9 @@
 extern "C" int tfft_fft2_row(const void* mid_re, const void* mid_im,
                              void* out_re, void* out_im, int dtype,
                              int data_terms, long long batch, int h, int w,
-                             int T, const void* tables, const long long* meta,
-                             void* stream) {
+                             int T, int cluster, const void* tables,
+                             const long long* meta, void* stream) {
   return tfft::row_pass<false, false>(mid_re, mid_im, out_re, out_im, dtype,
-                                      data_terms, batch, h, w, T, tables, meta,
-                                      stream);
+                                      data_terms, batch, h, w, T, cluster,
+                                      tables, meta, stream);
 }

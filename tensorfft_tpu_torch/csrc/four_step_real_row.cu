@@ -1,7 +1,8 @@
 // R2C entry point of the interleaving row pass of K6 (four_step_passes.cuh).
 #include "four_step_passes.cuh"
 
-// Returns a cudaError_t code.
+// Returns a cudaError_t code (or kErrClusterUnschedulable; cluster: CTAs
+// per row, four_step_passes.cuh).
 
 // Interleaving row pass (K6's second pass): `mid` (B, N) planes -> real
 // (B, 2N), natural bin k at x[b, 2k] (re) and x[b, 2k + 1] (im).
@@ -9,9 +10,11 @@ extern "C" int tfft_four_step_row_interleave(const void* mid_re,
                                              const void* mid_im, void* x,
                                              int dtype, int data_terms,
                                              long long batch, int n1, int n2,
-                                             int T, const void* tables,
+                                             int T, int cluster,
+                                             const void* tables,
                                              const long long* meta,
                                              void* stream) {
-  return tfft::row_pass<true, true>(mid_re, mid_im, x, nullptr, dtype, data_terms,
-                              batch, n1, n2, T, tables, meta, stream);
+  return tfft::row_pass<true, true>(mid_re, mid_im, x, nullptr, dtype,
+                                    data_terms, batch, n1, n2, T, cluster,
+                                    tables, meta, stream);
 }

@@ -17,16 +17,17 @@
 // 1-element run in its own row.
 #include "four_step_passes.cuh"
 
-// Returns a cudaError_t code.  T: rows per CTA, dividing batch, with
-// n*T <= 16384.
+// Returns a cudaError_t code, or kErrClusterUnschedulable.  T: rows per
+// CTA, dividing batch, with n*T <= 16384; or, for a row longer than one CTA
+// holds, T = 1 and `cluster` (2, 4 or 8) CTAs per row.
 extern "C" int tfft_fused_batch_major(const void* in_re, const void* in_im,
                                       void* out_re, void* out_im, int dtype,
                                       int data_terms, long long batch, int n,
-                                      int T, const void* tables,
+                                      int T, int cluster, const void* tables,
                                       const long long* meta, void* stream) {
   if (batch < 1 || batch > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   return tfft::row_pass<false, false>(in_re, in_im, out_re, out_im, dtype,
                                       data_terms, 1, static_cast<int>(batch),
-                                      n, T, tables, meta, stream);
+                                      n, T, cluster, tables, meta, stream);
 }

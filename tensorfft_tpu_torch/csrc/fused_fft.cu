@@ -11,6 +11,12 @@
 // its natural bin, so a gridslice plan runs this kernel unchanged.  The TPU
 // kernel runs on transform-major (N, B) panels behind two XLA transposes;
 // here a CTA reads its (B, N) row directly, so no transpose exists.
+// A row longer than one CTA holds (N > 16384, or bf16x6 with mult3's third
+// operand plane at N = 16384) takes a thread-block cluster of 2, 4 or 8
+// CTAs, each holding its slice of the operand (fused_fft_cluster_kernel,
+// run_fft_cluster in fft_stages.cuh); the JAX package runs those lengths
+// (its tuner's single-pass challengers at N = 32768 and 65536) in one VMEM
+// panel.
 //
 // What bounds it on the H100: the stage matmuls are scalar fp32 FMAs on the
 // CUDA cores, 4R FMAs per complex element per stage per product term, fed by
@@ -45,53 +51,81 @@ __global__ void __launch_bounds__(kThreads)
   run_fft<BT, kEngine>(op, n, 1, plan, tables, load, store);
 }
 
+// Kernel A on a cluster of C CTAs per row (cluster_index): the same maps,
+// through run_fft_cluster.
 template <typename S, int BT, int kEngine>
-cudaError_t launch_fused(const void* in_re, const void* in_im, void* out_re,
-                         void* out_im, long long batch, int n,
-                         const StagePlan& plan, const float* tables,
-                         cudaStream_t stream) {
-  const int threads = n < kThreads ? n : kThreads;
-  const size_t smem = operand_bytes(n, BT, plan.sum_plane);
-  auto kern = fused_fft_kernel<S, BT, kEngine>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kern<<<static_cast<unsigned>(batch), threads, smem, stream>>>(
-      static_cast<const S*>(in_re), static_cast<const S*>(in_im),
-      static_cast<S*>(out_re), static_cast<S*>(out_im), n, plan, tables);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_cluster_kernel(const S* __restrict__ in_re,
+                             const S* __restrict__ in_im,
+                             S* __restrict__ out_re, S* __restrict__ out_im,
+                             int n, StagePlan plan,
+                             const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
+  const long long base = static_cast<long long>(cluster_index()) * n;
+  auto load = [&](int q, int& idx, float& re, float& im) {
+    idx = q;
+    re = to_float(in_re[base + q]);
+    im = to_float(in_im[base + q]);
+  };
+  auto store = [&](int k, int lane, float re, float im) {
+    out_re[base + k] = from_float<S>(re);
+    out_im[base + k] = from_float<S>(im);
+  };
+  run_fft_cluster<BT, kEngine>(op, n, plan, tables, load, store);
+}
+
+// One CTA per row, or a cluster of `cluster` CTAs per row.
+template <typename S, int BT, int kEngine>
+int launch_fused(const void* in_re, const void* in_im, void* out_re,
+                 void* out_im, long long batch, int n, int cluster,
+                 const StagePlan& plan, const float* tables,
+                 cudaStream_t stream) {
+  const int elems = n / cluster;
+  const int threads = elems < kThreads ? elems : kThreads;
+  const size_t smem = operand_bytes(elems, BT, plan.sum_plane);
+  return launch_stage_kernel(
+      cluster > 1 ? &fused_fft_cluster_kernel<S, BT, cluster_engine<kEngine>()>
+                  : &fused_fft_kernel<S, BT, kEngine>,
+      batch, threads, smem, cluster, stream, static_cast<const S*>(in_re),
+      static_cast<const S*>(in_im), static_cast<S*>(out_re),
+      static_cast<S*>(out_im), n, plan, tables);
 }
 
 }  // namespace tfft
 
 extern "C" const char* tfft_error_string(int err) {
+  if (err == tfft::kErrClusterUnschedulable)
+    return "no cluster of this kernel's CTAs fits the card "
+           "(cudaOccupancyMaxActiveClusters returned 0)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Returns a cudaError_t code (0 on success).  dtype: 0 bf16 (with 1 data
-// term), 1 fp32 (with 2 or 3): the storage/operand pairs of the policies.
-// The engine is the plan's (meta's stage modes).
+// Returns a cudaError_t code (0 on success), or kErrClusterUnschedulable.
+// dtype: 0 bf16 (with 1 data term), 1 fp32 (with 2 or 3): the
+// storage/operand pairs of the policies.  The engine is the plan's (meta's
+// stage modes).  cluster: CTAs per row (1, 2, 4 or 8; cluster_ok).
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
-                              const void* tables, const long long* meta,
-                              void* stream) {
+                              int cluster, const void* tables,
+                              const long long* meta, void* stream) {
   using namespace tfft;
   StagePlan plan;
-  if (!read_plan(meta, &plan) || n > kMaxCtaElems || batch < 1)
+  if (!read_plan(meta, &plan) || !cluster_ok(n, 1, cluster) || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* t = static_cast<const float*>(tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_FUSED(S, BT)                                                     \
-  return static_cast<int>(                                                   \
-      plan.engine == kEngPlanar                                              \
-          ? launch_fused<S, BT, kEngPlanar>(in_re, in_im, out_re, out_im,    \
-                                            batch, n, plan, t, s)            \
-      : plan.engine == kEngKnobs                                             \
-          ? launch_fused<S, BT, kEngKnobs>(in_re, in_im, out_re, out_im,     \
-                                           batch, n, plan, t, s)             \
-          : launch_fused<S, BT, kEngStacked>(in_re, in_im, out_re, out_im,   \
-                                             batch, n, plan, t, s))
+#define TFFT_FUSED(S, BT)                                                  \
+  return plan.engine == kEngPlanar                                         \
+             ? launch_fused<S, BT, kEngPlanar>(in_re, in_im, out_re, out_im, \
+                                               batch, n, cluster, plan, t, s) \
+         : plan.engine == kEngKnobs                                        \
+             ? launch_fused<S, BT, kEngKnobs>(in_re, in_im, out_re, out_im,  \
+                                              batch, n, cluster, plan, t, s) \
+             : launch_fused<S, BT, kEngStacked>(in_re, in_im, out_re,      \
+                                                out_im, batch, n, cluster, \
+                                                plan, t, s)
   if (dtype == 0 && data_terms == 1) TFFT_FUSED(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_FUSED(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_FUSED(float, 3);

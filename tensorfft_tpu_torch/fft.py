@@ -4,7 +4,9 @@ Transforms run along the last axis of split-planar (re, im) tensors, on the
 device the tensors are on.  Strategies (``plan.resolve_strategy()``):
 
   * FUSED      — kernel A: one CTA per (B, N) row, whole transform in shared
-                 memory (``ops/fused_cuda.py``); under a plan with
+                 memory (``ops/fused_cuda.py``), or a thread-block cluster
+                 of 2, 4 or 8 CTAs per row past what one CTA holds
+                 (``fused_cuda.fit_cta``); under a plan with
                  ``fused_layout="batch_major"`` and a batch that tiles
                  (``_batch_major_ok``), K3: a tile of rows per CTA
                  (``four_step_cuda.fused_fft_batch_major``).

@@ -37,18 +37,18 @@ _F = ctypes.c_float
 
 # name -> argtypes; every function returns a cudaError_t code as int.
 _SIGNATURES = {
-    "tfft_fused_fft": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _P, _P],
-    "tfft_four_step_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
+    "tfft_fused_fft": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P],
+    "tfft_four_step_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
                            _P, _P, _I, _P],
-    "tfft_four_step_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
+    "tfft_four_step_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
                            _P],
-    "tfft_four_step_col_packed": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
-                                  _P, _P, _I, _P],
-    "tfft_four_step_row_interleave": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _P,
-                                      _P, _P],
-    "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
-    "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P, _P],
-    "tfft_fused_batch_major": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P,
+    "tfft_four_step_col_packed": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P,
+                                  _P, _P, _P, _I, _P],
+    "tfft_four_step_row_interleave": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
+                                      _P, _P, _P],
+    "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P],
+    "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P],
+    "tfft_fused_batch_major": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
                                _P],
     "tfft_pack_split": [_P, _P, _P, _I, _L, _I, _P],
     "tfft_interleave_split": [_P, _P, _P, _I, _L, _I, _P],
@@ -133,7 +133,8 @@ def build_log() -> str:
 
 
 def check(err: int, what: str) -> None:
-    """Raise if a C launcher returned a CUDA error code."""
+    """Raise if a C launcher returned a CUDA error code (or the code of a
+    cluster the card cannot schedule)."""
     if err != 0:
         msg = library().tfft_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

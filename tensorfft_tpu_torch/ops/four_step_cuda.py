@@ -68,7 +68,7 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     check_kernel_operands,
     check_planes,
     count_launch,
-    fit_lanes,
+    fit_cta,
     fused_fft_reference,
     kernel_tables,
     launch,
@@ -220,15 +220,12 @@ def _check_split(re, n1, n2, what):
 
 
 def _pass_lanes(re, im, n, other, algorithm, stages, what):
-    """Shared launcher checks; returns the pass's lanes per CTA, halved
-    while mult3's third operand plane does not fit one CTA."""
+    """Shared launcher checks; returns the pass's (lanes per CTA, CTAs per
+    cluster): lanes halved while mult3's third operand plane does not fit
+    one CTA, and a pass longer than one CTA holds split over a thread-block
+    cluster (``fused_cuda.fit_cta``)."""
     check_kernel_operands(re, im, algorithm, what)
-    if n > MAX_CTA_ELEMS:
-        raise ValueError(
-            f"{what}: length {n} exceeds one CTA ({MAX_CTA_ELEMS}); lower "
-            f"max_fused_length"
-        )
-    return fit_lanes(n, pass_lanes(n, other), algorithm, stages, what)
+    return fit_cta(n, pass_lanes(n, other), algorithm, stages, what)
 
 
 def _knobs(engine, grouped, complex_mult, state_dtype):
@@ -257,15 +254,16 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
     P/Q operands)."""
     stages, tables, meta = _pass_tables(radices1, scales1, sign, algorithm,
                                         first_dot, src[0].device, knobs)
-    lanes = _pass_lanes(src[0], src[-1], n1, n2, algorithm, stages, symbol)
+    lanes, cluster = _pass_lanes(src[0], src[-1], n1, n2, algorithm, stages,
+                                 symbol)
     pq = ()
     if lane_tile is not None:
         p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
         pq = (p.data_ptr(), q.data_ptr(), t)
     launch(symbol, (*src, *mid), policy_codes(src[0], algorithm),
-           src[0].shape[0], n1, n2, lanes, tables.data_ptr(),
+           src[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(),
            meta.ctypes.data, *pq)
-    return variant(knobs["engine"], stages, knobs["state_dtype"])
+    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster)
 
 
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
@@ -274,11 +272,12 @@ def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
     (planes or one real row tensor); returns the pass's variant."""
     stages, tables, meta = _pass_tables(radices2, scales2, sign, algorithm,
                                         first_dot, mid[0].device, knobs)
-    lanes = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, stages, symbol)
+    lanes, cluster = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, stages,
+                                 symbol)
     launch(symbol, (*mid, *dst), policy_codes(mid[0], algorithm),
-           mid[0].shape[0], n1, n2, lanes, tables.data_ptr(),
+           mid[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(),
            meta.ctypes.data)
-    return variant(knobs["engine"], stages, knobs["state_dtype"])
+    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster)
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
@@ -720,8 +719,9 @@ def fused_fft_batch_major(
 ):
     """Whole-transform FFT along the last axis of (B, N) planes, a tile of
     ``batch_major_lanes(N, B)`` rows per CTA (halved while mult3's operand
-    plane does not fit; K3, ``four_step_pallas.fused_fft_batch_major``;
-    ``csrc/fused_batch_major.cu``).
+    plane does not fit), or a row longer than one CTA holds on a
+    thread-block cluster (``fused_cuda.fit_cta``; K3,
+    ``four_step_pallas.fused_fft_batch_major``; ``csrc/fused_batch_major.cu``).
 
     The same function as kernel A (``fused_cuda.fused_fft``), whose plain
     version it shares, except that it rounds its input to a bf16 state
@@ -742,21 +742,18 @@ def fused_fft_batch_major(
                                    first_dot=first_dot, round_input=True,
                                    **knobs)
     check_kernel_operands(re, im, algorithm, "fused_fft_batch_major")
-    if n > MAX_CTA_ELEMS:
-        raise ValueError(f"fused_fft_batch_major: N={n} exceeds one CTA "
-                         f"({MAX_CTA_ELEMS}); use the four-step plan")
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return out_re, out_im
     stages, tables, meta = _pass_tables(radices, scales, sign, algorithm,
                                         first_dot, re.device, knobs)
-    lanes = fit_lanes(n, batch_major_lanes(n, b), algorithm, stages,
-                      "fused_fft_batch_major")
+    lanes, cluster = fit_cta(n, batch_major_lanes(n, b), algorithm, stages,
+                             "fused_fft_batch_major")
     launch("tfft_fused_batch_major", (re, im, out_re, out_im),
-           policy_codes(re, algorithm), b, n, lanes, tables.data_ptr(),
-           meta.ctypes.data)
+           policy_codes(re, algorithm), b, n, lanes, cluster,
+           tables.data_ptr(), meta.ctypes.data)
     count_launch(fused_fft_batch_major,
-                 variant(knobs["engine"], stages, state_dtype))
+                 variant(knobs["engine"], stages, state_dtype, cluster))
     return out_re, out_im
 
 

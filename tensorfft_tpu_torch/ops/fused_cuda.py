@@ -4,7 +4,9 @@ torch version, and the stage engines the port's kernels share.
 The TPU kernel (``tensorfft_tpu/ops/fused_pallas.py:fused_fft``) holds an
 (N, lane_tile) transform-major panel in VMEM; here one CTA holds one
 batch-major (B, N) row in shared memory, so no (B, N) <-> (N, B) transpose
-exists on either side of the kernel.  Two stage engines:
+exists on either side of the kernel.  A row longer than one CTA holds runs
+on a thread-block cluster of 2, 4 or 8 CTAs (:func:`fit_cta`), each holding
+a slice of the operand, with the same arithmetic.  Two stage engines:
 
 * the stacked engine (``stacked``, ``pretwiddle`` and the ``gridslice``
   engines; ``fused_pallas.stage_loop``): each stage is the block-complex
@@ -79,7 +81,7 @@ __all__ = [
     "kernel_tables",
     "variant",
     "cta_smem_bytes",
-    "fit_lanes",
+    "fit_cta",
     "check_planes",
     "check_kernel_operands",
     "count_launch",
@@ -88,11 +90,14 @@ __all__ = [
     "policy_codes",
     "KERNEL_DTYPES",
     "MAX_CTA_ELEMS",
+    "MAX_CLUSTER",
 ]
 
 # Complex elements one CTA holds (csrc/fft_stages.cuh kMaxCtaElems): 512
 # threads keeping 32 fp32 outputs each in registers.
 MAX_CTA_ELEMS = 16384
+# CTAs of the largest thread-block cluster a pass may take (kMaxCluster).
+MAX_CLUSTER = H100.max_cluster
 
 # bf16 terms per data operand, and per matrix operand, of each algorithm.
 DATA_TERMS = {"bf16": 1, "bf16ax2": 1, "bf16x3": 2, "bf16x6": 3}
@@ -193,10 +198,12 @@ def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
     return tuple(out)
 
 
-def variant(engine: str, stages: Sequence[Stage], state_dtype: str) -> str:
-    """The launch counters' name for a pass: the engine (none for stacked)
-    and the numeric knobs in effect, e.g. ``grouped,mult3`` or
-    ``pretwiddle,bf16_state``; ``stacked`` when there are none."""
+def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
+            cluster: int = 1) -> str:
+    """The launch counters' name for a pass: the engine (none for stacked),
+    the numeric knobs in effect and the CTAs of its cluster, e.g.
+    ``grouped,mult3``, ``pretwiddle,bf16_state`` or ``bf16_state,cluster2``;
+    ``stacked`` when there are none."""
     tags = [] if engine == "stacked" else [engine]
     if any(st.kind == "grouped" for st in stages):
         tags.append("grouped")
@@ -204,6 +211,8 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str) -> str:
         tags.append("mult3")
     if state_dtype == "bfloat16":
         tags.append("bf16_state")
+    if cluster > 1:
+        tags.append(f"cluster{cluster}")
     return ",".join(tags) or "stacked"
 
 
@@ -504,23 +513,37 @@ def cta_smem_bytes(n: int, lanes: int, algorithm: str, mult3: bool = False):
     return n * lanes * planes * 2 * DATA_TERMS[algorithm]
 
 
-def fit_lanes(n: int, lanes: int, algorithm: str, stages, what: str) -> int:
-    """``lanes`` transforms of length ``n`` per CTA, halved while they need
-    more shared memory than one CTA has (mult3's third operand plane);
-    ``ValueError`` where one transform alone does not fit (bf16x6 with mult3
-    stages at n = 16384): no other engine runs in its place."""
+def fit_cta(n: int, lanes: int, algorithm: str, stages,
+            what: str) -> Tuple[int, int]:
+    """(lanes, cluster): the transforms of length ``n`` one CTA holds and
+    the CTAs that hold one transform.  ``lanes`` is halved while the CTA
+    needs more shared memory than it has (mult3's third operand plane);
+    where one transform alone does not fit, it is split over the smallest
+    thread-block cluster of 2, 4 or 8 CTAs (one transform per cluster) whose
+    slices of n / cluster elements each fit (csrc/fft_stages.cuh, cluster
+    mode).  So a plan that one CTA holds keeps its kernel.  ``ValueError``
+    where even MAX_CLUSTER CTAs do not hold it: no other route runs in its
+    place."""
     mult3 = any(st.mult3 for st in stages)
     limit = H100.smem_per_block_bytes
-    while lanes > 1 and cta_smem_bytes(n, lanes, algorithm, mult3) > limit:
+
+    def fits(m, t):
+        smem = cta_smem_bytes(m, t, algorithm, mult3)
+        return smem is not None and smem <= limit
+
+    while lanes > 1 and not fits(n, lanes):
         lanes //= 2
-    smem = cta_smem_bytes(n, lanes, algorithm, mult3)
-    if smem is None or smem > limit:
-        raise ValueError(
-            f"{what}: a transform of length {n} under {algorithm!r}"
-            f"{' with mult3 stages' if mult3 else ''} does not fit one CTA "
-            f"({limit} B of shared memory); the plan does not work on this "
-            f"device")
-    return lanes
+    cluster = 1
+    while not fits(n // cluster, lanes):
+        if cluster == MAX_CLUSTER or n & (n - 1):
+            raise ValueError(
+                f"{what}: a transform of length {n} under {algorithm!r}"
+                f"{' with mult3 stages' if mult3 else ''} does not fit a "
+                f"cluster of {MAX_CLUSTER} CTAs ({MAX_CTA_ELEMS} elements and "
+                f"{limit} B of shared memory each; power-of-two lengths "
+                f"only); the plan does not work on this device")
+        lanes, cluster = 1, cluster * 2
+    return lanes, cluster
 
 
 def launch(symbol: str, tensors, dtype_codes, *args) -> None:
@@ -601,6 +624,30 @@ def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
     return tables, np.asarray(meta + modes + flags + [pass_flags], dtype=np.int64)
 
 
+def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
+                  engine, grouped, complex_mult, state_dtype, cluster=None):
+    """Launch kernel A on CUDA planes, counted in ``fused_fft``'s counters:
+    one CTA per row, or a cluster of ``cluster`` CTAs per row (default: the
+    smallest that holds a row, :func:`fit_cta`; a larger valid one computes
+    the same output bit for bit)."""
+    b, n = re.shape
+    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
+    _, fit = fit_cta(n, 1, algorithm, stages, "fused_fft")
+    cluster = fit if cluster is None else cluster
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    if b == 0:
+        return out_re, out_im
+    tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
+                                 int(sign), algorithm, first_dot, re.device,
+                                 engine, grouped, complex_mult, state_dtype,
+                                 engine not in PLANAR_ENGINES)
+    launch("tfft_fused_fft", (re, im, out_re, out_im),
+           policy_codes(re, algorithm), b, n, cluster, tables.data_ptr(),
+           meta.ctypes.data)
+    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster))
+    return out_re, out_im
+
+
 def fused_fft_reference(re, im, *, radices, scales, sign=dft.FORWARD,
                         algorithm="bf16", first_dot="default", engine="stacked",
                         grouped=False, complex_mult="block",
@@ -637,8 +684,9 @@ def fused_fft(
 
     Output dtype matches the input (storage rounding at the HBM boundary);
     compute is fp32 with ``algorithm`` matmul operands.  CPU tensors run
-    :func:`fused_fft_reference`; CUDA tensors launch kernel A, counted in
-    ``fused_fft.launches`` and, per :func:`variant`,
+    :func:`fused_fft_reference`; CUDA tensors launch kernel A (a row longer
+    than one CTA holds on a thread-block cluster, :func:`fit_cta`), counted
+    in ``fused_fft.launches`` and, per :func:`variant`,
     ``fused_fft.variant_launches``.  A gridslice engine whose layout the JAX
     kernel refuses raises ``ValueError`` on every device.
     """
@@ -659,25 +707,8 @@ def fused_fft(
         return fused_fft_reference(re, im, radices=radices, scales=scales,
                                    sign=sign, algorithm=algorithm, **knobs)
     check_kernel_operands(re, im, algorithm, "fused_fft")
-    if n > MAX_CTA_ELEMS:
-        raise ValueError(
-            f"fused_fft: N={n} exceeds one CTA ({MAX_CTA_ELEMS}); use the "
-            f"four-step plan"
-        )
-    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
-    fit_lanes(n, 1, algorithm, stages, "fused_fft")
-    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
-    if b == 0:
-        return out_re, out_im
-    tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
-                                 int(sign), algorithm, first_dot, re.device,
-                                 engine, grouped, complex_mult, state_dtype,
-                                 engine not in PLANAR_ENGINES)
-    launch("tfft_fused_fft", (re, im, out_re, out_im),
-           policy_codes(re, algorithm), b, n, tables.data_ptr(),
-           meta.ctypes.data)
-    count_launch(fused_fft, variant(engine, stages, state_dtype))
-    return out_re, out_im
+    return _launch_fused(re, im, radices=radices, scales=scales, sign=sign,
+                         algorithm=algorithm, **knobs)
 
 
 reset_launches(fused_fft)

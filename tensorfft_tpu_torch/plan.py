@@ -492,13 +492,19 @@ def plan_works_on_device(plan: FFTPlan, device="cuda") -> Tuple[bool, str]:
 
     A CPU device runs the plain-torch versions, which take every plan the
     planner makes.  A CUDA device runs the hand-written kernels, which take
-    every engine and knob: every pass must fit one CTA's shared memory on
-    the H100 (``utils.device.H100``), with the third operand plane of a pass
-    that runs mult3 stages, and the float64 policy has no kernel.
+    every engine and knob, and the float64 policy has no kernel.  Each pass
+    (the fused transform, or each four-step pass) must fit a thread-block
+    cluster of at most ``max_cluster`` (8) CTAs on the H100
+    (``utils.device.H100``): one CTA holds 16384 complex elements in 227 KB
+    of shared memory (the split operand, with the third operand plane of a
+    pass that runs mult3 stages), and a longer pass is split over 2, 4 or 8
+    CTAs (``ops.fused_cuda.fit_cta``), so a pass of up to 131072 elements
+    runs (65536 under bf16x6 with mult3 stages).  The refusal names the
+    cluster limit.
     """
     import torch
 
-    from tensorfft_tpu_torch.ops.fused_cuda import cta_smem_bytes, pass_stages
+    from tensorfft_tpu_torch.ops.fused_cuda import fit_cta, pass_stages
     from tensorfft_tpu_torch.utils.device import device_spec
 
     device = torch.device(device)
@@ -515,15 +521,10 @@ def plan_works_on_device(plan: FFTPlan, device="cuda") -> Tuple[bool, str]:
                             (plan.col_radices, plan.row_radices))))
     algorithm = plan.precision.dot_algorithm
     for n, radices in passes:
-        mult3 = any(st.mult3 for st in pass_stages(
-            tuple(radices), plan.engine, plan.grouped, plan.complex_mult))
-        smem = cta_smem_bytes(n, 1, algorithm, mult3)
-        if smem is None or smem > spec.smem_per_block_bytes:
-            return (
-                False,
-                f"a length-{n} pass{' with mult3 stages' if mult3 else ''} "
-                f"does not fit one CTA on {spec.kind} "
-                f"({spec.smem_per_block_bytes} B shared memory per block); "
-                f"lower max_fused_length",
-            )
+        stages = pass_stages(tuple(radices), plan.engine, plan.grouped,
+                             plan.complex_mult)
+        try:
+            fit_cta(n, 1, algorithm, stages, f"a length-{n} pass on {spec.kind}")
+        except ValueError as err:
+            return (False, str(err))
     return (True, "ok")

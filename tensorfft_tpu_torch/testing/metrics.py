@@ -87,6 +87,10 @@ def deviation(
 # several ulps of an output near zero, far below one ulp at the scale.  So
 # the bound is one bf16 ulp of the largest output magnitude, for every
 # element.  Under fp32 storage the difference is ~1e-7 relative.
+# A fused transform past N = 16384 (on a thread-block cluster) sums stages
+# of radix up to 256 in another order than cuBLAS does, and flips an output
+# rounding on ~0.1 % of elements (0.11 % at (256, 128) on the H100): it is
+# held to FOUR_STEP_MAX_FRAC, the bound every port test applies past 16384.
 BF16_MAX_SCALE_ULPS = 1.0
 FUSED_MAX_FRAC = 1e-3
 FOUR_STEP_MAX_FRAC = 1e-2

@@ -41,17 +41,19 @@ def test_reference_gate(n, precision):
     assert d.passes_reference_gate(), d
 
 
+@pytest.mark.parametrize("scaling", ["forward", "none", "ortho"])
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
 @pytest.mark.parametrize("n,forward", [(1024, True), (1024, False),
                                        (32768, True), (32768, False)])
-def test_fft_split_matches_jax(n, forward, precision):
+def test_fft_split_matches_jax(n, forward, precision, scaling):
     rng = np.random.default_rng(n)
     re = rng.standard_normal((3, n)).astype(np.float32)
     im = rng.standard_normal((3, n)).astype(np.float32)
     t_fn = tt.fft_split if forward else tt.ifft_split
     j_fn = tfft.fft_split if forward else tfft.ifft_split
-    got = t_fn(torch.from_numpy(re), torch.from_numpy(im), precision=precision)
-    want = j_fn(re, im, precision=precision)
+    got = t_fn(torch.from_numpy(re), torch.from_numpy(im), precision=precision,
+               scaling=scaling)
+    want = j_fn(re, im, precision=precision, scaling=scaling)
     frac = FOUR_STEP_MAX_FRAC if n > 16384 else 1e-3
     a = agreement([_np(g) for g in got], [_np(w) for w in want],
                   bf16=precision == "bfloat16")

@@ -472,13 +472,27 @@ def test_layout_engines_bitwise_stacked_on_card(cuda, engine, radices, grouped):
 
 
 def test_bf16x6_mult3_does_not_fit_one_cta(cuda):
+    # One CTA cannot hold it (288 KiB of operand): it runs on a cluster of
+    # two CTAs.  Past a cluster of 8 the plan is refused, with no launch.
     plan = tt.create_plan(16384, precision="float32_x6",
                           tuning={"radices": (128, 128), "complex_mult": "mult3"})
-    assert not tt.plan_works_on_device(plan, cuda)[0]
-    re, im = _planes(1, 16384, torch.float32, cuda)
+    assert tt.plan_works_on_device(plan, cuda) == (True, "ok")
+    re, im = _planes(2, 16384, torch.float32, cuda)
+    before = fused_cuda.fused_fft.variant_launches["mult3,cluster2"]
+    got = tt.fft_split(re, im, plan)
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_fft.variant_launches["mult3,cluster2"] == before + 1
+    kw = dict(radices=plan.radices, scales=stage_scales(plan.radices, "forward", True),
+              algorithm="bf16x6", complex_mult="mult3")
+    _hold(got, fused_cuda.fused_fft_reference(re, im, **kw), bf16=False)
+    big = tt.create_plan(1 << 17, precision="float32_x6",
+                         tuning={"radices": (128, 32, 32), "complex_mult": "mult3",
+                                 "max_fused_length": 1 << 17})
+    assert not tt.plan_works_on_device(big, cuda)[0]
+    re, im = _planes(1, 1 << 17, torch.float32, cuda)
     before = fused_cuda.fused_fft.launches
-    with pytest.raises(ValueError, match="mult3"):
-        tt.fft_split(re, im, plan)
+    with pytest.raises(ValueError, match="cluster of 8 CTAs"):
+        tt.fft_split(re, im, big)
     assert fused_cuda.fused_fft.launches == before
 
 
@@ -556,3 +570,143 @@ def test_knob_fft2_and_batch_major_match_plain(cuda, knobs):
     got = four_step_cuda.fused_fft_batch_major(*rows, **kw)
     _hold(got, fused_cuda.fused_fft_reference(*rows, round_input=True, **kw),
           True, **_bound(knobs.get("state_dtype"), 1e-3))
+
+
+# -- plans past one CTA: thread-block clusters ---------------------------------
+
+# (N, precision, tuning, the kernel A variant it launches): the JAX
+# package's single-pass plans past 16384 and bf16x6 with mult3 at 16384.
+CLUSTER_FUSED = [
+    (32768, "bfloat16", dict(strategy="fused", radices=(256, 128),
+                             max_fused_length=32768), "cluster2"),
+    (32768, "float32", dict(strategy="fused", radices=(32, 32, 32),
+                            max_fused_length=32768, state_dtype="bfloat16"),
+     "bf16_state,cluster2"),
+    (65536, "bfloat16", dict(strategy="fused", radices=(256, 256),
+                             max_fused_length=65536, state_dtype="bfloat16"),
+     "bf16_state,cluster4"),
+    (65536, "float32", dict(strategy="fused", radices=(128, 4, 128),
+                            max_fused_length=65536, complex_mult="mult3"),
+     "mult3,cluster4"),
+    (16384, "float32_x6", dict(strategy="fused", radices=(64, 256), grouped=True,
+                               complex_mult="mult3"), "grouped,mult3,cluster2"),
+    (131072, "bfloat16", dict(strategy="fused", max_fused_length=131072),
+     "cluster8"),
+]
+
+
+def _fused_kwargs(plan, forward):
+    return dict(radices=plan.radices, sign=-1 if forward else 1,
+                scales=stage_scales(plan.radices, "forward", forward),
+                algorithm=plan.precision.dot_algorithm, first_dot=plan.first_dot,
+                grouped=plan.grouped, complex_mult=plan.complex_mult,
+                state_dtype=plan.state_dtype)
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("n,precision,tuning,variant", CLUSTER_FUSED)
+def test_cluster_fused_kernel_matches_plain(cuda, n, precision, tuning, variant,
+                                            forward):
+    plan = tt.create_plan(n, precision=precision, tuning=tuning)
+    dtype = plan.precision.storage_dtype
+    re, im = _planes(4, n, dtype, cuda, seed=n + forward)
+    kw = _fused_kwargs(plan, forward)
+    before = fused_cuda.fused_fft.variant_launches[variant]
+    got = fused_cuda.fused_fft(re, im, **kw)
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_fft.variant_launches[variant] == before + 1
+    bf16 = dtype is torch.bfloat16 or plan.state_dtype == "bfloat16"
+    # Past N = 16384 the bound every port test applies there (metrics.py).
+    _hold(got, fused_cuda.fused_fft_reference(re, im, **kw), bf16,
+          **_bound(plan.state_dtype, FOUR_STEP_MAX_FRAC if n > 16384 else 1e-3))
+
+
+@pytest.mark.parametrize("n,precision,tuning,variant", CLUSTER_FUSED)
+def test_cluster_plans_pass_gate(cuda, n, precision, tuning, variant):
+    plan = tt.create_plan(n, precision=precision, tuning=tuning)
+    sig = [make_test_signal(n, 42 * s, 42 * 42 * s) for s in (1, 2)]
+    planes = [np.stack([s[i] for s in sig]) for i in range(2)]
+    x = [torch.from_numpy(p).to(cuda, plan.precision.storage_dtype) for p in planes]
+    o_re, o_im = tt.fft_split(*x, plan)
+    d = deviation((o_re.double().cpu().numpy(), o_im.double().cpu().numpy()),
+                  fft_oracle(*planes))
+    assert d.passes_reference_gate(), d
+
+
+@pytest.mark.parametrize("precision,radices,knobs", [
+    ("bfloat16", (128, 128), {}),
+    ("float32", (64, 64), dict(state_dtype="bfloat16")),
+    ("bfloat16", (64, 256), dict(engine="planar")),
+])
+def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
+    # A row that one CTA holds, split over 2 and 4 CTAs through the private
+    # launcher: the exchange changes where each value lives, not its value.
+    n = int(np.prod(radices))
+    plan = tt.create_plan(n, precision=precision)
+    re, im = _planes(8, n, plan.precision.storage_dtype, cuda, seed=n)
+    kw = dict(radices=radices, scales=stage_scales(radices, "forward", True),
+              sign=-1, algorithm=plan.precision.dot_algorithm,
+              first_dot="default", engine="stacked", grouped=False,
+              complex_mult="block", state_dtype="float32")
+    kw.update(knobs)
+    one = fused_cuda.fused_fft(re, im, **kw)
+    for cluster in (2, 4):
+        _bitwise(fused_cuda._launch_fused(re, im, cluster=cluster, **kw), one)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("split", [(32, 32768), (32768, 32)])
+def test_cluster_four_step_passes_match_plain(cuda, split, precision):
+    n = split[0] * split[1]
+    plan = tt.create_plan(n, precision=precision,
+                          tuning=dict(strategy="four_step", four_step_split=split))
+    assert tt.plan_works_on_device(plan, cuda) == (True, "ok")
+    kw = four_step_call_kwargs(plan, True)
+    common = dict(n1=kw["n1"], n2=kw["n2"], sign=kw["sign"],
+                  algorithm=kw["algorithm"], first_dot=kw["first_dot"])
+    col = dict(radices1=kw["radices1"], scales1=kw["scales1"],
+               lane_tile=kw["lane_tile"], **common)
+    row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
+    bf16 = precision == "bfloat16"
+    re, im = _planes(2, n, plan.precision.storage_dtype, cuda, seed=split[0])
+    c_var, r_var = (("stacked", "cluster2") if split[1] == 32768
+                    else ("cluster2", "stacked"))
+    c0 = four_step_cuda.column_pass.variant_launches[c_var]
+    r0 = four_step_cuda.row_pass.variant_launches[r_var]
+    mid = four_step_cuda.column_pass_reference(re, im, **col)
+    _hold(four_step_cuda.column_pass(re, im, **col), mid, bf16, FOUR_STEP_MAX_FRAC)
+    _hold(four_step_cuda.row_pass(*mid, **row),
+          four_step_cuda.row_pass_reference(*mid, **row), bf16, FOUR_STEP_MAX_FRAC)
+    torch.cuda.synchronize()
+    assert four_step_cuda.column_pass.variant_launches[c_var] == c0 + 1
+    assert four_step_cuda.row_pass.variant_launches[r_var] == r0 + 1
+    sig = make_test_signal(n, 42, 42 * 42)
+    x = [torch.from_numpy(s[None]).to(cuda, plan.precision.storage_dtype) for s in sig]
+    o_re, o_im = tt.fft_split(*x, plan)
+    d = deviation((o_re.double().cpu().numpy(), o_im.double().cpu().numpy()),
+                  fft_oracle(sig[0][None], sig[1][None]))
+    assert d.passes_reference_gate(), d
+
+
+def test_cluster_batch_major_and_r2c(cuda):
+    # K3 at N = 32768 on clusters of two, bit for bit kernel A's; the R2C
+    # fused route at real N = 65536 through kernel A on a cluster.
+    tuning = dict(strategy="fused", radices=(256, 128), max_fused_length=32768)
+    plan = tt.create_plan(32768, tuning=tuning, fused_layout="batch_major")
+    re, im = _planes(16, 32768, torch.bfloat16, cuda, seed=3)
+    k3 = four_step_cuda.fused_fft_batch_major.variant_launches["cluster2"]
+    got = tt.fft_split(re, im, plan)
+    torch.cuda.synchronize()
+    assert four_step_cuda.fused_fft_batch_major.variant_launches["cluster2"] == k3 + 1
+    _bitwise(got, tt.fft_split(re, im, tt.create_plan(32768, tuning=tuning)))
+    n = 65536
+    plan = tt.create_plan(n // 2, max_fused_length=n // 2)
+    x64 = np.stack(make_test_signal(n, 42, 42 * 42))
+    before = fused_cuda.fused_fft.variant_launches["cluster2"]
+    spec = tt.rfft_split(torch.from_numpy(x64).to(cuda, torch.bfloat16), plan)
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_fft.variant_launches["cluster2"] == before + 1
+    want = np.fft.rfft(x64, axis=-1) / n
+    d = deviation((spec[0].double().cpu().numpy(), spec[1].double().cpu().numpy()),
+                  (want.real, want.imag))
+    assert d.passes_reference_gate(), d

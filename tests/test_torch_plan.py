@@ -102,20 +102,30 @@ def test_plan_works_on_device():
     assert ok
     ok, _ = tt.plan_works_on_device(tt.create_plan(1 << 20, precision="float32_x6"), "cuda")
     assert ok
-    ok, why = tt.plan_works_on_device(tt.create_plan(32768, max_fused_length=32768), "cuda")
-    assert not ok and "one CTA" in why
+    # A fused transform past one CTA runs on a thread-block cluster of up to
+    # 8 CTAs (131072 elements); past that the plan is refused.
+    assert tt.plan_works_on_device(tt.create_plan(32768, max_fused_length=32768),
+                                   "cuda") == (True, "ok")
+    ok, why = tt.plan_works_on_device(tt.create_plan(1 << 18, max_fused_length=1 << 18),
+                                      "cuda")
+    assert not ok and "cluster of 8 CTAs" in why
     ok, why = tt.plan_works_on_device(tt.create_plan(4096, precision="float64"), "cuda")
     assert not ok and "float64" in why
     # Every engine and knob has a kernel; mult3's third operand plane makes
-    # one bf16x6 transform of 16384 too large for a CTA.
+    # one bf16x6 transform of 16384 too large for a CTA, so it takes a
+    # cluster of two, and one of 131072 too large for a cluster of 8.
     for tuning in ({"engine": "gridslice"}, {"state_dtype": "bfloat16"},
                    {"grouped": True, "complex_mult": "mult3"}):
         assert tt.plan_works_on_device(tt.create_plan(4096, tuning=tuning),
                                        "cuda") == (True, "ok")
-    ok, why = tt.plan_works_on_device(tt.create_plan(
+    assert tt.plan_works_on_device(tt.create_plan(
         16384, precision="float32_x6",
-        tuning={"radices": (128, 128), "complex_mult": "mult3"}), "cuda")
-    assert not ok and "mult3" in why
+        tuning={"radices": (128, 128), "complex_mult": "mult3"}), "cuda") == (True, "ok")
+    ok, why = tt.plan_works_on_device(tt.create_plan(
+        1 << 17, precision="float32_x6",
+        tuning={"radices": (128, 32, 32), "complex_mult": "mult3",
+                "max_fused_length": 1 << 17}), "cuda")
+    assert not ok and "mult3" in why and "cluster of 8 CTAs" in why
     # CPU tensors take the plain versions, which run every plan.
     assert tt.plan_works_on_device(tt.create_plan(32768, max_fused_length=32768), "cpu")[0]
 
