@@ -6,7 +6,10 @@
 Builds the port's CUDA kernels from ``tensorfft_tpu_torch/csrc`` (nvcc, at
 first use, one process per source), then:
 
-  1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills);
+  1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills)
+     and fails unless every line of ``csrc/ptxas_reference.txt`` (each
+     kernel outside kernel A's one-CTA kernel and the one-CTA in-place row
+     pass, as built before the tensor-core engine) is in it unchanged;
   2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
@@ -64,8 +67,8 @@ first use, one process per source), then:
             call must launch exactly the cluster variants listed, each
             variant is held against its plain version (at 2^27 on the
             first 2^22 outputs), each plan passes the gate and the round
-            trip, kernel A on 2 CTAs must equal the one-CTA kernel bit for
-            bit at N=16384, and a plan past 8 CTAs must be refused;
+            trip, kernel A on 2 CTAs must equal the one-CTA scalar engine
+            bit for bit at N=16384, and a plan past 8 CTAs must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -89,7 +92,18 @@ first use, one process per source), then:
      PyTorch call that computes the same function, with CUDA events, beside
      the least time the card could take (compulsory bytes at the HBM rate or
      operations at the peak rate of their type, whichever is larger), and
-     the N-D entry points against their ``torch.fft`` counterparts.
+     the N-D entry points against their ``torch.fft`` counterparts; a
+     four-step pass's one call is the whole transform's ``torch.fft.fft``
+     (``rfft``/``irfft`` on the R2C route) at its shape.
+
+Kernel A, K3 and K4's row pass run their one-CTA calls on the tensor-core
+engine (``csrc/fft_mma.cuh``); their launch counters name it (``mma``:
+``fused_fft[mma]``, ``fused_fft[grouped,mma]``, ``fft2_row[mma]``,
+``fused_fft_batch_major[planar_vpu,mma]``, ...), and each call of a path
+must launch exactly those variants.  The cluster twins keep the scalar
+engine: kernel A on 2 CTAs is held bit for bit against the one-CTA scalar
+engine (K4's column pass over the rows viewed as (B, N, 1) columns) and
+against one-CTA kernel A at the fused bound.
 
 The second-to-last lines are a JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -99,6 +113,7 @@ when no CUDA device is present.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -162,7 +177,7 @@ FLUSH_BYTES = 256 << 20
 # Every kernel of the two paths: its source and the TPU kernel it replaces
 # (the pallas_call of the JAX package).
 KERNELS = {
-    "fused_fft": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
+    "fused_fft[mma]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
                   "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:465"),
@@ -182,13 +197,13 @@ KERNELS = {
                                  "tensorfft_tpu/ops/four_step_pallas.py:1229"),
     "fft2_col": ("tensorfft_tpu_torch/csrc/fft2.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:646"),
-    "fft2_row": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
+    "fft2_row[mma]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:677"),
     # The tuned-plan path: the planar engines (K1b, stage_loop_planar) in
     # kernels A, B, C and K4, and K3.
-    "fused_fft[planar]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
+    "fused_fft[planar,mma]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
                           "tensorfft_tpu/ops/fused_pallas.py:971"),
-    "fused_fft[planar_vpu]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
+    "fused_fft[planar_vpu,mma]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
                               "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col[planar]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:465"),
@@ -196,11 +211,11 @@ KERNELS = {
                               "tensorfft_tpu/ops/four_step_pallas.py:551"),
     "fft2_col[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:646"),
-    "fft2_row[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
+    "fft2_row[planar_vpu,mma]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:677"),
-    "fused_fft_batch_major": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+    "fused_fft_batch_major[mma]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:768"),
-    "fused_fft_batch_major[planar_vpu]": (
+    "fused_fft_batch_major[planar_vpu,mma]": (
         "tensorfft_tpu_torch/csrc/fused_batch_major.cu",
         "tensorfft_tpu/ops/four_step_pallas.py:768"),
 }
@@ -215,11 +230,11 @@ _PACKED = ("tensorfft_tpu_torch/csrc/four_step_real.cu", "tensorfft_tpu/ops/four
 _INTERLEAVE = ("tensorfft_tpu_torch/csrc/four_step_real_row.cu",
                "tensorfft_tpu/ops/four_step_pallas.py:1229")
 TPU_KERNELS = {
-    "fused_fft[grouped]": _FUSED,
-    "fused_fft[grouped,mult3]": _FUSED,
-    "fused_fft[bf16_state]": _FUSED,
-    "fused_fft[pretwiddle]": _FUSED,
-    "fused_fft[gridslice]": (_FUSED[0], "tensorfft_tpu/ops/fused_pallas.py:923"),
+    "fused_fft[grouped,mma]": _FUSED,
+    "fused_fft[grouped,mult3,mma]": _FUSED,
+    "fused_fft[bf16_state,mma]": _FUSED,
+    "fused_fft[pretwiddle,mma]": _FUSED,
+    "fused_fft[gridslice,mma]": (_FUSED[0], "tensorfft_tpu/ops/fused_pallas.py:923"),
     "four_step_col[grouped,bf16_state]": _COL,
     "four_step_row[grouped,bf16_state]": _ROW,
     "four_step_col[mult3,bf16_state]": _COL,
@@ -232,9 +247,9 @@ TPU_KERNELS = {
     "four_step_col[gridslice]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:1147"),
     "fft2_col[grouped]": ("tensorfft_tpu_torch/csrc/fft2.cu",
                           "tensorfft_tpu/ops/four_step_pallas.py:646"),
-    "fft2_row[grouped]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
+    "fft2_row[grouped,mma]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                           "tensorfft_tpu/ops/four_step_pallas.py:677"),
-    "fused_fft_batch_major[grouped]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+    "fused_fft_batch_major[grouped,mma]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
                                        "tensorfft_tpu/ops/four_step_pallas.py:768"),
     "four_step_col_packed[grouped,bf16_state]": _PACKED,
     "four_step_row_interleave[grouped,bf16_state]": _INTERLEAVE,
@@ -259,14 +274,14 @@ TUNED_ENTRIES = {
 # must make, and nothing else).  512 x 262,144 is the 512^3 volume's
 # axis-0 row count; 4096 x 256 the __graft_entry__ shape.
 TUNED_CALLS = [
-    ("planar N=16384", 16384, 4096, "auto", {"fused_fft[planar]": 2}),
-    ("planar_vpu N=4096", 4096, 4096, "auto", {"fused_fft[planar_vpu]": 2}),
+    ("planar N=16384", 16384, 4096, "auto", {"fused_fft[planar,mma]": 2}),
+    ("planar_vpu N=4096", 4096, 4096, "auto", {"fused_fft[planar_vpu,mma]": 2}),
     ("planar N=2^23", 1 << 23, 2, "auto",
      {"four_step_col[planar]": 2, "four_step_row[planar]": 2}),
     ("batch_major N=512", 512, 262144, "batch_major",
-     {"fused_fft_batch_major": 2}),
+     {"fused_fft_batch_major[mma]": 2}),
     ("batch_major N=4096", 4096, 256, "batch_major",
-     {"fused_fft_batch_major[planar_vpu]": 2}),
+     {"fused_fft_batch_major[planar_vpu,mma]": 2}),
 ]
 # Rows of the main path's output held against the plain versions at the
 # two largest tuned shapes.
@@ -315,17 +330,17 @@ _R2C = ("untangle_fwd", "retangle_inv")
 # tuner cache holding TPU_ENTRIES[4096].
 TPU_CALLS = [
     ("K1 grouped N=16384", "c2c", 16384, 4096, "bfloat16", TPU_ENTRIES[16384],
-     {"fused_fft[grouped]": 2}),
+     {"fused_fft[grouped,mma]": 2}),
     ("K1 grouped mult3 N=16384", "c2c", 16384, 4096, "bfloat16",
-     dict(TPU_ENTRIES[16384], complex_mult="mult3"), {"fused_fft[grouped,mult3]": 2}),
+     dict(TPU_ENTRIES[16384], complex_mult="mult3"), {"fused_fft[grouped,mult3,mma]": 2}),
     ("K1 grouped N=4096 auto", "c2c", 4096, 4096, "bfloat16", "auto",
-     {"fused_fft[grouped]": 2}),
+     {"fused_fft[grouped,mma]": 2}),
     ("K4 grouped 4096x4096 auto", "fftn", 4096, 1, "bfloat16", "auto",
-     {"fft2_col[grouped]": 2, "fft2_row[grouped]": 2}),
+     {"fft2_col[grouped]": 2, "fft2_row[grouped,mma]": 2}),
     ("K3 grouped N=4096 auto", "batch_major", 4096, 256, "bfloat16", "auto",
-     {"fused_fft_batch_major[grouped]": 2}),
+     {"fused_fft_batch_major[grouped,mma]": 2}),
     ("K1 grouped p=4 N=512", "c2c", 512, 4096, "bfloat16", TPU_ENTRIES[512],
-     {"fused_fft[grouped]": 2}),
+     {"fused_fft[grouped,mma]": 2}),
     ("K2 grouped bf16 state N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      TPU_ENTRIES[1 << 20], {"four_step_col[grouped,bf16_state]": 2,
                             "four_step_row[grouped,bf16_state]": 2}),
@@ -335,13 +350,13 @@ TPU_CALLS = [
     ("K2 mult3 N=2^24", "c2c", 1 << 24, 1, "bfloat16", TPU_ENTRIES[1 << 24],
      {"four_step_col": 2, "four_step_row[mult3]": 2}),
     ("pretwiddle N=16384", "c2c", 16384, 4096, "bfloat16",
-     dict(TPU_ENTRIES[16384], engine="pretwiddle"), {"fused_fft[pretwiddle]": 2}),
+     dict(TPU_ENTRIES[16384], engine="pretwiddle"), {"fused_fft[pretwiddle,mma]": 2}),
     ("pretwiddle N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      dict(TPU_ENTRIES[1 << 20], engine="pretwiddle", state_dtype="float32"),
      {"four_step_col[pretwiddle]": 2, "four_step_row[pretwiddle]": 2}),
     ("K1a gridslice N=16384", "c2c", 16384, 4096, "bfloat16",
      {"strategy": "fused", "radices": [128, 128], "engine": "gridslice"},
-     {"fused_fft[gridslice]": 2}),
+     {"fused_fft[gridslice,mma]": 2}),
     ("K2cg K2rg gridslice16 N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      {"strategy": "four_step", "four_step_split": [1024, 1024], "engine": "gridslice16"},
      {"four_step_col[gridslice16]": 2, "four_step_row[gridslice16]": 2}),
@@ -360,9 +375,9 @@ TPU_CALLS = [
       **dict.fromkeys(_R2C, 1)}),
     ("K1 grouped mult3 float32 N=16384", "c2c", 16384, 256, "float32",
      {"strategy": "fused", "radices": [64, 256], "grouped": True,
-      "complex_mult": "mult3"}, {"fused_fft[grouped,mult3]": 2}),
+      "complex_mult": "mult3"}, {"fused_fft[grouped,mult3,mma]": 2}),
     ("K1 bf16 state float32 N=4096", "c2c", 4096, 256, "float32",
-     {"state_dtype": "bfloat16"}, {"fused_fft[bf16_state]": 2}),
+     {"state_dtype": "bfloat16"}, {"fused_fft[bf16_state,mma]": 2}),
 ]
 # The bign path: the plans the JAX package runs past one CTA, each on a
 # thread-block cluster (fused_cuda.fit_cta), in TPU_CALLS' format.  The
@@ -423,13 +438,16 @@ BIGN_VS_FOUR_STEP = ("K1 cluster N=32768", "K1 cluster bf16 state N=65536")
 BIGN_SLICE_ABOVE = 1 << 24
 BIGN_HOLD_ELEMS = 1 << 22
 
+# The -Xptxas -v lines every kernel but the tensor-core engine's must keep.
+PTXAS_REFERENCE = "tensorfft_tpu_torch/csrc/ptxas_reference.txt"
+
 # Calls whose output must equal the stacked engine's bit for bit (fp32
 # state): pretwiddle runs with grouping off, gridslice keeps it.
 TPU_BITWISE = ("pretwiddle N=16384", "pretwiddle N=2^20", "K1a gridslice N=16384",
                "K2cg K2rg gridslice16 N=2^20", "K6g gridslice real N=2^21")
 # Rows held against the plain versions where a call's input is larger.
 TPU_HOLD_ROWS = 256
-R2C_KERNELS = ("fused_fft", "four_step_col", "four_step_row", "pack_split",
+R2C_KERNELS = ("fused_fft[mma]", "four_step_col", "four_step_row", "pack_split",
                "interleave_split", "untangle_fwd", "retangle_inv",
                "four_step_col_packed", "four_step_row_interleave")
 
@@ -471,6 +489,26 @@ def ptxas_summary(build_log: str) -> list[str]:
             f"spill_stores={e.get('spill_st')} spill_loads={e.get('spill_ld')} "
             f"static_smem={e.get('smem', '0')}"
             for name, e in zip(names, entries)]
+
+
+def ptxas_identity(summary: list[str]) -> None:
+    """Fail unless every line of PTXAS_REFERENCE (the kernels outside kernel
+    A's one-CTA kernel and the one-CTA in-place row pass, as built before
+    the tensor-core engine) is in this build's summary, as often."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), PTXAS_REFERENCE)
+    with open(path) as f:
+        ref = collections.Counter(l.strip() for l in f
+                                  if l.strip() and not l.startswith("#"))
+    missing = ref - collections.Counter(l.strip() for l in summary)
+    log(f"[ptxas] {sum(ref.values()) - sum(missing.values())} of {sum(ref.values())} "
+        f"reference kernels identical ({PTXAS_REFERENCE}), {sum(missing.values())} "
+        f"differ; new: {sum(1 for l in summary if '_tc_kernel<' in l)} "
+        f"tensor-core kernels")
+    for line in missing:
+        log(f"[ptxas] differs from the reference: {line}")
+    if missing:
+        raise RuntimeError("kernels outside the tensor-core engine compile differently "
+                           f"from {PTXAS_REFERENCE}")
 
 
 def pass_flops(plan, radices, elems: int, first_dot=None) -> int:
@@ -542,8 +580,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in ptxas_summary(_build.build_log()):
+    summary = ptxas_summary(_build.build_log())
+    for line in summary:
         log(line)
+    ptxas_identity(summary)
 
     def inputs(n, b, dtype, seed, planes=2):
         rng = np.random.default_rng(seed)
@@ -641,7 +681,7 @@ def main() -> int:
         data[label] = (tt.create_plan(n), *inputs(n, b, torch.bfloat16,
                                                   SEED + n + b))
     outputs = counted(
-        "c2c", ("fused_fft", "four_step_col", "four_step_row"),
+        "c2c", ("fused_fft[mma]", "four_step_col", "four_step_row"),
         lambda: {label: tt.fft_split(re_, im_, plan)
                  for label, (plan, re_, im_) in data.items()})
     for label, (o_re, o_im) in outputs.items():
@@ -684,7 +724,7 @@ def main() -> int:
         return conv, spec, back, tt.fftn_split(*volume)
 
     conv2d, spec2d, back2d, vol_spec = counted(
-        "nd", ("fft2_col", "fft2_row", "fused_fft"), drive_nd)
+        "nd", ("fft2_col", "fft2_row[mma]", "fused_fft[mma]"), drive_nd)
     finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
     finite("fftn_split 3-D", vol_spec, ND_VOLUME, torch.bfloat16)
@@ -732,7 +772,7 @@ def main() -> int:
                 scales=stage_scales(plan.radices, plan.scaling, True),
                 algorithm=plan.precision.dot_algorithm,
                 first_dot=plan.first_dot)
-            hold("fused_fft", label, outputs[label], want, FUSED_MAX_FRAC)
+            hold("fused_fft[mma]", label, outputs[label], want, FUSED_MAX_FRAC)
             continue
         kw, common, col, row = pass_kwargs(plan, True)
         mid_plain = four_step_cuda.column_pass_reference(re_, im_, **col)
@@ -855,7 +895,7 @@ def main() -> int:
         hold("fft2_col" + suffix, label,
              four_step_cuda.fft2_column_pass(*x, **col_kw), mid,
              FOUR_STEP_MAX_FRAC, bf16)
-        hold("fft2_row" + suffix, label,
+        hold(f"fft2_row[{suffix[1:-1] + ',' if suffix else ''}mma]", label,
              four_step_cuda.fft2_row_pass(*mid, **row_kw),
              four_step_cuda.fft2_row_pass_reference(*mid, **row_kw),
              FOUR_STEP_MAX_FRAC, bf16)
@@ -880,7 +920,7 @@ def main() -> int:
     plan_v = tt.create_plan(n_v)
     rows = [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous()
             for t in tt.fftn_split(*volume, axes=(1, 2))]
-    hold("fused_fft", f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
+    hold("fused_fft[mma]", f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
          f"x B={rows[0].shape[0]} first_dot={plan_v.first_dot}",
          tt.fft_split(*rows, plan_v),
          fused_cuda.fused_fft_reference(
@@ -1031,7 +1071,7 @@ def main() -> int:
     # with the planar_vpu engine) and n=16384's default radices under planar.
     tuned_in = {label: inputs(n_t, b_t, torch.bfloat16, SEED + 11 + i)
                 for i, (label, n_t, b_t, _, _) in enumerate(TUNED_CALLS)}
-    k4_tuned = {"fft2_col[planar_vpu]": 2, "fft2_row[planar_vpu]": 2}
+    k4_tuned = {"fft2_col[planar_vpu]": 2, "fft2_row[planar_vpu,mma]": 2}
 
     def expect(label, before, want):
         """Fail unless the launches since ``before`` are exactly ``want``."""
@@ -1256,11 +1296,13 @@ def main() -> int:
         return 2 * 4 * (col["n1"] * col["n2"] // t + col["n1"] * t)
 
     def hold_passes(label, plan, x, precision, shape, col_call, col_ref, row_call,
-                    row_ref, col, row, elems, col_first_dot=None, library=False):
+                    row_ref, col, row, elems, col_first_dot=None, library=False,
+                    whole=None):
         """Hold a column pass on ``x`` and a row pass on the plain column
         pass's output against their plain versions; register both, with
         ``torch.fft.fft`` along each pass's axis as its one call where
-        ``library`` (the K4 passes)."""
+        ``library`` (the K4 passes), else ``whole`` (the whole transform's
+        one call, for both passes of a four-step pair)."""
         t = tol(precision, col["state_dtype"], True)
         # At 2^27 the hold is on a slice: the first BIGN_HOLD_ELEMS of each
         # plane of the outputs (the plain versions run whole on the card).
@@ -1283,12 +1325,12 @@ def main() -> int:
                 4 * item * elems + (pq_bytes(col) if "lane_tile" in col else 0),
                 [(plan, radices_c, col["scales1"], col["sign"], col_first_dot)],
                 pass_flops(plan, radices_c, elems, col_first_dot),
-                axis_fft(x, -2) if library else None)
+                axis_fft(x, -2) if library else whole)
         tpu_job(name_r, shape, lambda *a: row_call(*a, **row),
                 lambda *a: row_ref(*a, **row), mid_plain, 4 * item * elems,
                 [(plan, row["radices2"], row["scales2"], row["sign"], col_first_dot)],
                 pass_flops(plan, row["radices2"], elems, col_first_dot),
-                axis_fft(mid_plain, -1) if library else None)
+                axis_fft(mid_plain, -1) if library else whole)
         return mid_plain
 
     def hold_r2c_fused(label, plan, x, spec, precision):
@@ -1344,7 +1386,8 @@ def main() -> int:
         if route == "c2c":
             hold_passes(label, plan, x, precision, shape, four_step_cuda.column_pass,
                         four_step_cuda.column_pass_reference, four_step_cuda.row_pass,
-                        four_step_cuda.row_pass_reference, col, row, n * b)
+                        four_step_cuda.row_pass_reference, col, row, n * b,
+                        whole=axis_fft(x))
             return
         # R2C: K5 (the packed column pass, then kernel C), untangle; the
         # inverse's retangle, kernel B (K6g under gridslice) and K6.
@@ -1355,7 +1398,8 @@ def main() -> int:
         hold_passes(label, plan, x, precision, shape, four_step_cuda.column_pass_packed,
                     four_step_cuda.column_pass_packed_reference, four_step_cuda.row_pass,
                     four_step_cuda.row_pass_reference, dict(col, engine=k5_engine),
-                    dict(row, engine=k5_engine), m * b)
+                    dict(row, engine=k5_engine), m * b,
+                    whole=lambda: (lambda v: torch.fft.rfft(v, dim=-1), (x[0].float(),)))
         fs = float(_output_scale(plan, True))
         z_fwd = four_step_cuda.four_step_fft_packed_real(x[0], **kw)
         name, got = named(lambda: rfft_cuda.untangle_fwd(*z_fwd, n=n, scale=fs))
@@ -1371,7 +1415,9 @@ def main() -> int:
                     four_step_cuda.column_pass_reference,
                     four_step_cuda.row_pass_interleave,
                     four_step_cuda.row_pass_interleave_reference, inv_col, inv_row,
-                    m * b)
+                    m * b, whole=lambda: (lambda v: torch.fft.irfft(v, n=n, dim=-1),
+                                          (torch.complex(spec[0].float(),
+                                                         spec[1].float()),)))
 
     def tpu_bitwise(label, route, plan, x, spec, back):
         """The call's output equals the stacked engine's (grouping off
@@ -1512,15 +1558,30 @@ def main() -> int:
     bign_plans, bign_in = knob_path("bign", BIGN_CALLS, {}, SEED + 61,
                                     device_inputs)
     # The exchange logic alone: a row one CTA holds, on a cluster of two
-    # through the private launcher, equals the one-CTA kernel bit for bit.
+    # through the private launcher, equals the one-CTA scalar engine bit for
+    # bit.  One-CTA kernel A runs the tensor cores, another summation order,
+    # so the bitwise reference is K4's column pass over the rows viewed as
+    # (B, N, 1): run_fft, one CTA per row, the same plan, the order every
+    # cluster output follows.  One-CTA kernel A is held against the cluster
+    # at the fused bound.
     x16 = inputs(16384, 256, torch.bfloat16, SEED + 60)
     kw16 = dict(radices=(128, 128), scales=stage_scales((128, 128), "forward", True),
                 sign=-1, algorithm="bf16", first_dot="default", engine="stacked",
                 grouped=False, complex_mult="block", state_dtype="float32")
-    bitwise("fused_fft[cluster2]", "N=16384 x B=256 on 2 CTAs vs one CTA",
-            fused_cuda._launch_fused(*x16, cluster=2, **kw16),
-            fused_cuda.fused_fft(*x16, **kw16))
-    del x16
+    cl16 = fused_cuda._launch_fused(*x16, cluster=2, **kw16)
+    col16 = four_step_cuda.fft2_column_pass(
+        *(t.reshape(256, 16384, 1) for t in x16), radices1=kw16["radices"],
+        scales1=kw16["scales"], sign=-1, algorithm="bf16")
+    bitwise("fused_fft[cluster2]", "N=16384 x B=256 on 2 CTAs vs the one-CTA scalar "
+            "engine (K4 column pass over (B, N, 1))", cl16,
+            [t.reshape(256, 16384) for t in col16])
+    a16 = agreement([c.float().cpu() for c in cl16],
+                    [t.float().cpu() for t in fused_cuda.fused_fft(*x16, **kw16)],
+                    bf16=True)
+    log(f"[bign] N=16384 x B=256 on 2 CTAs vs one-CTA kernel A (tensor cores): {a16}")
+    if not a16.within(FUSED_MAX_FRAC):
+        raise RuntimeError(f"kernel A on 2 CTAs and on one CTA disagree: {a16}")
+    del x16, cl16, col16
     # Past a cluster of 8 CTAs a plan is refused, before any launch.
     big = tt.create_plan(1 << 18, max_fused_length=1 << 18)
     ok, why = tt.plan_works_on_device(big, "cuda")
@@ -1554,14 +1615,23 @@ def main() -> int:
         t_ops = ops / peak * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def table_bytes(plan, radices, scales, sign, first_dot=None):
-        """Bytes of one pass's fp32 tables (folded slices included)."""
-        tables, _ = fused_cuda.kernel_tables(
+    def table_bytes(plan, radices, scales, sign, first_dot=None, mma=False):
+        """Bytes of one pass's tables (folded slices included): fp32, or
+        under ``mma`` (the tensor-core engine) the matrices in bf16 and the
+        twiddles in fp32."""
+        tables, meta = fused_cuda.kernel_tables(
             tuple(radices), tuple(map(float, scales)), int(sign),
             plan.precision.dot_algorithm,
             plan.first_dot if first_dot is None else first_dot, dev,
             plan.engine, plan.grouped, plan.complex_mult)
-        return tables.numel() * 4
+        if not mma:
+            return tables.numel() * 4
+        twiddles, k = 0, 1
+        for st in range(int(meta[0])):
+            r = int(meta[1 + 4 * st])
+            twiddles += 2 * r * k if meta[4 + 4 * st] else 0
+            k *= r
+        return (tables.numel() - twiddles) * 2 + twiddles * 4
 
     timing = {}  # name -> dict(ms, plain_ms, library_ms, bound_ms, bound_by, shape)
 
@@ -1601,10 +1671,10 @@ def main() -> int:
         if plan.resolve_strategy() is tt.Strategy.FUSED:
             if label == "bench-headline":
                 nbytes = 4 * item * elems + table_bytes(
-                    plan, plan.radices, kwargs["scales"], -1)
+                    plan, plan.radices, kwargs["scales"], -1, mma=True)
                 b_ms, b_by = bound(nbytes, pass_flops(plan, plan.radices, elems),
                                    H100.bf16_flops)
-                timing["fused_fft"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=c_ms,
+                timing["fused_fft[mma]"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=c_ms,
                                            bound_ms=b_ms, bound_by=b_by,
                                            shape=f"N={n} x B={b} bf16")
             continue
@@ -1628,8 +1698,9 @@ def main() -> int:
             kernel_ms[name] = (tk.average_time_ms, tp.average_time_ms)
             nbytes = 4 * item * elems + extra + table_bytes(plan, radices, scales, -1)
             b_ms, b_by = bound(nbytes, pass_flops(plan, radices, elems), H100.bf16_flops)
+            # The pass's one call: the whole transform's torch.fft.fft.
             timing[name] = dict(ms=tk.average_time_ms, plain_ms=tp.average_time_ms,
-                                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
                                 shape=f"N={n} x B={b} bf16")
             log(f"[time] {name} N={n} B={b}: kernel {tk.average_time_ms:.4f} ms "
                 f"| plain {tp.average_time_ms:.4f} ms | bound {b_ms:.4f} ms "
@@ -1756,7 +1827,7 @@ def main() -> int:
     for name, fn, ref, args, kw, plan, dim in (
             ("fft2_col", four_step_cuda.fft2_column_pass,
              four_step_cuda.fft2_column_pass_reference, x3, k4_col, ph, -2),
-            ("fft2_row", four_step_cuda.fft2_row_pass,
+            ("fft2_row[mma]", four_step_cuda.fft2_row_pass,
              four_step_cuda.fft2_row_pass_reference, k4_mid, k4_row, pw, -1)):
         radices = kw.get("radices1", kw.get("radices2"))
         scales = kw.get("scales1", kw.get("scales2"))
@@ -1769,7 +1840,8 @@ def main() -> int:
         tl = measure(lambda x, dim=dim: torch.fft.fft(x, dim=dim), (x_c,), iters=10)
         k_ms = min(tk1.average_time_ms, tk2.average_time_ms)
         p_ms = min(tp1.average_time_ms, tp2.average_time_ms)
-        nbytes = 4 * 2 * elems + table_bytes(plan, radices, scales, -1, "default")
+        nbytes = 4 * 2 * elems + table_bytes(plan, radices, scales, -1, "default",
+                                             mma="mma" in name)
         b_ms, b_by = bound(nbytes, pass_flops(plan, radices, elems, "default"),
                            H100.bf16_flops)
         timing[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=tl.average_time_ms,
@@ -1874,7 +1946,8 @@ def main() -> int:
         time_kernel(name, shape, lambda r, i: fn(r, i, **kw),
                     lambda r, i: fused_cuda.fused_fft_reference(r, i, **kw),
                     library, x,
-                    4 * 2 * elems + table_bytes(plan, plan.radices, kw["scales"], -1),
+                    4 * 2 * elems + table_bytes(plan, plan.radices, kw["scales"], -1,
+                                                mma=True),
                     pass_flops(plan, plan.radices, elems),
                     extra=f" | stacked kernel A, radices {plan.radices}, same "
                           f"rows: {t_a.average_time_ms:.4f} ms")
@@ -1885,24 +1958,28 @@ def main() -> int:
     for name, fn, ref, args, kw, dim in (
             ("fft2_col", four_step_cuda.fft2_column_pass,
              four_step_cuda.fft2_column_pass_reference, x3, col_t, -2),
-            ("fft2_row", four_step_cuda.fft2_row_pass,
+            ("fft2_row[mma]", four_step_cuda.fft2_row_pass,
              four_step_cuda.fft2_row_pass_reference, k4t_mid, row_t, -1)):
         radices = kw.get("radices1", kw.get("radices2"))
         scales = kw.get("scales1", kw.get("scales2"))
-        time_kernel(f"{name}[{plan2d.engine}]", f"{h}x{w} bf16",
+        tagged = (name.replace("[", f"[{plan2d.engine},") if "[" in name
+                  else f"{name}[{plan2d.engine}]")
+        time_kernel(tagged, f"{h}x{w} bf16",
                     lambda r, i, fn=fn, kw=kw: fn(r, i, **kw),
                     lambda r, i, ref=ref, kw=kw: ref(r, i, **kw),
                     (lambda v, dim=dim: torch.fft.fft(v, dim=dim), (x_c,)), args,
-                    4 * 2 * elems + table_bytes(plan2d, radices, scales, -1, "default"),
+                    4 * 2 * elems + table_bytes(plan2d, radices, scales, -1, "default",
+                                                mma="mma" in name),
                     pass_flops(plan2d, radices, elems, "default"))
     del x_c
 
     # The tpu_tuned path: each variant at each shape that ran it, with its
-    # bound counting the fp32 tables a folded stage reads.
+    # bound counting the tables a folded stage reads (bf16 on the
+    # tensor-core engine, fp32 elsewhere).
     log(f"[phase] tpu_tuned timing from {time.perf_counter() - t_start:.1f} s")
     for key, job in tpu_jobs.items():
         library = job["library"]() if job["library"] is not None else None
-        tables = sum(table_bytes(*t) for t in job["tables"])
+        tables = sum(table_bytes(*t, mma="mma" in job["name"]) for t in job["tables"])
         time_kernel(job["name"], job["shape"], job["call"], job["plain"], library,
                     job["args"], job["io_bytes"] + tables, job["ops"],
                     extra=f" | tables {tables} B", record=key == job["name"])

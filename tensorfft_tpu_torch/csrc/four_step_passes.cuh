@@ -51,7 +51,9 @@
 // kTransposed = false row pass over a (1, B, N) view: a tile of T adjacent
 // rows per CTA, read row-contiguous and transposed into the shared-memory
 // operand (the TPU's in-VMEM transpose), stored in place; entry point in
-// fused_batch_major.cu.
+// fused_batch_major.cu.  K3 and K4's row pass run their one-CTA tiles on
+// the tensor-core engine (in_place_row.cuh, fft_mma.cuh), not on
+// row_pass_kernel; their clusters take row_cluster_kernel below.
 //
 // What bounds them on the H100: as kernel A, scalar-FMA stage matmuls bound
 // by load-instruction throughput; beyond that, kernel B reads columns

@@ -9,25 +9,29 @@
 // plan's stage engine (stacked or planar) with the plan's first_dot, and
 // stores each row's bins in place.
 //
-// What bounds it on the H100: the scalar-FMA stage products, as kernel A;
-// the tile lets one CTA hold T rows, so a short transform (N = 512 takes
-// T = 32) keeps 512 threads busy where kernel A gives each row its own CTA.
-// Its last-stage store is the in-place one of K4's row pass: a warp's 32
-// outputs are T rows times 32/T consecutive bins, so at T = 32 each is a
-// 1-element run in its own row.
-#include "four_step_passes.cuh"
+// What bounds it on the H100: as kernel A, the tensor-core engine
+// (fft_mma.cuh, through row_pass_tc.cuh): bf16 mma.sync products on the
+// shared-matrix stages, the bf16 per-slice table stream on folded ones.
+// The tile lets one CTA hold T rows, so a short transform (N = 512 takes
+// T = 32) keeps 512 threads busy where kernel A gives each row its own
+// CTA; the last stage's outputs are staged in shared memory and leave as
+// contiguous runs of each row.  Each output is computed as kernel A
+// computes it, so the two agree bit for bit.
+#include "in_place_row.cuh"
 
 // Returns a cudaError_t code, or kErrClusterUnschedulable.  T: rows per
 // CTA, dividing batch, with n*T <= 16384; or, for a row longer than one CTA
-// holds, T = 1 and `cluster` (2, 4 or 8) CTAs per row.
+// holds, T = 1 and `cluster` (2, 4 or 8) CTAs per row.  mats: the bf16
+// matrices of a one-CTA pass (in_place_row_pass).
 extern "C" int tfft_fused_batch_major(const void* in_re, const void* in_im,
                                       void* out_re, void* out_im, int dtype,
                                       int data_terms, long long batch, int n,
                                       int T, int cluster, const void* tables,
-                                      const long long* meta, void* stream) {
+                                      const void* mats, const long long* meta,
+                                      void* stream) {
   if (batch < 1 || batch > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  return tfft::row_pass<false, false>(in_re, in_im, out_re, out_im, dtype,
-                                      data_terms, 1, static_cast<int>(batch),
-                                      n, T, cluster, tables, meta, stream);
+  return tfft::in_place_row_pass(in_re, in_im, out_re, out_im, dtype,
+                                 data_terms, 1, static_cast<int>(batch), n, T,
+                                 cluster, tables, mats, meta, stream);
 }

@@ -7,8 +7,8 @@
 // (stage_loop_planar; fft_stages.cuh).  It also replaces K1a, the gridslice
 // pallas_call at :923 (gridslice_kernel_body), which computes the stacked
 // function and defers the last stage's K-way interleave to strided output
-// stores: here the last stage already stores each output from registers to
-// its natural bin, so a gridslice plan runs this kernel unchanged.  The TPU
+// stores: here the last stage already stores each output to its natural
+// bin, so a gridslice plan runs this kernel unchanged.  The TPU
 // kernel runs on transform-major (N, B) panels behind two XLA transposes;
 // here a CTA reads its (B, N) row directly, so no transpose exists.
 // A row longer than one CTA holds (N > 16384, or bf16x6 with mult3's third
@@ -18,38 +18,20 @@
 // (its tuner's single-pass challengers at N = 32768 and 65536) in one VMEM
 // panel.
 //
-// What bounds it on the H100: the stage matmuls are scalar fp32 FMAs on the
-// CUDA cores, 4R FMAs per complex element per stage per product term, fed by
-// one shared-memory operand load and one cached table load per FMA pair, so
-// the kernel is bound by load-instruction throughput, far from the 3.35 TB/s
-// HBM floor of one read and one write per element.  The design keeps each
-// element's HBM bytes at that floor (the whole transform stays in shared
-// memory) and keeps the fp32 state in registers so one bf16 operand buffer
-// is enough at N = 16384; tensor-core products (mma/wgmma) are the next
-// step.
-#include "fft_stages.cuh"
+// What bounds it on the H100: a one-CTA row runs the
+// tensor-core engine (fft_mma.cuh).  The shared-matrix stages are bf16
+// mma.sync products (137 GFLOP at 16384 x 4096 is 0.14 ms at the 989
+// TFLOP/s bf16 peak, under the 0.16 ms HBM floor of one read and one write
+// per element), fed by ldmatrix from the swizzled operand and by A
+// fragments through L1; a folded stage (grouped, folded planar) is bound by
+// its per-slice table stream, bf16 and read once per CTA in contiguous
+// runs: at (64, 256) 16.8 MB per term per row, from L2.  The whole
+// transform stays in shared memory and the fp32 state in registers, as
+// before.  The cluster twin keeps run_fft_cluster's scalar products
+// (ldmatrix cannot read a peer CTA's shared memory).
+#include "fused_fft_tc.cuh"
 
 namespace tfft {
-
-template <typename S, int BT, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
-                     S* __restrict__ out_re, S* __restrict__ out_im, int n,
-                     StagePlan plan, const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
-  const long long base = static_cast<long long>(blockIdx.x) * n;
-  auto load = [&](int q, int& idx, float& re, float& im) {
-    idx = q;
-    re = to_float(in_re[base + q]);
-    im = to_float(in_im[base + q]);
-  };
-  auto store = [&](int k, int lane, float re, float im) {
-    out_re[base + k] = from_float<S>(re);
-    out_im[base + k] = from_float<S>(im);
-  };
-  run_fft<BT, kEngine>(op, n, 1, plan, tables, load, store);
-}
 
 // Kernel A on a cluster of C CTAs per row (cluster_index): the same maps,
 // through run_fft_cluster.
@@ -75,21 +57,24 @@ __global__ void __launch_bounds__(kThreads)
   run_fft_cluster<BT, kEngine>(op, n, plan, tables, load, store);
 }
 
-// One CTA per row, or a cluster of `cluster` CTAs per row.
+// One CTA per row on the tensor-core engine (launch_fused_tc, compiled in
+// fused_fft_tc{1,2,3}.cu), or a cluster of `cluster` CTAs per row on the
+// scalar cluster engine.
 template <typename S, int BT, int kEngine>
 int launch_fused(const void* in_re, const void* in_im, void* out_re,
                  void* out_im, long long batch, int n, int cluster,
                  const StagePlan& plan, const float* tables,
-                 cudaStream_t stream) {
+                 const __nv_bfloat16* mats, cudaStream_t stream) {
+  if (cluster == 1)
+    return launch_fused_tc<S, BT>(in_re, in_im, out_re, out_im, batch, n,
+                                  plan, tables, mats, stream);
   const int elems = n / cluster;
-  const int threads = elems < kThreads ? elems : kThreads;
-  const size_t smem = operand_bytes(elems, BT, plan.sum_plane);
   return launch_stage_kernel(
-      cluster > 1 ? &fused_fft_cluster_kernel<S, BT, cluster_engine<kEngine>()>
-                  : &fused_fft_kernel<S, BT, kEngine>,
-      batch, threads, smem, cluster, stream, static_cast<const S*>(in_re),
-      static_cast<const S*>(in_im), static_cast<S*>(out_re),
-      static_cast<S*>(out_im), n, plan, tables);
+      &fused_fft_cluster_kernel<S, BT, cluster_engine<kEngine>()>, batch,
+      elems < kThreads ? elems : kThreads,
+      operand_bytes(elems, BT, plan.sum_plane), cluster, stream,
+      static_cast<const S*>(in_re), static_cast<const S*>(in_im),
+      static_cast<S*>(out_re), static_cast<S*>(out_im), n, plan, tables);
 }
 
 }  // namespace tfft
@@ -104,28 +89,34 @@ extern "C" const char* tfft_error_string(int err) {
 // Returns a cudaError_t code (0 on success), or kErrClusterUnschedulable.
 // dtype: 0 bf16 (with 1 data term), 1 fp32 (with 2 or 3): the
 // storage/operand pairs of the policies.  The engine is the plan's (meta's
-// stage modes).  cluster: CTAs per row (1, 2, 4 or 8; cluster_ok).
+// stage modes).  cluster: CTAs per row (1, 2, 4 or 8; cluster_ok).  One
+// CTA per row reads its matrices from the bf16 `mats` (meta's matrix
+// offsets in bf16 units, each stage in its route's layout) and its
+// twiddles from `tables`; a cluster reads both from the fp32 `tables`
+// (meta's offsets in fp32 units) and ignores `mats`.
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
                               int cluster, const void* tables,
-                              const long long* meta, void* stream) {
+                              const void* mats, const long long* meta,
+                              void* stream) {
   using namespace tfft;
   StagePlan plan;
   if (!read_plan(meta, &plan) || !cluster_ok(n, 1, cluster) || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* t = static_cast<const float*>(tables);
+  const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(mats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TFFT_FUSED(S, BT)                                                  \
   return plan.engine == kEngPlanar                                         \
              ? launch_fused<S, BT, kEngPlanar>(in_re, in_im, out_re, out_im, \
-                                               batch, n, cluster, plan, t, s) \
+                                               batch, n, cluster, plan, t, m, s) \
          : plan.engine == kEngKnobs                                        \
              ? launch_fused<S, BT, kEngKnobs>(in_re, in_im, out_re, out_im,  \
-                                              batch, n, cluster, plan, t, s) \
+                                              batch, n, cluster, plan, t, m, s) \
              : launch_fused<S, BT, kEngStacked>(in_re, in_im, out_re,      \
                                                 out_im, batch, n, cluster, \
-                                                plan, t, s)
+                                                plan, t, m, s)
   if (dtype == 0 && data_terms == 1) TFFT_FUSED(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_FUSED(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_FUSED(float, 3);

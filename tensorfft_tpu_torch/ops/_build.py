@@ -37,7 +37,7 @@ _F = ctypes.c_float
 
 # name -> argtypes; every function returns a cudaError_t code as int.
 _SIGNATURES = {
-    "tfft_fused_fft": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P],
+    "tfft_fused_fft": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P],
     "tfft_four_step_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
                            _P, _P, _I, _P],
     "tfft_four_step_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
@@ -47,9 +47,10 @@ _SIGNATURES = {
     "tfft_four_step_row_interleave": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
                                       _P, _P, _P],
     "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P],
-    "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P],
+    "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P,
+                      _P],
     "tfft_fused_batch_major": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
-                               _P],
+                               _P, _P],
     "tfft_pack_split": [_P, _P, _P, _I, _L, _I, _P],
     "tfft_interleave_split": [_P, _P, _P, _I, _L, _I, _P],
     "tfft_untangle_fwd": [_P, _P, _P, _P, _I, _L, _I, _P, _F, _P],

@@ -72,6 +72,7 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     fused_fft_reference,
     kernel_tables,
     launch,
+    mma_tables,
     pass_stages,
     plain_pass,
     policy_codes,
@@ -266,18 +267,41 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
     return variant(knobs["engine"], stages, knobs["state_dtype"], cluster)
 
 
+def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs,
+                  cluster):
+    """(tables, meta, mats pointer) of an in-place row pass (K4's, K3): the
+    tensor-core engine's bf16 tables on one CTA (``fused_cuda.mma_tables``),
+    the fp32 ones and no bf16 pointer on a cluster."""
+    args = (tuple(radices), tuple(map(float, scales)), int(sign), algorithm,
+            first_dot, device, knobs["engine"], knobs["grouped"],
+            knobs["complex_mult"], knobs["state_dtype"], True)
+    if cluster == 1:
+        tables, meta, mats = mma_tables(*args)
+        return tables, meta, mats.data_ptr()
+    tables, meta = kernel_tables(*args)
+    return tables, meta, None
+
+
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
-                first_dot, knobs):
+                first_dot, knobs, mma=False):
     """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
-    (planes or one real row tensor); returns the pass's variant."""
+    (planes or one real row tensor); returns the pass's variant.  ``mma``:
+    the in-place row pass, whose one-CTA tiles run the tensor-core engine."""
     stages, tables, meta = _pass_tables(radices2, scales2, sign, algorithm,
                                         first_dot, mid[0].device, knobs)
     lanes, cluster = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, stages,
                                  symbol)
+    mats = ()
+    if mma:
+        tables, meta, ptr = _mma_operands(radices2, scales2, sign, algorithm,
+                                          first_dot, mid[0].device, knobs,
+                                          cluster)
+        mats = (ptr,)
     launch(symbol, (*mid, *dst), policy_codes(mid[0], algorithm),
            mid[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(),
-           meta.ctypes.data)
-    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster)
+           *mats, meta.ctypes.data)
+    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster,
+                   mma=mma and cluster == 1)
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
@@ -649,7 +673,7 @@ def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
         return out_re, out_im
     count_launch(fft2_row_pass, _row_launch(
         "tfft_fft2_row", (mid_re, mid_im), (out_re, out_im), algorithm, h, w,
-        radices2, scales2, sign, "default", knobs))
+        radices2, scales2, sign, "default", knobs, mma=True))
     return out_re, out_im
 
 
@@ -745,15 +769,18 @@ def fused_fft_batch_major(
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return out_re, out_im
-    stages, tables, meta = _pass_tables(radices, scales, sign, algorithm,
-                                        first_dot, re.device, knobs)
+    stages = pass_stages(radices, knobs["engine"], grouped, complex_mult,
+                         state_dtype)
     lanes, cluster = fit_cta(n, batch_major_lanes(n, b), algorithm, stages,
                              "fused_fft_batch_major")
+    tables, meta, mats = _mma_operands(radices, scales, sign, algorithm,
+                                       first_dot, re.device, knobs, cluster)
     launch("tfft_fused_batch_major", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, lanes, cluster,
-           tables.data_ptr(), meta.ctypes.data)
+           tables.data_ptr(), mats, meta.ctypes.data)
     count_launch(fused_fft_batch_major,
-                 variant(knobs["engine"], stages, state_dtype, cluster))
+                 variant(knobs["engine"], stages, state_dtype, cluster,
+                         mma=cluster == 1))
     return out_re, out_im
 
 

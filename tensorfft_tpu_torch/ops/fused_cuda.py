@@ -79,6 +79,9 @@ __all__ = [
     "fused_fft",
     "fused_fft_reference",
     "kernel_tables",
+    "mma_route",
+    "mma_table_index",
+    "mma_tables",
     "variant",
     "cta_smem_bytes",
     "fit_cta",
@@ -199,11 +202,13 @@ def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
 
 
 def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
-            cluster: int = 1) -> str:
+            cluster: int = 1, mma: bool = False) -> str:
     """The launch counters' name for a pass: the engine (none for stacked),
-    the numeric knobs in effect and the CTAs of its cluster, e.g.
-    ``grouped,mult3``, ``pretwiddle,bf16_state`` or ``bf16_state,cluster2``;
-    ``stacked`` when there are none."""
+    the numeric knobs in effect, the CTAs of its cluster and ``mma`` for a
+    pass on the tensor-core engine (kernel A, K3 and K4's row pass on one
+    CTA), e.g. ``grouped,mult3``, ``pretwiddle,bf16_state``,
+    ``bf16_state,cluster2`` or ``grouped,mma``; ``stacked`` when there are
+    none."""
     tags = [] if engine == "stacked" else [engine]
     if any(st.kind == "grouped" for st in stages):
         tags.append("grouped")
@@ -213,6 +218,8 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
         tags.append("bf16_state")
     if cluster > 1:
         tags.append(f"cluster{cluster}")
+    if mma:
+        tags.append("mma")
     return ",".join(tags) or "stacked"
 
 
@@ -563,6 +570,50 @@ def policy_codes(t: torch.Tensor, algorithm: str):
     return KERNEL_DTYPES[t.dtype], DATA_TERMS[algorithm]
 
 
+def _pass_matrices(radices, scales, sign, algorithm, first_dot, engine,
+                   grouped, complex_mult, state_dtype):
+    """Per stage of one pass: (stage, matrix terms, twiddle, mode).  The
+    terms are fp32 (slices, matrices, R, R) tensors, each entry a bf16 value
+    (``dots.split_bf16``'s terms, or the bf16-rounded matrix); the twiddle
+    is the fp32 (2, R, K) [re, im] of an unfolded stage after the first,
+    else None."""
+    planar = engine in PLANAR_ENGINES
+    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
+    if planar:
+        arrays = iter(planar_stage_tables(radices, scales, sign, algorithm,
+                                          fold=engine == "planar",
+                                          first_dot=first_dot))
+        mats = []
+        for j, st in enumerate(stages):
+            a = next(arrays).reshape(-1, 2, st.radix, st.radix)
+            w = (torch.stack([next(arrays), next(arrays)])
+                 if j > 0 and not st.fold else None)
+            mats.append((a, w))
+        modes = [_PLANAR_FOLDED if st.fold else _PLANAR_SHARED for st in stages]
+    else:
+        mats = stage_matrices(radices, scales, sign, algorithm, first_dot, stages)
+        modes = [_STACKED_FOLDED if st.fold else _STACKED for st in stages]
+    out = []
+    for j, (st, (mat, w), mode) in enumerate(zip(stages, mats, modes)):
+        alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
+        terms = [mat] if alg == "bf16" else dots.split_bf16(mat, _MATRIX_TERMS[alg])
+        out.append((st, [t.to(torch.float32) for t in terms], w, mode))
+    return out
+
+
+def _meta(parts, d_offs, w_offs, state_dtype, round_input):
+    """The int64 meta the C launchers read (see :func:`kernel_tables`)."""
+    meta, flags = [len(parts)], []
+    for (st, terms, _, _), d_off, w_off in zip(parts, d_offs, w_offs):
+        meta += [st.radix, len(terms), d_off, w_off]
+        flags.append(_MULT3 * st.mult3 + _ROUND_TW * st.round_tw
+                     + _ROUND_SUM * st.round_sum)
+    bf16 = state_dtype == "bfloat16"
+    pass_flags = _BF16_STATE * bf16 + _ROUND_INPUT * (bf16 and round_input)
+    modes = [mode for *_, mode in parts]
+    return np.asarray(meta + modes + flags + [pass_flags], dtype=np.int64)
+
+
 @functools.lru_cache(maxsize=64)
 def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
                   sign: int, algorithm: str, first_dot: str, device,
@@ -585,51 +636,97 @@ def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
     operand, 4 round mult3's sum), then the pass's flags (1 bf16 state,
     2 round the input to it).
     """
-    planar = engine in PLANAR_ENGINES
-    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
-    if planar:
-        arrays = iter(planar_stage_tables(radices, scales, sign, algorithm,
-                                          fold=engine == "planar",
-                                          first_dot=first_dot))
-        mats = []
-        for j, st in enumerate(stages):
-            a = next(arrays).reshape(-1, 2, st.radix, st.radix)
-            w = (torch.stack([next(arrays), next(arrays)])
-                 if j > 0 and not st.fold else None)
-            mats.append((a, w))
-        modes = [_PLANAR_FOLDED if st.fold else _PLANAR_SHARED for st in stages]
-    else:
-        mats = stage_matrices(radices, scales, sign, algorithm, first_dot, stages)
-        modes = [_STACKED_FOLDED if st.fold else _STACKED for st in stages]
-    chunks, meta, flags, off = [], [len(radices)], [], 0
-    for j, (st, (mat, w)) in enumerate(zip(stages, mats)):
-        alg = _first_algorithm(algorithm, first_dot) if j == 0 else algorithm
-        terms = _MATRIX_TERMS[alg]
-        parts = [mat] if alg == "bf16" else dots.split_bf16(mat, terms)
-        d_off = off
-        for p in parts:
-            chunks.append(p.to(torch.float32).reshape(-1))
-            off += p.numel()
-        w_off = 0
+    parts = _pass_matrices(radices, scales, sign, algorithm, first_dot,
+                           engine, grouped, complex_mult, state_dtype)
+    chunks, d_offs, w_offs, off = [], [], [], 0
+    for _, terms, w, _ in parts:
+        d_offs.append(off)
+        for t in terms:
+            chunks.append(t.reshape(-1))
+            off += t.numel()
+        w_offs.append(0)
         if w is not None:
-            w_off = off
+            w_offs[-1] = off
             chunks.append(w.reshape(-1))
             off += w.numel()
-        meta += [st.radix, terms, d_off, w_off]
-        flags.append(_MULT3 * st.mult3 + _ROUND_TW * st.round_tw
-                     + _ROUND_SUM * st.round_sum)
-    bf16 = state_dtype == "bfloat16"
-    pass_flags = _BF16_STATE * bf16 + _ROUND_INPUT * (bf16 and round_input)
     tables = torch.cat(chunks).to(device)
-    return tables, np.asarray(meta + modes + flags + [pass_flags], dtype=np.int64)
+    return tables, _meta(parts, d_offs, w_offs, state_dtype, round_input)
+
+
+def mma_route(st: Stage) -> bool:
+    """Whether a stage runs on the tensor cores in kernel A and the in-place
+    row pass (``csrc/fft_mma.cuh:mma_route``): a shared-matrix stage of
+    radix >= 8; a folded stage, or one of radix < 8, takes the vector
+    route."""
+    return not st.fold and st.radix >= 8
+
+
+def mma_table_index(radix: int, slices: int, matrices: int, terms: int,
+                    mma: bool) -> Tuple[np.ndarray, int]:
+    """Where each entry of a stage's natural [term][slice][matrix][R][R]
+    table (C order) lands in its bf16 block, and the block's length.
+
+    The mma route (one slice) is in fragment order,
+    [term][matrix][r_out // 8][r // 8][lane][2] with lane = (r_out % 8) * 4
+    + (r % 8) // 2 and the pair r % 2: the 32-bit A-fragment register of
+    lane for that 8 x 8 block.  The vector route is slice-major and
+    transposed within a slice, [term][slice][r][r_out][W], the matrices of
+    one entry side by side (W = 2, or 4 with a zero pad for mult3's three).
+    """
+    shape = (terms, slices, matrices, radix, radix)
+    t, s, m, ro, ri = (np.arange(d).reshape([-1 if a == b else 1 for b in range(5)])
+                       for a, d in enumerate(shape))
+    if mma:
+        if slices != 1:
+            raise ValueError("the mma route takes one shared slice")
+        chunks = radix // 8
+        lane = (ro % 8) * 4 + (ri % 8) // 2
+        pos = (((((t * matrices + m) * chunks + ro // 8) * chunks + ri // 8)
+                * 32 + lane) * 2 + ri % 2)
+        return np.broadcast_to(pos, shape).flatten(), terms * matrices * radix * radix
+    w = 4 if matrices == 3 else 2
+    pos = (((t * slices + s) * radix + ri) * radix + ro) * w + m
+    return np.broadcast_to(pos, shape).flatten(), terms * slices * radix * radix * w
+
+
+@functools.lru_cache(maxsize=64)
+def mma_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
+               sign: int, algorithm: str, first_dot: str, device,
+               engine: str = "stacked", grouped: bool = False,
+               complex_mult: str = "block", state_dtype: str = "float32",
+               round_input: bool = True):
+    """Operands of a one-CTA pass on the tensor-core engine: (tables, meta,
+    mats).  ``mats`` is one bf16 tensor on ``device`` holding each stage's
+    matrix terms in its route's layout (:func:`mma_table_index`), the same
+    values as :func:`kernel_tables`' fp32 ones (each is a bf16 value, so
+    the conversion is exact); ``meta`` is kernel_tables' with the matrix
+    offsets in bf16 units into ``mats``; ``tables`` is kernel_tables' fp32
+    buffer, of which the kernel reads the twiddles."""
+    args = (radices, scales, sign, algorithm, first_dot, engine, grouped,
+            complex_mult, state_dtype)
+    tables, meta = kernel_tables(*args[:5], device, *args[5:], round_input)
+    parts = _pass_matrices(*args)
+    blocks, d_offs, off = [], [], 0
+    for st, terms, _, _ in parts:
+        natural = torch.stack(terms)  # (terms, slices, matrices, R, R)
+        pos, size = mma_table_index(st.radix, natural.shape[1],
+                                    natural.shape[2], len(terms), mma_route(st))
+        block = torch.zeros(size, dtype=torch.bfloat16)
+        block[torch.from_numpy(pos)] = natural.reshape(-1).to(torch.bfloat16)
+        blocks.append(block)
+        d_offs.append(off)
+        off += size
+    meta = meta.copy()
+    meta[3:3 + 4 * len(parts):4] = d_offs
+    return tables, meta, torch.cat(blocks).to(device)
 
 
 def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
                   engine, grouped, complex_mult, state_dtype, cluster=None):
     """Launch kernel A on CUDA planes, counted in ``fused_fft``'s counters:
-    one CTA per row, or a cluster of ``cluster`` CTAs per row (default: the
-    smallest that holds a row, :func:`fit_cta`; a larger valid one computes
-    the same output bit for bit)."""
+    one CTA per row on the tensor-core engine, or a cluster of ``cluster``
+    CTAs per row (default: the smallest that holds a row, :func:`fit_cta`;
+    a larger valid one computes the same output bit for bit)."""
     b, n = re.shape
     stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
     _, fit = fit_cta(n, 1, algorithm, stages, "fused_fft")
@@ -637,14 +734,19 @@ def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return out_re, out_im
-    tables, meta = kernel_tables(radices, tuple(float(s) for s in scales),
-                                 int(sign), algorithm, first_dot, re.device,
-                                 engine, grouped, complex_mult, state_dtype,
-                                 engine not in PLANAR_ENGINES)
+    args = (radices, tuple(float(s) for s in scales), int(sign), algorithm,
+            first_dot, re.device, engine, grouped, complex_mult, state_dtype,
+            engine not in PLANAR_ENGINES)
+    if cluster == 1:
+        tables, meta, mats = mma_tables(*args)
+        mats_ptr = mats.data_ptr()
+    else:
+        (tables, meta), mats_ptr = kernel_tables(*args), None
     launch("tfft_fused_fft", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, cluster, tables.data_ptr(),
-           meta.ctypes.data)
-    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster))
+           mats_ptr, meta.ctypes.data)
+    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster,
+                                    mma=cluster == 1))
     return out_re, out_im
 
 

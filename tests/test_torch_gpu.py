@@ -308,6 +308,13 @@ def _engine_count(wrapper, engine):
     return wrapper.variant_launches[engine]
 
 
+def _mma(variant):
+    """The counter name of a variant on the tensor-core engine (kernel A,
+    K3 and K4's row pass on one CTA): ``mma`` for the knob-free stacked
+    engine, else the variant with ``,mma``."""
+    return "mma" if variant == "stacked" else f"{variant},mma"
+
+
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
 @pytest.mark.parametrize("engine", PLANAR)
 @pytest.mark.parametrize("radices", [(16, 16), (16, 16, 4), (64, 64),
@@ -322,10 +329,10 @@ def test_planar_fused_kernel_matches_plain(cuda, radices, engine, precision):
     kwargs = dict(radices=radices, scales=stage_scales(radices, "forward", True),
                   algorithm=plan.precision.dot_algorithm,
                   first_dot=plan.first_dot, engine=engine)
-    before = _engine_count(fused_cuda.fused_fft, engine)
+    before = _engine_count(fused_cuda.fused_fft, _mma(engine))
     got = fused_cuda.fused_fft(re, im, **kwargs)
     torch.cuda.synchronize()
-    assert _engine_count(fused_cuda.fused_fft, engine) == before + 1
+    assert _engine_count(fused_cuda.fused_fft, _mma(engine)) == before + 1
     _hold(got, fused_cuda.fused_fft_reference(re, im, **kwargs),
           bf16=dtype is torch.bfloat16)
 
@@ -395,10 +402,11 @@ def test_batch_major_kernel_matches_plain_and_kernel_a(cuda, n, b, engine,
                   scales=stage_scales(plan.radices, "forward", True),
                   algorithm=plan.precision.dot_algorithm,
                   first_dot=plan.first_dot, engine=engine)
-    before = _engine_count(four_step_cuda.fused_fft_batch_major, engine)
-    got = four_step_cuda.fused_fft_batch_major(re, im, **kwargs)
+    k3 = four_step_cuda.fused_fft_batch_major
+    before = _engine_count(k3, _mma(engine))
+    got = k3(re, im, **kwargs)
     torch.cuda.synchronize()
-    assert _engine_count(four_step_cuda.fused_fft_batch_major, engine) == before + 1
+    assert _engine_count(k3, _mma(engine)) == before + 1
     _hold(got, fused_cuda.fused_fft_reference(re, im, **kwargs),
           bf16=dtype is torch.bfloat16)
     # The same rows and plan through kernel A: each output's sums run in
@@ -450,10 +458,10 @@ def test_knob_fused_kernel_matches_plain(cuda, precision, radices, knobs,
     kw = dict(radices=radices, scales=stage_scales(radices, "forward", True),
               algorithm=plan.precision.dot_algorithm,
               first_dot=plan.first_dot, **knobs)
-    before = fused_cuda.fused_fft.variant_launches[variant]
+    before = fused_cuda.fused_fft.variant_launches[_mma(variant)]
     got = fused_cuda.fused_fft(re, im, **kw)
     torch.cuda.synchronize()
-    assert fused_cuda.fused_fft.variant_launches[variant] == before + 1
+    assert fused_cuda.fused_fft.variant_launches[_mma(variant)] == before + 1
     bf16 = dtype is torch.bfloat16 or knobs.get("state_dtype") == "bfloat16"
     _hold(got, fused_cuda.fused_fft_reference(re, im, **kw), bf16,
           **_bound(knobs.get("state_dtype"), 1e-3))
@@ -641,17 +649,28 @@ def test_cluster_plans_pass_gate(cuda, n, precision, tuning, variant):
 def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
     # A row that one CTA holds, split over 2 and 4 CTAs through the private
     # launcher: the exchange changes where each value lives, not its value.
+    # The one-CTA scalar engine is K4's column pass over the rows viewed as
+    # (B, N, 1) (run_fft, the same plan); one-CTA kernel A runs the tensor
+    # cores, another summation order, and is held at the fused bound.
     n = int(np.prod(radices))
     plan = tt.create_plan(n, precision=precision)
-    re, im = _planes(8, n, plan.precision.storage_dtype, cuda, seed=n)
+    dtype = plan.precision.storage_dtype
+    re, im = _planes(8, n, dtype, cuda, seed=n)
     kw = dict(radices=radices, scales=stage_scales(radices, "forward", True),
               sign=-1, algorithm=plan.precision.dot_algorithm,
               first_dot="default", engine="stacked", grouped=False,
               complex_mult="block", state_dtype="float32")
     kw.update(knobs)
-    one = fused_cuda.fused_fft(re, im, **kw)
+    col = {k: v for k, v in kw.items() if k not in ("radices", "scales", "first_dot")}
+    scalar = four_step_cuda.fft2_column_pass(
+        re.reshape(8, n, 1), im.reshape(8, n, 1), radices1=radices,
+        scales1=kw["scales"], **col)
+    scalar = [t.reshape(8, n) for t in scalar]
     for cluster in (2, 4):
-        _bitwise(fused_cuda._launch_fused(re, im, cluster=cluster, **kw), one)
+        _bitwise(fused_cuda._launch_fused(re, im, cluster=cluster, **kw), scalar)
+    bf16 = dtype is torch.bfloat16 or kw["state_dtype"] == "bfloat16"
+    _hold(fused_cuda.fused_fft(re, im, **kw), scalar, bf16,
+          **_bound(kw["state_dtype"], 1e-3))
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
@@ -710,3 +729,73 @@ def test_cluster_batch_major_and_r2c(cuda):
     d = deviation((spec[0].double().cpu().numpy(), spec[1].double().cpu().numpy()),
                   (want.real, want.imag))
     assert d.passes_reference_gate(), d
+
+
+# -- the tensor-core engine: kernel A, K3 and K4's row pass on one CTA ------
+
+# (precision, radices, knobs, variant): one plan per engine and knob the
+# tensor-core engine carries, with the stage routes each exercises.
+MMA_ENGINES = [
+    ("bfloat16", (16, 32), dict(first_dot="bf16ax2"), "stacked"),  # bf16ax2 first stage
+    ("float32", (64, 64), {}, "stacked"),
+    ("float32_x6", (32, 32), {}, "stacked"),
+    ("bfloat16", (4, 8, 64), {}, "stacked"),                # radix 4: vector route
+    ("bfloat16", (64, 256), dict(grouped=True), "grouped"),  # folded: vector route
+    ("float32", (64, 256), dict(grouped=True, complex_mult="mult3"), "grouped,mult3"),
+    ("bfloat16", (128, 8), dict(complex_mult="mult3"), "mult3"),  # mult3 on mma
+    ("bfloat16", (64, 64), dict(state_dtype="bfloat16"), "bf16_state"),
+    ("bfloat16", (128, 128), dict(engine="planar"), "planar"),
+    ("float32", (4, 8, 8, 64), dict(engine="planar"), "planar"),
+    ("bfloat16", (32, 128), dict(engine="planar_vpu"), "planar_vpu"),
+]
+
+
+@pytest.mark.parametrize("precision,radices,knobs,variant", MMA_ENGINES)
+def test_mma_engines_launch_and_match_plain(cuda, precision, radices, knobs,
+                                            variant):
+    n = int(np.prod(radices))
+    plan = tt.create_plan(n, precision=precision)
+    dtype = plan.precision.storage_dtype
+    re, im = _planes(8, n, dtype, cuda, seed=n + len(radices))
+    kw = dict(radices=radices, scales=stage_scales(radices, "forward", True),
+              algorithm=plan.precision.dot_algorithm, **knobs)
+    state = knobs.get("state_dtype")
+    bf16 = dtype is torch.bfloat16 or state == "bfloat16"
+    k3 = four_step_cuda.fused_fft_batch_major
+    for wrapper in (fused_cuda.fused_fft, k3):
+        before = wrapper.variant_launches[_mma(variant)]
+        got = wrapper(re, im, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.variant_launches[_mma(variant)] == before + 1
+        # K3 rounds its input to a bf16 state under every engine.
+        want = fused_cuda.fused_fft_reference(
+            re, im, round_input=True if wrapper is k3 else None, **kw)
+        _hold(got, want, bf16, **_bound(state, 1e-3))
+    if "first_dot" in knobs:
+        return  # K4's passes run the plain first stage
+    x = (re.reshape(1, 8, n), im.reshape(1, 8, n))
+    row = dict(radices2=radices, scales2=kw["scales"], sign=-1,
+               algorithm=kw["algorithm"], **knobs)
+    before = four_step_cuda.fft2_row_pass.variant_launches[_mma(variant)]
+    got = four_step_cuda.fft2_row_pass(*x, **row)
+    torch.cuda.synchronize()
+    assert four_step_cuda.fft2_row_pass.variant_launches[_mma(variant)] == before + 1
+    _hold(got, four_step_cuda.fft2_row_pass_reference(*x, **row), bf16,
+          **_bound(state, FOUR_STEP_MAX_FRAC))
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+def test_batch_major_bitwise_kernel_a_every_tile(cuda, n, precision):
+    # Every rows-per-CTA count the planner picks at n: K3 equals kernel A
+    # bit for bit, each output summed in the same k-chunk order.
+    plan = tt.create_plan(n, precision=precision)
+    kw = dict(radices=plan.radices, scales=stage_scales(plan.radices, "forward", True),
+              algorithm=plan.precision.dot_algorithm, first_dot=plan.first_dot)
+    tiles = set()
+    for b in (1, 2, 4, 8, 16, 32, 64, 96):
+        re, im = _planes(b, n, plan.precision.storage_dtype, cuda, seed=b)
+        tiles.add(four_step_cuda.batch_major_lanes(n, b))
+        _bitwise(four_step_cuda.fused_fft_batch_major(re, im, **kw),
+                 fused_cuda.fused_fft(re, im, **kw))
+    assert tiles == ({1, 2, 4, 8, 16, 32} if n == 512 else {1, 2, 4})
