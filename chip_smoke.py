@@ -8,8 +8,9 @@ first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills)
      and fails unless every line of ``csrc/ptxas_reference.txt`` (each
-     kernel outside kernel A's one-CTA kernel and the one-CTA in-place row
-     pass, as built before the tensor-core engine) is in it unchanged;
+     kernel outside the tensor-core engine: the cluster twins, the scalar
+     column pass kept as the cluster's bitwise reference and the R2C
+     epilogue kernels, as built before that engine) is in it unchanged;
   2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
@@ -68,7 +69,8 @@ first use, one process per source), then:
             variant is held against its plain version (at 2^27 on the
             first 2^22 outputs), each plan passes the gate and the round
             trip, kernel A on 2 CTAs must equal the one-CTA scalar engine
-            bit for bit at N=16384, and a plan past 8 CTAs must be refused;
+            (a private launcher) bit for bit at N=16384, and a plan past 8
+            CTAs must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -96,14 +98,17 @@ first use, one process per source), then:
      four-step pass's one call is the whole transform's ``torch.fft.fft``
      (``rfft``/``irfft`` on the R2C route) at its shape.
 
-Kernel A, K3 and K4's row pass run their one-CTA calls on the tensor-core
-engine (``csrc/fft_mma.cuh``); their launch counters name it (``mma``:
-``fused_fft[mma]``, ``fused_fft[grouped,mma]``, ``fft2_row[mma]``,
-``fused_fft_batch_major[planar_vpu,mma]``, ...), and each call of a path
+Every kernel's one-CTA calls run on the tensor-core engine
+(``csrc/fft_mma.cuh``): kernel A, K3 and K4's row pass, and since the
+four-step passes moved there kernels B and C, K4's column pass, K5 and K6
+(``csrc/four_step_tc.cuh``).  Their launch counters name it (``mma``:
+``fused_fft[mma]``, ``four_step_col[mma]``, ``fft2_col[grouped,mma]``,
+``four_step_row_interleave[planar,mma]``, ...), and each call of a path
 must launch exactly those variants.  The cluster twins keep the scalar
 engine: kernel A on 2 CTAs is held bit for bit against the one-CTA scalar
-engine (K4's column pass over the rows viewed as (B, N, 1) columns) and
-against one-CTA kernel A at the fused bound.
+engine (K4's column pass over the rows viewed as (B, N, 1) columns, on the
+scalar engine through its private launcher), and against one-CTA kernel A
+at the fused bound and one-CTA K4c at the four-step bound.
 
 The second-to-last lines are a JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -179,9 +184,9 @@ FLUSH_BYTES = 256 << 20
 KERNELS = {
     "fused_fft[mma]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
                   "tensorfft_tpu/ops/fused_pallas.py:971"),
-    "four_step_col": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+    "four_step_col[mma]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:465"),
-    "four_step_row": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
+    "four_step_row[mma]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:551"),
     "pack_split": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
                    "tensorfft_tpu/ops/rfft_pallas.py:236"),
@@ -191,11 +196,11 @@ KERNELS = {
                      "tensorfft_tpu/ops/rfft_pallas.py:421"),
     "retangle_inv": ("tensorfft_tpu_torch/csrc/rfft_epilogue.cu",
                      "tensorfft_tpu/ops/rfft_pallas.py:513"),
-    "four_step_col_packed": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
+    "four_step_col_packed[mma]": ("tensorfft_tpu_torch/csrc/four_step_real.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:943"),
-    "four_step_row_interleave": ("tensorfft_tpu_torch/csrc/four_step_real_row.cu",
+    "four_step_row_interleave[mma]": ("tensorfft_tpu_torch/csrc/four_step_real_row.cu",
                                  "tensorfft_tpu/ops/four_step_pallas.py:1229"),
-    "fft2_col": ("tensorfft_tpu_torch/csrc/fft2.cu",
+    "fft2_col[mma]": ("tensorfft_tpu_torch/csrc/fft2.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:646"),
     "fft2_row[mma]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                  "tensorfft_tpu/ops/four_step_pallas.py:677"),
@@ -205,11 +210,11 @@ KERNELS = {
                           "tensorfft_tpu/ops/fused_pallas.py:971"),
     "fused_fft[planar_vpu,mma]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
                               "tensorfft_tpu/ops/fused_pallas.py:971"),
-    "four_step_col[planar]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
+    "four_step_col[planar,mma]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:465"),
-    "four_step_row[planar]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
+    "four_step_row[planar,mma]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
                               "tensorfft_tpu/ops/four_step_pallas.py:551"),
-    "fft2_col[planar_vpu]": ("tensorfft_tpu_torch/csrc/fft2.cu",
+    "fft2_col[planar_vpu,mma]": ("tensorfft_tpu_torch/csrc/fft2.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:646"),
     "fft2_row[planar_vpu,mma]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                              "tensorfft_tpu/ops/four_step_pallas.py:677"),
@@ -235,26 +240,26 @@ TPU_KERNELS = {
     "fused_fft[bf16_state,mma]": _FUSED,
     "fused_fft[pretwiddle,mma]": _FUSED,
     "fused_fft[gridslice,mma]": (_FUSED[0], "tensorfft_tpu/ops/fused_pallas.py:923"),
-    "four_step_col[grouped,bf16_state]": _COL,
-    "four_step_row[grouped,bf16_state]": _ROW,
-    "four_step_col[mult3,bf16_state]": _COL,
-    "four_step_row[mult3,bf16_state]": _ROW,
-    "four_step_row[mult3]": _ROW,
-    "four_step_col[pretwiddle]": _COL,
-    "four_step_row[pretwiddle]": _ROW,
-    "four_step_col[gridslice16]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:422"),
-    "four_step_row[gridslice16]": (_ROW[0], "tensorfft_tpu/ops/four_step_pallas.py:516"),
-    "four_step_col[gridslice]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:1147"),
-    "fft2_col[grouped]": ("tensorfft_tpu_torch/csrc/fft2.cu",
+    "four_step_col[grouped,bf16_state,mma]": _COL,
+    "four_step_row[grouped,bf16_state,mma]": _ROW,
+    "four_step_col[mult3,bf16_state,mma]": _COL,
+    "four_step_row[mult3,bf16_state,mma]": _ROW,
+    "four_step_row[mult3,mma]": _ROW,
+    "four_step_col[pretwiddle,mma]": _COL,
+    "four_step_row[pretwiddle,mma]": _ROW,
+    "four_step_col[gridslice16,mma]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:422"),
+    "four_step_row[gridslice16,mma]": (_ROW[0], "tensorfft_tpu/ops/four_step_pallas.py:516"),
+    "four_step_col[gridslice,mma]": (_COL[0], "tensorfft_tpu/ops/four_step_pallas.py:1147"),
+    "fft2_col[grouped,mma]": ("tensorfft_tpu_torch/csrc/fft2.cu",
                           "tensorfft_tpu/ops/four_step_pallas.py:646"),
     "fft2_row[grouped,mma]": ("tensorfft_tpu_torch/csrc/fft2_row.cu",
                           "tensorfft_tpu/ops/four_step_pallas.py:677"),
     "fused_fft_batch_major[grouped,mma]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
                                        "tensorfft_tpu/ops/four_step_pallas.py:768"),
-    "four_step_col_packed[grouped,bf16_state]": _PACKED,
-    "four_step_row_interleave[grouped,bf16_state]": _INTERLEAVE,
-    "four_step_col_packed[planar]": _PACKED,
-    "four_step_row_interleave[planar]": _INTERLEAVE,
+    "four_step_col_packed[grouped,bf16_state,mma]": _PACKED,
+    "four_step_row_interleave[grouped,bf16_state,mma]": _INTERLEAVE,
+    "four_step_col_packed[planar,mma]": _PACKED,
+    "four_step_row_interleave[planar,mma]": _INTERLEAVE,
 }
 KERNELS.update(TPU_KERNELS)
 # The tuner cache of the tuned-plan path, bf16, platform "cuda".  The
@@ -277,7 +282,7 @@ TUNED_CALLS = [
     ("planar N=16384", 16384, 4096, "auto", {"fused_fft[planar,mma]": 2}),
     ("planar_vpu N=4096", 4096, 4096, "auto", {"fused_fft[planar_vpu,mma]": 2}),
     ("planar N=2^23", 1 << 23, 2, "auto",
-     {"four_step_col[planar]": 2, "four_step_row[planar]": 2}),
+     {"four_step_col[planar,mma]": 2, "four_step_row[planar,mma]": 2}),
     ("batch_major N=512", 512, 262144, "batch_major",
      {"fused_fft_batch_major[mma]": 2}),
     ("batch_major N=4096", 4096, 256, "batch_major",
@@ -336,42 +341,42 @@ TPU_CALLS = [
     ("K1 grouped N=4096 auto", "c2c", 4096, 4096, "bfloat16", "auto",
      {"fused_fft[grouped,mma]": 2}),
     ("K4 grouped 4096x4096 auto", "fftn", 4096, 1, "bfloat16", "auto",
-     {"fft2_col[grouped]": 2, "fft2_row[grouped,mma]": 2}),
+     {"fft2_col[grouped,mma]": 2, "fft2_row[grouped,mma]": 2}),
     ("K3 grouped N=4096 auto", "batch_major", 4096, 256, "bfloat16", "auto",
      {"fused_fft_batch_major[grouped,mma]": 2}),
     ("K1 grouped p=4 N=512", "c2c", 512, 4096, "bfloat16", TPU_ENTRIES[512],
      {"fused_fft[grouped,mma]": 2}),
     ("K2 grouped bf16 state N=2^20", "c2c", 1 << 20, 16, "bfloat16",
-     TPU_ENTRIES[1 << 20], {"four_step_col[grouped,bf16_state]": 2,
-                            "four_step_row[grouped,bf16_state]": 2}),
+     TPU_ENTRIES[1 << 20], {"four_step_col[grouped,bf16_state,mma]": 2,
+                            "four_step_row[grouped,bf16_state,mma]": 2}),
     ("K2 mult3 bf16 state N=32768", "c2c", 32768, 512, "bfloat16",
-     TPU_ENTRIES[32768], {"four_step_col[mult3,bf16_state]": 2,
-                          "four_step_row[mult3,bf16_state]": 2}),
+     TPU_ENTRIES[32768], {"four_step_col[mult3,bf16_state,mma]": 2,
+                          "four_step_row[mult3,bf16_state,mma]": 2}),
     ("K2 mult3 N=2^24", "c2c", 1 << 24, 1, "bfloat16", TPU_ENTRIES[1 << 24],
-     {"four_step_col": 2, "four_step_row[mult3]": 2}),
+     {"four_step_col[mma]": 2, "four_step_row[mult3,mma]": 2}),
     ("pretwiddle N=16384", "c2c", 16384, 4096, "bfloat16",
      dict(TPU_ENTRIES[16384], engine="pretwiddle"), {"fused_fft[pretwiddle,mma]": 2}),
     ("pretwiddle N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      dict(TPU_ENTRIES[1 << 20], engine="pretwiddle", state_dtype="float32"),
-     {"four_step_col[pretwiddle]": 2, "four_step_row[pretwiddle]": 2}),
+     {"four_step_col[pretwiddle,mma]": 2, "four_step_row[pretwiddle,mma]": 2}),
     ("K1a gridslice N=16384", "c2c", 16384, 4096, "bfloat16",
      {"strategy": "fused", "radices": [128, 128], "engine": "gridslice"},
      {"fused_fft[gridslice,mma]": 2}),
     ("K2cg K2rg gridslice16 N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      {"strategy": "four_step", "four_step_split": [1024, 1024], "engine": "gridslice16"},
-     {"four_step_col[gridslice16]": 2, "four_step_row[gridslice16]": 2}),
+     {"four_step_col[gridslice16,mma]": 2, "four_step_row[gridslice16,mma]": 2}),
     ("K5 K6 grouped bf16 state real N=2^21", "r2c", 1 << 21, 16, "bfloat16",
      TPU_ENTRIES[1 << 20],
-     {"four_step_col_packed[grouped,bf16_state]": 1,
-      "four_step_row[grouped,bf16_state]": 1, "four_step_col[grouped,bf16_state]": 1,
-      "four_step_row_interleave[grouped,bf16_state]": 1, **dict.fromkeys(_R2C, 1)}),
+     {"four_step_col_packed[grouped,bf16_state,mma]": 1,
+      "four_step_row[grouped,bf16_state,mma]": 1, "four_step_col[grouped,bf16_state,mma]": 1,
+      "four_step_row_interleave[grouped,bf16_state,mma]": 1, **dict.fromkeys(_R2C, 1)}),
     ("K6g gridslice real N=2^21", "r2c", 1 << 21, 16, "bfloat16",
      {"strategy": "four_step", "four_step_split": [1024, 1024], "engine": "gridslice"},
-     {"four_step_col_packed": 1, "four_step_row": 1, "four_step_col[gridslice]": 1,
-      "four_step_row_interleave": 1, **dict.fromkeys(_R2C, 1)}),
+     {"four_step_col_packed[mma]": 1, "four_step_row[mma]": 1, "four_step_col[gridslice,mma]": 1,
+      "four_step_row_interleave[mma]": 1, **dict.fromkeys(_R2C, 1)}),
     ("K5 K6 planar real N=2^24", "r2c", 1 << 24, 2, "bfloat16", TPU_ENTRIES[1 << 23],
-     {"four_step_col_packed[planar]": 1, "four_step_row[planar]": 1,
-      "four_step_col[planar]": 1, "four_step_row_interleave[planar]": 1,
+     {"four_step_col_packed[planar,mma]": 1, "four_step_row[planar,mma]": 1,
+      "four_step_col[planar,mma]": 1, "four_step_row_interleave[planar,mma]": 1,
       **dict.fromkeys(_R2C, 1)}),
     ("K1 grouped mult3 float32 N=16384", "c2c", 16384, 256, "float32",
      {"strategy": "fused", "radices": [64, 256], "grouped": True,
@@ -403,10 +408,10 @@ BIGN_CALLS = [
       "complex_mult": "mult3"}, {"fused_fft[mult3,cluster4]": 2}),
     ("K2r cluster N=2^27 (4096, 32768)", "c2c", 1 << 27, 1, "bfloat16",
      {"strategy": "four_step", "four_step_split": [4096, 32768]},
-     {"four_step_col": 2, "four_step_row[cluster2]": 2}),
+     {"four_step_col[mma]": 2, "four_step_row[cluster2]": 2}),
     ("K2c cluster N=2^27 (32768, 4096)", "c2c", 1 << 27, 1, "bfloat16",
      {"strategy": "four_step", "four_step_split": [32768, 4096]},
-     {"four_step_col[cluster2]": 2, "four_step_row": 2}),
+     {"four_step_col[cluster2]": 2, "four_step_row[mma]": 2}),
     ("K1 bf16x6 mult3 N=16384", "c2c", 16384, 256, "float32_x6",
      dict(TPU_ENTRIES[16384], complex_mult="mult3"),
      {"fused_fft[grouped,mult3,cluster2]": 2}),
@@ -447,9 +452,9 @@ TPU_BITWISE = ("pretwiddle N=16384", "pretwiddle N=2^20", "K1a gridslice N=16384
                "K2cg K2rg gridslice16 N=2^20", "K6g gridslice real N=2^21")
 # Rows held against the plain versions where a call's input is larger.
 TPU_HOLD_ROWS = 256
-R2C_KERNELS = ("fused_fft[mma]", "four_step_col", "four_step_row", "pack_split",
+R2C_KERNELS = ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]", "pack_split",
                "interleave_split", "untangle_fwd", "retangle_inv",
-               "four_step_col_packed", "four_step_row_interleave")
+               "four_step_col_packed[mma]", "four_step_row_interleave[mma]")
 
 
 def log(msg: str) -> None:
@@ -492,9 +497,9 @@ def ptxas_summary(build_log: str) -> list[str]:
 
 
 def ptxas_identity(summary: list[str]) -> None:
-    """Fail unless every line of PTXAS_REFERENCE (the kernels outside kernel
-    A's one-CTA kernel and the one-CTA in-place row pass, as built before
-    the tensor-core engine) is in this build's summary, as often."""
+    """Fail unless every line of PTXAS_REFERENCE (the kernels outside the
+    tensor-core engine, as built before it) is in this build's summary, as
+    often."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), PTXAS_REFERENCE)
     with open(path) as f:
         ref = collections.Counter(l.strip() for l in f
@@ -580,7 +585,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     log(f"[build] {time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    summary = ptxas_summary(_build.build_log())
+    build_log = _build.build_log()
+    log("[build] per source: " + ", ".join(
+        l[len("[nvcc] "):] for l in build_log.splitlines() if l.startswith("[nvcc] ")))
+    summary = ptxas_summary(build_log)
     for line in summary:
         log(line)
     ptxas_identity(summary)
@@ -635,8 +643,7 @@ def main() -> int:
 
     def launch_counts():
         """Launches per kernel, a wrapper that takes an engine counted per
-        variant (``fused_cuda.variant``): ``name`` for the stacked engine
-        without knobs, ``name[variant]`` else."""
+        variant (``fused_cuda.variant``) as ``name[variant]``."""
         counts = dict.fromkeys(KERNELS, 0)
         for name, w in wrappers.items():
             per_variant = getattr(w, "variant_launches", None)
@@ -644,7 +651,7 @@ def main() -> int:
                 counts[name] = w.launches
                 continue
             for v, c in per_variant.items():
-                counts[name if v == "stacked" else f"{name}[{v}]"] = c
+                counts[f"{name}[{v}]"] = c
         return counts
 
     def counted(path, required, drive):
@@ -681,7 +688,7 @@ def main() -> int:
         data[label] = (tt.create_plan(n), *inputs(n, b, torch.bfloat16,
                                                   SEED + n + b))
     outputs = counted(
-        "c2c", ("fused_fft[mma]", "four_step_col", "four_step_row"),
+        "c2c", ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]"),
         lambda: {label: tt.fft_split(re_, im_, plan)
                  for label, (plan, re_, im_) in data.items()})
     for label, (o_re, o_im) in outputs.items():
@@ -724,7 +731,7 @@ def main() -> int:
         return conv, spec, back, tt.fftn_split(*volume)
 
     conv2d, spec2d, back2d, vol_spec = counted(
-        "nd", ("fft2_col", "fft2_row[mma]", "fused_fft[mma]"), drive_nd)
+        "nd", ("fft2_col[mma]", "fft2_row[mma]", "fused_fft[mma]"), drive_nd)
     finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
     finite("fftn_split 3-D", vol_spec, ND_VOLUME, torch.bfloat16)
@@ -776,10 +783,10 @@ def main() -> int:
             continue
         kw, common, col, row = pass_kwargs(plan, True)
         mid_plain = four_step_cuda.column_pass_reference(re_, im_, **col)
-        hold("four_step_col", label,
+        hold("four_step_col[mma]", label,
              four_step_cuda.column_pass(re_, im_, **col), mid_plain,
              FOUR_STEP_MAX_FRAC)
-        hold("four_step_row", label,
+        hold("four_step_row[mma]", label,
              four_step_cuda.row_pass(*mid_plain, **row),
              four_step_cuda.row_pass_reference(*mid_plain, **row),
              FOUR_STEP_MAX_FRAC)
@@ -810,12 +817,12 @@ def main() -> int:
             _, _, _, row = pass_kwargs(plan, False)
             Z = four_step_cuda.four_step_fft_packed_real(
                 x, **four_step_call_kwargs(plan, True))
-            hold("four_step_col_packed", label,
+            hold("four_step_col_packed[mma]", label,
                  four_step_cuda.column_pass_packed(x, **col),
                  four_step_cuda.column_pass_packed_reference(x, **col),
                  FOUR_STEP_MAX_FRAC)
             mid = four_step_cuda.column_pass(*z, **pass_kwargs(plan, False)[2])
-            hold("four_step_row_interleave", label,
+            hold("four_step_row_interleave[mma]", label,
                  [four_step_cuda.row_pass_interleave(*mid, **row)],
                  [four_step_cuda.row_pass_interleave_reference(*mid, **row)],
                  FOUR_STEP_MAX_FRAC)
@@ -856,11 +863,11 @@ def main() -> int:
             _, _, col, _ = pass_kwargs(plan, True)
             _, _, inv_col, row = pass_kwargs(plan, False)
             Z = four_step_cuda.column_pass_packed(x, **col)
-            hold("four_step_col_packed", tag, Z,
+            hold("four_step_col_packed[mma]", tag, Z,
                  four_step_cuda.column_pass_packed_reference(x, **col), bf16=False)
             Z = four_step_cuda.row_pass(*Z, **pass_kwargs(plan, True)[3])
             mid = four_step_cuda.column_pass(*z, **inv_col)
-            hold("four_step_row_interleave", tag,
+            hold("four_step_row_interleave[mma]", tag,
                  [four_step_cuda.row_pass_interleave(*mid, **row)],
                  [four_step_cuda.row_pass_interleave_reference(*mid, **row)],
                  bf16=False)
@@ -892,7 +899,7 @@ def main() -> int:
         output; returns that output.  ``suffix`` names the engine's kernels
         (``[planar_vpu]``)."""
         mid = four_step_cuda.fft2_column_pass_reference(*x, **col_kw)
-        hold("fft2_col" + suffix, label,
+        hold(f"fft2_col[{suffix[1:-1] + ',' if suffix else ''}mma]", label,
              four_step_cuda.fft2_column_pass(*x, **col_kw), mid,
              FOUR_STEP_MAX_FRAC, bf16)
         hold(f"fft2_row[{suffix[1:-1] + ',' if suffix else ''}mma]", label,
@@ -1071,7 +1078,7 @@ def main() -> int:
     # with the planar_vpu engine) and n=16384's default radices under planar.
     tuned_in = {label: inputs(n_t, b_t, torch.bfloat16, SEED + 11 + i)
                 for i, (label, n_t, b_t, _, _) in enumerate(TUNED_CALLS)}
-    k4_tuned = {"fft2_col[planar_vpu]": 2, "fft2_row[planar_vpu,mma]": 2}
+    k4_tuned = {"fft2_col[planar_vpu,mma]": 2, "fft2_row[planar_vpu,mma]": 2}
 
     def expect(label, before, want):
         """Fail unless the launches since ``before`` are exactly ``want``."""
@@ -1140,9 +1147,9 @@ def main() -> int:
             _, _, col, row = pass_kwargs(plan, True)
             col, row = dict(col, engine=plan.engine), dict(row, engine=plan.engine)
             mid_plain = four_step_cuda.column_pass_reference(*x, **col)
-            hold(f"four_step_col[{plan.engine}]", label,
+            hold(f"four_step_col[{plan.engine},mma]", label,
                  four_step_cuda.column_pass(*x, **col), mid_plain, FOUR_STEP_MAX_FRAC)
-            hold(f"four_step_row[{plan.engine}]", label,
+            hold(f"four_step_row[{plan.engine},mma]", label,
                  four_step_cuda.row_pass(*mid_plain, **row),
                  four_step_cuda.row_pass_reference(*mid_plain, **row),
                  FOUR_STEP_MAX_FRAC)
@@ -1559,21 +1566,23 @@ def main() -> int:
                                     device_inputs)
     # The exchange logic alone: a row one CTA holds, on a cluster of two
     # through the private launcher, equals the one-CTA scalar engine bit for
-    # bit.  One-CTA kernel A runs the tensor cores, another summation order,
-    # so the bitwise reference is K4's column pass over the rows viewed as
-    # (B, N, 1): run_fft, one CTA per row, the same plan, the order every
-    # cluster output follows.  One-CTA kernel A is held against the cluster
-    # at the fused bound.
+    # bit.  Every one-CTA pass runs the tensor cores, another summation
+    # order, so the bitwise reference is K4's column pass over the rows
+    # viewed as (B, N, 1) on the scalar engine through its private launcher
+    # (run_fft, one CTA per row, the same plan, the order every cluster
+    # output follows).  One-CTA kernel A is held against the cluster at the
+    # fused bound, one-CTA K4c (tensor cores) at the four-step bound.
     x16 = inputs(16384, 256, torch.bfloat16, SEED + 60)
     kw16 = dict(radices=(128, 128), scales=stage_scales((128, 128), "forward", True),
                 sign=-1, algorithm="bf16", first_dot="default", engine="stacked",
                 grouped=False, complex_mult="block", state_dtype="float32")
     cl16 = fused_cuda._launch_fused(*x16, cluster=2, **kw16)
-    col16 = four_step_cuda.fft2_column_pass(
-        *(t.reshape(256, 16384, 1) for t in x16), radices1=kw16["radices"],
-        scales1=kw16["scales"], sign=-1, algorithm="bf16")
+    cols16 = tuple(t.reshape(256, 16384, 1) for t in x16)
+    k4c16 = dict(radices1=kw16["radices"], scales1=kw16["scales"], sign=-1,
+                 algorithm="bf16")
+    col16 = four_step_cuda._fft2_column_pass_scalar(*cols16, **k4c16)
     bitwise("fused_fft[cluster2]", "N=16384 x B=256 on 2 CTAs vs the one-CTA scalar "
-            "engine (K4 column pass over (B, N, 1))", cl16,
+            "engine (K4 column pass over (B, N, 1), private launcher)", cl16,
             [t.reshape(256, 16384) for t in col16])
     a16 = agreement([c.float().cpu() for c in cl16],
                     [t.float().cpu() for t in fused_cuda.fused_fft(*x16, **kw16)],
@@ -1581,6 +1590,14 @@ def main() -> int:
     log(f"[bign] N=16384 x B=256 on 2 CTAs vs one-CTA kernel A (tensor cores): {a16}")
     if not a16.within(FUSED_MAX_FRAC):
         raise RuntimeError(f"kernel A on 2 CTAs and on one CTA disagree: {a16}")
+    c16 = agreement([c.float().cpu() for c in cl16],
+                    [t.reshape(256, 16384).float().cpu()
+                     for t in four_step_cuda.fft2_column_pass(*cols16, **k4c16)],
+                    bf16=True)
+    log(f"[bign] N=16384 x B=256 on 2 CTAs vs one-CTA K4c over (B, N, 1) "
+        f"(tensor cores): {c16}")
+    if not c16.within(FOUR_STEP_MAX_FRAC):
+        raise RuntimeError(f"kernel A on 2 CTAs and one-CTA K4c disagree: {c16}")
     del x16, cl16, col16
     # Past a cluster of 8 CTAs a plan is refused, before any launch.
     big = tt.create_plan(1 << 18, max_fused_length=1 << 18)
@@ -1687,16 +1704,17 @@ def main() -> int:
         pq = 2 * 4 * (kwargs["n1"] * kwargs["n2"] // min(kwargs["lane_tile"], kwargs["n2"])
                       + kwargs["n1"] * min(kwargs["lane_tile"], kwargs["n2"]))
         for name, fn, ref, args, kw_pass, radices, scales, extra in (
-                ("four_step_col", four_step_cuda.column_pass,
+                ("four_step_col[mma]", four_step_cuda.column_pass,
                  four_step_cuda.column_pass_reference, (re_, im_), col,
                  kwargs["radices1"], kwargs["scales1"], pq),
-                ("four_step_row", four_step_cuda.row_pass,
+                ("four_step_row[mma]", four_step_cuda.row_pass,
                  four_step_cuda.row_pass_reference, mid, row,
                  kwargs["radices2"], kwargs["scales2"], 0)):
             tk = measure(lambda r, i: fn(r, i, **kw_pass), args, iters=10)
             tp = measure(lambda r, i: ref(r, i, **kw_pass), args, iters=5)
             kernel_ms[name] = (tk.average_time_ms, tp.average_time_ms)
-            nbytes = 4 * item * elems + extra + table_bytes(plan, radices, scales, -1)
+            nbytes = 4 * item * elems + extra + table_bytes(plan, radices, scales, -1,
+                                                            mma=True)
             b_ms, b_by = bound(nbytes, pass_flops(plan, radices, elems), H100.bf16_flops)
             # The pass's one call: the whole transform's torch.fft.fft.
             timing[name] = dict(ms=tk.average_time_ms, plain_ms=tp.average_time_ms,
@@ -1766,19 +1784,21 @@ def main() -> int:
             n1, n2 = col["n1"], col["n2"]
             t = min(col["lane_tile"], n2)
             pq = 2 * 4 * (n1 * n2 // t + n1 * t)
-            time_r2c("four_step_col_packed", label,
+            time_r2c("four_step_col_packed[mma]", label,
                      lambda v: four_step_cuda.column_pass_packed(v, **col),
                      lambda v: four_step_cuda.column_pass_packed_reference(v, **col),
                      None, (x,),
                      4 * s * elems + pq + table_bytes(plan, col["radices1"],
-                                                      col["scales1"], col["sign"]),
+                                                      col["scales1"], col["sign"],
+                                                      mma=True),
                      pass_flops(plan, col["radices1"], elems), H100.bf16_flops)
-            time_r2c("four_step_row_interleave", label,
+            time_r2c("four_step_row_interleave[mma]", label,
                      lambda r, i: four_step_cuda.row_pass_interleave(r, i, **row),
                      lambda r, i: four_step_cuda.row_pass_interleave_reference(r, i, **row),
                      None, a["mid"],
                      4 * s * elems + table_bytes(plan, row["radices2"],
-                                                 row["scales2"], row["sign"]),
+                                                 row["scales2"], row["sign"],
+                                                 mma=True),
                      pass_flops(plan, row["radices2"], elems), H100.bf16_flops)
             # What the fused load and store maps cost: kernels B and C on the
             # same shape, with the planes already packed.
@@ -1825,7 +1845,7 @@ def main() -> int:
     x_c = torch.complex(planes2d[0].float(), planes2d[1].float())
     elems = h * w
     for name, fn, ref, args, kw, plan, dim in (
-            ("fft2_col", four_step_cuda.fft2_column_pass,
+            ("fft2_col[mma]", four_step_cuda.fft2_column_pass,
              four_step_cuda.fft2_column_pass_reference, x3, k4_col, ph, -2),
             ("fft2_row[mma]", four_step_cuda.fft2_row_pass,
              four_step_cuda.fft2_row_pass_reference, k4_mid, k4_row, pw, -1)):
@@ -1922,12 +1942,12 @@ def main() -> int:
                     ("four_step_row", four_step_cuda.row_pass,
                      four_step_cuda.row_pass_reference, mid, row,
                      row["radices2"], row["scales2"], 0)):
-                time_kernel(f"{pname}[{plan.engine}]", shape,
+                time_kernel(f"{pname}[{plan.engine},mma]", shape,
                             lambda r, i, fn=fn, kw=kw_pass: fn(r, i, **kw),
                             lambda r, i, ref=ref, kw=kw_pass: ref(r, i, **kw),
                             None, args,
                             4 * 2 * elems + extra_bytes
-                            + table_bytes(plan, radices, scales, -1),
+                            + table_bytes(plan, radices, scales, -1, mma=True),
                             pass_flops(plan, radices, elems))
             t_all = measure(lambda r, i: tt.fft_split(r, i, plan), x, iters=10)
             t_lib = measure(*library, iters=10)
@@ -1956,7 +1976,7 @@ def main() -> int:
     x3 = tuple(p.reshape(1, h, w) for p in planes2d)
     x_c = torch.complex(planes2d[0].float(), planes2d[1].float())
     for name, fn, ref, args, kw, dim in (
-            ("fft2_col", four_step_cuda.fft2_column_pass,
+            ("fft2_col[mma]", four_step_cuda.fft2_column_pass,
              four_step_cuda.fft2_column_pass_reference, x3, col_t, -2),
             ("fft2_row[mma]", four_step_cuda.fft2_row_pass,
              four_step_cuda.fft2_row_pass_reference, k4t_mid, row_t, -1)):

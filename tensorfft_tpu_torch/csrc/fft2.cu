@@ -1,17 +1,18 @@
 // Entry point of the 2D row-column FFT's column pass on (B, H, W) planes
-// (the row pass is fft2_row.cu): the two passes of K4, tensorfft_tpu/ops/four_step_pallas.py:fft2_fused, as the kTwiddle =
-// false column pass and the kTransposed = false row pass of
-// four_step_passes.cuh.
+// (the row pass is fft2_row.cu): the two passes of K4,
+// tensorfft_tpu/ops/four_step_pallas.py:fft2_fused, as the kTwiddle = false
+// column pass and the in-place row pass of four_step_passes.cuh.
 //
-// What bounds them on the H100: as kernels B and C, the scalar-FMA stage
-// products.  Beyond that, the column pass reads and writes H-strided
-// columns, T adjacent columns per CTA (T = 4 at H = W = 4096, so 8-byte runs
-// in bf16, a quarter of a 32-byte sector); the row pass reads rows
-// contiguously and stores them in place in runs of 32/T elements.
+// What bounds them on the H100: as kernels B and C, the stage products, on
+// the tensor cores on one CTA (four_step_tc.cuh).  Beyond that, the column
+// pass reads and writes H-strided columns, T adjacent columns per CTA (T = 4
+// at H = W = 4096, so 8-byte runs in bf16, a quarter of a 32-byte sector);
+// the row pass reads and stores its rows contiguously.
 #include "four_step_passes.cuh"
 
 // Every entry point returns a cudaError_t code (or kErrClusterUnschedulable;
-// cluster: CTAs per column or row, four_step_passes.cuh).  n1 = H, n2 = W.
+// cluster: CTAs per column or row, four_step_passes.cuh; mats: the bf16
+// matrices of a one-CTA pass, col_pass).  n1 = H, n2 = W.
 
 // Column pass: H-point FFTs down every column, no twiddle -> `mid` (B, H, W)
 // in the storage dtype.  Replaces the pallas_call at four_step_pallas.py:646.
@@ -19,9 +20,22 @@ extern "C" int tfft_fft2_col(const void* in_re, const void* in_im,
                              void* mid_re, void* mid_im, int dtype,
                              int data_terms, long long batch, int h, int w,
                              int T, int cluster, const void* tables,
-                             const long long* meta, void* stream) {
+                             const void* mats, const long long* meta,
+                             void* stream) {
   return tfft::col_pass<false, false>(in_re, in_im, mid_re, mid_im, dtype,
                                       data_terms, batch, h, w, T, cluster,
-                                      tables, meta, nullptr, nullptr, 0,
+                                      tables, mats, meta, nullptr, nullptr, 0,
                                       stream);
+}
+
+// The same column pass, one CTA per tile, on the scalar engine
+// (col_pass_scalar): the bitwise reference of kernel A on a cluster.
+extern "C" int tfft_fft2_col_scalar(const void* in_re, const void* in_im,
+                                    void* mid_re, void* mid_im, int dtype,
+                                    int data_terms, long long batch, int h,
+                                    int w, int T, const void* tables,
+                                    const long long* meta, void* stream) {
+  return tfft::col_pass_scalar(in_re, in_im, mid_re, mid_im, dtype,
+                               data_terms, batch, h, w, T, tables, meta,
+                               stream);
 }

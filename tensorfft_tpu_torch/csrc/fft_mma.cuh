@@ -1,6 +1,9 @@
-// Tensor-core stage engine of kernel A (fused_fft_tc.cuh) and of the
-// in-place row pass (row_pass_tc.cuh: K3 and K4's row pass), one CTA per
-// tile (sm_90a).
+// Tensor-core stage engine of every one-CTA pass (sm_90a): kernel A
+// (fused_fft_tc.cuh), the in-place row pass (row_pass_tc.cuh: K3 and K4's
+// row pass), and kernels B and C (four_step_tc.cuh: the four-step column
+// and row passes, K4's column pass, K5's packed column pass and K6's
+// interleaving row pass, through the tile mode of run_fft_tc).  A pass past
+// one CTA runs the scalar engine's cluster mode (fft_stages.cuh).
 //
 // The same stages, twiddles, splits, roundings and knobs as run_fft
 // (fft_stages.cuh), with two product routes in place of its scalar loop:
@@ -46,11 +49,12 @@
 // The route is a static function of the stage (mma_route; the host builds
 // each stage's table in its route's layout, ops/fused_cuda.py:mma_tables).
 //
-// The CTA's transforms are consecutive rows, read in 16-byte loads (bf16
-// rows).  The last stage's outputs go to shared memory first (the operand
-// is free by then), in natural order per transform, and leave from there:
-// a warp's stores are one contiguous run of a row, where the row pass
-// stored 32/T-element runs.
+// Kernel A's and the row pass's transforms are consecutive rows, read in
+// 16-byte loads (bf16 rows); kernels B and C read and write column tiles
+// (T elements per row, in accesses of up to 16 bytes).  The last stage's
+// outputs go to shared memory first (the operand is free by then), in
+// natural order per transform (rows) or per bin (column tiles), and leave
+// from there in contiguous runs.
 #pragma once
 
 #include <cstdint>
@@ -621,33 +625,235 @@ __device__ __forceinline__ void ld_vec(const S* p, float (&x)[16 / sizeof(S)]) {
   }
 }
 
+// Where a CTA's T transforms of n elements lie in global memory (element i
+// of transform lane; a pitch counts complex elements):
+//   kTileRows:  T consecutive rows, re[lane * n + i] and im[lane * n + i];
+//   kTileCols:  T adjacent columns, re[i * pitch + lane] and im[...];
+//   kTilePairs: T adjacent columns of one real array holding (re, im) side
+//               by side, x[2 * (i * pitch + lane) + {0, 1}].
+enum TileLayout { kTileRows = 0, kTileCols = 1, kTilePairs = 2 };
+
+// How a tile run (run_fft_tc with kTile) lays out its input and its
+// output; a kTilePairs side reads or writes only the `re` pointer.
+struct TileMap {
+  int in_layout, out_layout;
+  long long in_pitch, out_pitch;
+};
+
+// An epilogue that leaves the outputs as they are.
+struct NoEpilogue {
+  __device__ __forceinline__ void operator()(int, int, float&, float&) const {}
+};
+
+template <int B>
+struct Bytes;
+template <>
+struct Bytes<16> {
+  using T = uint4;
+};
+template <>
+struct Bytes<8> {
+  using T = uint2;
+};
+template <>
+struct Bytes<4> {
+  using T = unsigned int;
+};
+template <>
+struct Bytes<2> {
+  using T = unsigned short;
+};
+
+// B bytes of S at p (B / sizeof(S) elements), as floats.
+template <typename S, int B>
+__device__ __forceinline__ void ld_floats(const S* p,
+                                          float (&x)[B / sizeof(S)]) {
+  if constexpr (B == 16) {
+    ld_vec<S>(p, x);
+  } else if constexpr (B == 2) {
+    x[0] = __uint_as_float(
+        static_cast<uint32_t>(*reinterpret_cast<const unsigned short*>(p))
+        << 16);
+  } else {
+    uint32_t w[B / 4];
+    if constexpr (B == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+      w[0] = *reinterpret_cast<const unsigned int*>(p);
+    }
+#pragma unroll
+    for (int k = 0; k < B / 4; ++k) {
+      if constexpr (sizeof(S) == 2) {
+        x[2 * k] = lo_bf16(w[k]);
+        x[2 * k + 1] = hi_bf16(w[k]);
+      } else {
+        x[k] = __uint_as_float(w[k]);
+      }
+    }
+  }
+}
+
+// The widest access of 16, 8, 4 or 2 bytes, at least `least`, on which
+// every row of a column tile starts and ends: rows `row_bytes` long,
+// `pitch_bytes` apart from the addresses `at` (the OR of the tile's
+// pointers, and of anything else that must align).  0 where none.
+__device__ __forceinline__ int tile_access(uintptr_t at, long long pitch_bytes,
+                                           int row_bytes, int least) {
+  const unsigned long long a = at | static_cast<unsigned long long>(pitch_bytes) |
+                               static_cast<unsigned>(row_bytes);
+  int w = 16;
+  while (w > least && (a & (w - 1))) w >>= 1;
+  return (a & (w - 1)) ? 0 : w;
+}
+
+// Load a column tile of n rows i (elems = n*T elements) in accesses of B
+// bytes, putting element (i, lane) at operand index i*T + lane:
+// kTileCols reads T elements of re and of im per row, kTilePairs 2T
+// scalars of re.
+template <typename S, int B, bool kPairs, class Put>
+__device__ __forceinline__ void load_cols(const S* re, const S* im,
+                                          long long pitch, int T, int elems,
+                                          const Put& put) {
+  constexpr int E = B / sizeof(S);  // scalars per access
+  const int width = kPairs ? 2 * T : T;
+  const long long row = kPairs ? 2 * pitch : pitch;
+  const int total = kPairs ? 2 * elems : elems;
+  for (int s = threadIdx.x * E; s < total; s += blockDim.x * E) {
+    const int i = s / width, c = s - i * width;
+    const long long at = i * row + c;
+    float x[E];
+    ld_floats<S, B>(re + at, x);
+    if constexpr (kPairs) {
+#pragma unroll
+      for (int k = 0; k < E / 2; ++k) put(s / 2 + k, x[2 * k], x[2 * k + 1]);
+    } else {
+      float y[E];
+      ld_floats<S, B>(im + at, y);
+#pragma unroll
+      for (int k = 0; k < E; ++k) put(s + k, x[k], y[k]);
+    }
+  }
+}
+
+// load_cols at the widest access the tile's alignment allows; a pair tile
+// whose pairs do not align is read element by element.
+template <typename S, bool kPairs, class Put>
+__device__ __forceinline__ void load_tile(const S* re, const S* im,
+                                          long long pitch, int T, int elems,
+                                          const Put& put) {
+  constexpr int kLeast = (kPairs ? 2 : 1) * static_cast<int>(sizeof(S));
+  const uintptr_t at = reinterpret_cast<uintptr_t>(re) |
+                       (kPairs ? 0 : reinterpret_cast<uintptr_t>(im));
+  const int b = tile_access(at, (kPairs ? 2 : 1) * pitch * sizeof(S),
+                            T * kLeast, kLeast);
+  if (b == 16) return load_cols<S, 16, kPairs>(re, im, pitch, T, elems, put);
+  if (b == 8) return load_cols<S, 8, kPairs>(re, im, pitch, T, elems, put);
+  if constexpr (kLeast <= 4) {
+    if (b == 4) return load_cols<S, 4, kPairs>(re, im, pitch, T, elems, put);
+  }
+  if constexpr (kLeast <= 2) {
+    if (b == 2) return load_cols<S, 2, kPairs>(re, im, pitch, T, elems, put);
+  }
+  for (int e = threadIdx.x; e < elems; e += blockDim.x) {
+    const int i = e / T, lane = e - i * T;
+    const long long at2 = 2 * (i * pitch + lane);
+    put(e, to_float(re[at2]), to_float(re[at2 + 1]));
+  }
+}
+
+// Copy staged rows of `width` scalars (`total` in all, from `st`; the im
+// plane `plane` scalars on) to row k at k*pitch of re (and of im with
+// kTwo), in accesses of B bytes.
+template <typename S, int B, bool kTwo>
+__device__ __forceinline__ void store_rows(const S* st, S* re, S* im,
+                                           long long pitch, int width,
+                                           int total, int plane) {
+  using V = typename Bytes<B>::T;
+  constexpr int E = B / sizeof(S);
+  for (int s = threadIdx.x * E; s < total; s += blockDim.x * E) {
+    const int k = s / width, c = s - k * width;
+    const long long at = k * pitch + c;
+    *reinterpret_cast<V*>(re + at) = *reinterpret_cast<const V*>(st + s);
+    if constexpr (kTwo)
+      *reinterpret_cast<V*>(im + at) =
+          *reinterpret_cast<const V*>(st + plane + s);
+  }
+}
+
+// The staged outputs of a tile (kTileCols: planes [re | im] of [k][lane];
+// kTilePairs: [k][lane][re, im]) to their column tile.
+template <typename S, bool kPairs>
+__device__ __forceinline__ void store_tile(const S* st, S* re, S* im,
+                                           long long pitch, int T, int elems) {
+  constexpr int kE = static_cast<int>(sizeof(S));
+  const int width = (kPairs ? 2 : 1) * T;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(re) |
+                       (kPairs ? 0 : reinterpret_cast<uintptr_t>(im)) |
+                       static_cast<uintptr_t>(elems) * kE;
+  const int b = tile_access(at, (kPairs ? 2 : 1) * pitch * kE, width * kE, kE);
+  const long long row = (kPairs ? 2 : 1) * pitch;
+  const int total = (kPairs ? 2 : 1) * elems;
+#define TFFT_STORE_ROWS(B)                                                  \
+  if constexpr (B >= kE) {                                                  \
+    if (b == B)                                                             \
+      return store_rows<S, B, !kPairs>(st, re, im, row, width, total, elems); \
+  }
+  TFFT_STORE_ROWS(16)
+  TFFT_STORE_ROWS(8)
+  TFFT_STORE_ROWS(4)
+  TFFT_STORE_ROWS(2)
+#undef TFFT_STORE_ROWS
+}
+
 // run_fft on the tensor-core engine: the same stage sequence, knobs and
 // roundings, with the matrices from `mats` (bf16, each stage in its route's
 // layout at plan.d_off, in bf16 units) and the twiddles from `tw` (fp32, at
-// plan.w_off).  The CTA's T transforms are T consecutive rows of n
-// elements at in_re/in_im (row `lane` at lane * n), stored in place at
-// out_re/out_im: bf16 rows whose starts are 16-byte aligned move in 16-byte
-// loads and stores; others through the functors
+// plan.w_off).  The block has at least one warp.
+//
+// kTile = false (kernel A, the in-place row pass): the CTA's T transforms
+// are T consecutive rows of n elements at in_re/in_im (row `lane` at
+// lane * n), stored in place at out_re/out_im: bf16 rows whose starts are
+// 16-byte aligned move in 16-byte loads and stores; others through the
+// functors
 //   load(q, idx, re, im): element q of the rows and its operand index,
 //   store(k, lane, re, im): output bin k of row `lane`,
 // which the fp32 kernels keep (moving them onto the row pointers slowed the
-// 16384-point bf16x3 kernel on the H100).  The block has at least one
-// warp; the last stage's outputs are staged in the operand buffer as S,
-// [re | im][lane][k], then stored in that order.
-template <typename S, int BT, int kEngine, class Load, class Store>
+// 16384-point bf16x3 kernel on the H100).  The last stage's outputs are
+// staged in the operand buffer as S, [re | im][lane][k], then stored in
+// that order.
+//
+// kTile = true (kernels B and C, four_step_tc.cuh): the input and output
+// lie as `map` says.  A kTileRows input loads as above (through the
+// functor for fp32 rows); a column tile loads in the widest access its
+// alignment allows, T (or 2T pair) elements per row i.  Each output passes
+// through epi(k, lane, re, im) in fp32, after the bf16 state's rounding and
+// before the one rounding to S (kernel B's four-step twiddle), and is
+// staged as [re | im][k][lane] (kTileCols) or [k][lane][re, im]
+// (kTilePairs), so that the stores are runs of T (2T) elements per bin k.
+// The kTile = false code is kept as it was written before the tile mode:
+// the one-CTA kernels sit at the 128-register cap, and ptxas's spills move
+// with rewrites that compute the same values.
+template <typename S, int BT, int kEngine, class Load, class Store,
+          bool kTile = false, class Epi = NoEpilogue>
 __device__ void run_fft_tc(__nv_bfloat16* op, int n, int T,
                            const StagePlan& plan,
                            const __nv_bfloat16* __restrict__ mats,
                            const float* __restrict__ tw, const Load& load,
                            const Store& store, const S* __restrict__ in_re,
                            const S* __restrict__ in_im, S* __restrict__ out_re,
-                           S* __restrict__ out_im) {
+                           S* __restrict__ out_im, const TileMap& map = {},
+                           const Epi& epi = Epi{}) {
   constexpr int VEC = 16 / sizeof(S);
   const int elems = n * T;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   bool vec = false;
-  if constexpr (sizeof(S) == 2)
+  if constexpr (sizeof(S) == 2 && kTile)
+    vec = n % VEC == 0 && ((reinterpret_cast<uintptr_t>(in_re) |
+                            reinterpret_cast<uintptr_t>(in_im)) & 15) == 0;
+  else if constexpr (sizeof(S) == 2)
     vec = n % VEC == 0 &&
           ((reinterpret_cast<uintptr_t>(in_re) |
             reinterpret_cast<uintptr_t>(in_im) |
@@ -666,7 +872,14 @@ __device__ void run_fft_tc(__nv_bfloat16* op, int n, int T,
     put_stage_operand<BT, kEngine>(op, elems, swz(idx, sw), re, im,
                                    plan.flags[0]);
   };
-  if (vec) {
+  if (kTile && map.in_layout != kTileRows) {
+    if constexpr (kTile) {
+      if (map.in_layout == kTileCols)
+        load_tile<S, false>(in_re, in_im, map.in_pitch, T, elems, put_input);
+      else
+        load_tile<S, true>(in_re, in_im, map.in_pitch, T, elems, put_input);
+    }
+  } else if (vec) {
     for (int q = tid * VEC; q < elems; q += nthr * VEC) {
       float re[VEC], im[VEC];
       ld_vec<S>(in_re + q, re);
@@ -732,9 +945,22 @@ __device__ void run_fft_tc(__nv_bfloat16* op, int n, int T,
           im = bf16_round(im);
         }
         const int kk = g / T;
-        const int at = (g - kk * T) * n + r_out * K + kk;
-        out[at] = from_float<S>(re);
-        out[elems + at] = from_float<S>(im);
+        if constexpr (kTile) {
+          const int lane = g - kk * T, k = r_out * K + kk;
+          epi(k, lane, re, im);
+          const int at = k * T + lane;
+          if (map.out_layout == kTilePairs) {
+            out[2 * at] = from_float<S>(re);
+            out[2 * at + 1] = from_float<S>(im);
+          } else {
+            out[at] = from_float<S>(re);
+            out[elems + at] = from_float<S>(im);
+          }
+        } else {
+          const int at = (g - kk * T) * n + r_out * K + kk;
+          out[at] = from_float<S>(re);
+          out[elems + at] = from_float<S>(im);
+        }
       });
     } else {
       const int R2 = plan.radix[s + 1], K2 = K * R, M2 = M / R2;
@@ -775,7 +1001,12 @@ __device__ void run_fft_tc(__nv_bfloat16* op, int n, int T,
     K *= R;
   }
 
-  if (vec) {
+  if constexpr (kTile) {
+    if (map.out_layout == kTilePairs)
+      store_tile<S, true>(out, out_re, out_im, map.out_pitch, T, elems);
+    else
+      store_tile<S, false>(out, out_re, out_im, map.out_pitch, T, elems);
+  } else if (vec) {
     for (int q = tid * VEC; q < elems; q += nthr * VEC) {
       *reinterpret_cast<uint4*>(out_re + q) =
           *reinterpret_cast<const uint4*>(out + q);

@@ -17,7 +17,8 @@
 // natural-order spectrum with no third pass.
 //
 // The real-to-complex path adds one variant of each, differing only in a
-// load or a store map (the `kPacked` / `kInterleave` template flags):
+// load or a store map (the kPassPairs bit of four_step_tc_kernel, the
+// `kPacked` / `kInterleave` template flags of the cluster twins):
 //   K5 (four_step_pallas.py:four_step_fft_packed_real, pallas_call at :943,
 //   _col_kernel_packed) is kernel B reading the half-length packed view of
 //   a real (B, 2N) row: element (j1, j2) of the even and odd planes is
@@ -34,41 +35,43 @@
 // planes with n1 = H, n2 = W, minus the twiddle and the digit swap:
 //   kTwiddle = false: kernel B stores the column FFTs as `mid` (B, H, W) with
 //   no P/Q product (_col_kernel(twiddle=False));
-//   kTransposed = false: kernel C stores row k1's bin k2 in place at
+//   the in-place row pass: kernel C stores row k1's bin k2 in place at
 //   out[b, k1, k2] (_row_kernel(transposed=False), whose VMEM transpose
-//   restores the (kh, kw) layout).  A warp's 32 outputs are T rows times
-//   32/T consecutive k2, so each row's store is a contiguous run of 32/T
-//   elements, where the transposed store writes runs of T.
+//   restores the (kh, kw) layout; in_place_row.cuh, row_pass_tc.cuh).
 //
-// Every pass runs the plan's stage engine (fft_stages.cuh): stacked, stacked
-// with knobs, or planar (K1b), a template parameter chosen at launch
-// from the plan; folds, roundings and mult3 are per stage.  The JAX
-// package's gridslice passes (K2cg, K2rg and K6's column pass) defer a TPU
-// interleave to strided stores; these passes store every output from
-// registers to its place already, so a gridslice plan runs them unchanged.
+// Every pass runs the plan's stage engine: stacked, stacked with knobs, or
+// planar (K1b), a template parameter chosen at launch from the plan; folds,
+// roundings and mult3 are per stage.  The JAX package's gridslice passes
+// (K2cg, K2rg and K6's column pass) defer a TPU interleave to strided
+// stores; these passes store every output to its place already, so a
+// gridslice plan runs them unchanged.
 //
 // K3 (four_step_pallas.py:fused_fft_batch_major, pallas_call at :768) is the
-// kTransposed = false row pass over a (1, B, N) view: a tile of T adjacent
-// rows per CTA, read row-contiguous and transposed into the shared-memory
-// operand (the TPU's in-VMEM transpose), stored in place; entry point in
-// fused_batch_major.cu.  K3 and K4's row pass run their one-CTA tiles on
-// the tensor-core engine (in_place_row.cuh, fft_mma.cuh), not on
-// row_pass_kernel; their clusters take row_cluster_kernel below.
+// in-place row pass over a (1, B, N) view: a tile of T adjacent rows per
+// CTA, read row-contiguous and transposed into the shared-memory operand
+// (the TPU's in-VMEM transpose), stored in place; entry point in
+// fused_batch_major.cu.
 //
-// What bounds them on the H100: as kernel A, scalar-FMA stage matmuls bound
-// by load-instruction throughput; beyond that, kernel B reads columns
-// strided by n2 and kernel C writes strided by n1.  Each CTA therefore takes
-// T adjacent columns (B) or rows (C), as many as one CTA's n*T <= 16384
-// elements allow (capped at 64), so the strided side moves T contiguous
-// elements per row.  A pass longer than one CTA holds (n > 16384, or bf16x6
-// with mult3's third operand plane at n = 16384) takes one column or row
-// (T = 1) per thread-block cluster of 2, 4 or 8 CTAs (col_cluster_kernel,
-// row_cluster_kernel: the same maps through run_fft_cluster), as the JAX
-// package runs a 32768-point pass in one VMEM panel; every kernel here, K3,
-// K4, K5 and K6 included, takes it.
+// What bounds them on the H100.  A pass that one CTA holds runs on the
+// tensor-core engine (fft_mma.cuh; kernels B and C through
+// four_step_tc.cuh, K3 and K4's row pass through row_pass_tc.cuh): its
+// shared-matrix stages are bf16 mma.sync products, as in kernel A.  Beyond
+// them, kernel B reads and writes columns strided by n2 and kernel C writes
+// strided by n1.  Each CTA therefore takes T adjacent columns (B) or rows
+// (C), as many as one CTA's n*T <= 16384 elements allow (capped at 64), so
+// the strided side moves T contiguous elements per row, in one access of up
+// to 16 bytes (8 bytes at K4's T = 4 in bf16).  A pass longer than one CTA
+// holds (n > 16384, or bf16x6 with mult3's third operand plane at n =
+// 16384) takes one column or row (T = 1) per thread-block cluster of 2, 4 or
+// 8 CTAs on the scalar engine (col_cluster_kernel, row_cluster_kernel below:
+// the same maps through run_fft_cluster), as the JAX package runs a
+// 32768-point pass in one VMEM panel; every kernel here, K3, K4, K5 and K6
+// included, takes it.  col_pass_kernel, the scalar engine on one CTA, is
+// kept for one use: K4's column pass on it (col_pass_scalar) is the bitwise
+// reference of kernel A on a cluster.
 #pragma once
 
-#include "fft_stages.cuh"
+#include "four_step_tc.cuh"
 
 namespace tfft {
 
@@ -114,42 +117,6 @@ __global__ void __launch_bounds__(kThreads)
     mid_im[at] = from_float<S>(o_im);
   };
   run_fft<BT, kEngine>(op, n1, T, plan, tables, load, store);
-}
-
-template <typename S, int BT, bool kInterleave, bool kTransposed, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    row_pass_kernel(const S* __restrict__ mid_re, const S* __restrict__ mid_im,
-                    S* __restrict__ out_re, S* __restrict__ out_im, int n1,
-                    int n2, int T, StagePlan plan,
-                    const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int tiles = n1 / T;
-  const long long b = blockIdx.x / tiles;
-  const int r0 = (blockIdx.x - static_cast<int>(b) * tiles) * T;
-  const long long base = b * n1 * n2;
-  auto load = [&](int qi, int& idx, float& re, float& im) {
-    // q runs along the row (i fastest) so the global read is contiguous.
-    const int lane = qi / n2, i = qi - lane * n2;
-    idx = i * T + lane;
-    const long long at = base + static_cast<long long>(r0 + lane) * n2 + i;
-    re = to_float(mid_re[at]);
-    im = to_float(mid_im[at]);
-  };
-  auto store = [&](int k2, int lane, float re, float im) {
-    const long long at =
-        kTransposed ? base + static_cast<long long>(k2) * n1 + r0 + lane
-                    : base + static_cast<long long>(r0 + lane) * n2 + k2;
-    if constexpr (kInterleave) {
-      // out_re is the real (B, 2N) row; natural bin `at` is a pair.
-      out_re[2 * at] = from_float<S>(re);
-      out_re[2 * at + 1] = from_float<S>(im);
-    } else {
-      out_re[at] = from_float<S>(re);
-      out_im[at] = from_float<S>(im);
-    }
-  };
-  run_fft<BT, kEngine>(op, n2, T, plan, tables, load, store);
 }
 
 // Kernels B and C on a cluster of C CTAs per column or row (T = 1,
@@ -237,75 +204,46 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 
-// One CTA per tile of T columns, or a cluster of `cluster` CTAs per column.
-template <typename S, int BT, bool kPacked, bool kTwiddle, int kEngine>
-int launch_col(const void* in_re, const void* in_im, void* mid_re,
-               void* mid_im, long long batch, int n1, int n2, int T,
-               int cluster, const StagePlan& plan, const float* tables,
-               const float* p, const float* q, int t, cudaStream_t stream) {
-  const int elems = n1 * T / cluster;
-  const int threads = elems < kThreads ? elems : kThreads;
-  const size_t smem = operand_bytes(elems, BT, plan.sum_plane);
-  return launch_stage_kernel(
-      cluster > 1 ? &col_cluster_kernel<S, BT, kPacked, kTwiddle,
-                                        cluster_engine<kEngine>()>
-                  : &col_pass_kernel<S, BT, kPacked, kTwiddle, kEngine>,
-      batch * (n2 / T), threads, smem, cluster, stream,
-      static_cast<const S*>(in_re), static_cast<const S*>(in_im),
-      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan,
-      tables, p, q, t);
-}
-
-// One CTA per tile of T rows, or a cluster of `cluster` CTAs per row.
-template <typename S, int BT, bool kInterleave, bool kTransposed, int kEngine>
-int launch_row(const void* mid_re, const void* mid_im, void* out_re,
-               void* out_im, long long batch, int n1, int n2, int T,
-               int cluster, const StagePlan& plan, const float* tables,
-               cudaStream_t stream) {
-  const int elems = n2 * T / cluster;
-  const int threads = elems < kThreads ? elems : kThreads;
-  const size_t smem = operand_bytes(elems, BT, plan.sum_plane);
-  return launch_stage_kernel(
-      cluster > 1 ? &row_cluster_kernel<S, BT, kInterleave, kTransposed,
-                                        cluster_engine<kEngine>()>
-                  : &row_pass_kernel<S, BT, kInterleave, kTransposed, kEngine>,
-      batch * (n1 / T), threads, smem, cluster, stream,
-      static_cast<const S*>(mid_re), static_cast<const S*>(mid_im),
-      static_cast<S*>(out_re), static_cast<S*>(out_im), n1, n2, T, plan,
-      tables);
-}
-
-// The plan's engine: stacked, stacked with knobs, or planar.
+// Kernel B on a cluster of `cluster` CTAs per column (T = 1), on the
+// cluster twin of the plan's engine.
 template <typename S, int BT, bool kPacked, bool kTwiddle>
-int launch_col_engine(const void* in_re, const void* in_im, void* mid_re,
-                      void* mid_im, long long batch, int n1, int n2, int T,
-                      int cluster, const StagePlan& plan, const float* tables,
-                      const float* p, const float* q, int t,
-                      cudaStream_t stream) {
-#define TFFT_COL_ENGINE(E)                                                  \
-  return launch_col<S, BT, kPacked, kTwiddle, E>(in_re, in_im, mid_re,     \
-                                                 mid_im, batch, n1, n2, T, \
-                                                 cluster, plan, tables, p, \
-                                                 q, t, stream)
-  if (plan.engine == kEngPlanar) TFFT_COL_ENGINE(kEngPlanar);
-  if (plan.engine == kEngKnobs) TFFT_COL_ENGINE(kEngKnobs);
-  TFFT_COL_ENGINE(kEngStacked);
-#undef TFFT_COL_ENGINE
+int launch_col_cluster(const void* in_re, const void* in_im, void* mid_re,
+                       void* mid_im, long long batch, int n1, int n2, int T,
+                       int cluster, const StagePlan& plan, const float* tables,
+                       const float* p, const float* q, int t,
+                       cudaStream_t stream) {
+  const int elems = n1 * T / cluster;
+#define TFFT_COL_CLUSTER(E)                                                  \
+  return launch_stage_kernel(                                                \
+      &col_cluster_kernel<S, BT, kPacked, kTwiddle, cluster_engine<E>()>,    \
+      batch * (n2 / T), elems < kThreads ? elems : kThreads,                 \
+      operand_bytes(elems, BT, plan.sum_plane), cluster, stream,             \
+      static_cast<const S*>(in_re), static_cast<const S*>(in_im),            \
+      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan,     \
+      tables, p, q, t)
+  if (plan.engine == kEngPlanar) TFFT_COL_CLUSTER(kEngPlanar);
+  TFFT_COL_CLUSTER(kEngKnobs);
+#undef TFFT_COL_CLUSTER
 }
 
-template <typename S, int BT, bool kInterleave, bool kTransposed>
-int launch_row_engine(const void* mid_re, const void* mid_im, void* out_re,
-                      void* out_im, long long batch, int n1, int n2, int T,
-                      int cluster, const StagePlan& plan, const float* tables,
-                      cudaStream_t stream) {
-#define TFFT_ROW_ENGINE(E)                                                 \
-  return launch_row<S, BT, kInterleave, kTransposed, E>(                  \
-      mid_re, mid_im, out_re, out_im, batch, n1, n2, T, cluster, plan,    \
-      tables, stream)
-  if (plan.engine == kEngPlanar) TFFT_ROW_ENGINE(kEngPlanar);
-  if (plan.engine == kEngKnobs) TFFT_ROW_ENGINE(kEngKnobs);
-  TFFT_ROW_ENGINE(kEngStacked);
-#undef TFFT_ROW_ENGINE
+// Kernel C on a cluster of `cluster` CTAs per row (T = 1).
+template <typename S, int BT, bool kInterleave>
+int launch_row_cluster(const void* mid_re, const void* mid_im, void* out_re,
+                       void* out_im, long long batch, int n1, int n2, int T,
+                       int cluster, const StagePlan& plan, const float* tables,
+                       cudaStream_t stream) {
+  const int elems = n2 * T / cluster;
+#define TFFT_ROW_CLUSTER(E)                                                  \
+  return launch_stage_kernel(                                                \
+      &row_cluster_kernel<S, BT, kInterleave, true, cluster_engine<E>()>,    \
+      batch * (n1 / T), elems < kThreads ? elems : kThreads,                 \
+      operand_bytes(elems, BT, plan.sum_plane), cluster, stream,             \
+      static_cast<const S*>(mid_re), static_cast<const S*>(mid_im),          \
+      static_cast<S*>(out_re), static_cast<S*>(out_im), n1, n2, T, plan,     \
+      tables)
+  if (plan.engine == kEngPlanar) TFFT_ROW_CLUSTER(kEngPlanar);
+  TFFT_ROW_CLUSTER(kEngKnobs);
+#undef TFFT_ROW_CLUSTER
 }
 
 // T transforms of length n per CTA (cluster == 1), or one per cluster.
@@ -314,14 +252,17 @@ inline bool lanes_ok(int n, int other, int T, int cluster) {
 }
 
 // Launch a column pass for the storage/operand pair of a policy: dtype 0
-// bf16 (with 1 data term), 1 fp32 (with 2 or 3).  p, q and t are read only
-// with kTwiddle.  cluster: CTAs per column (1 with T columns per CTA, else
-// 2, 4 or 8 with T = 1).  Returns a cudaError_t code, or
+// bf16 (with 1 data term), 1 fp32 (with 2 or 3).  cluster 1: T columns per
+// CTA on the tensor-core engine (four_step_tc.cuh), reading the bf16
+// matrices `mats` (meta's offsets in bf16 units) and the twiddles of the
+// fp32 `tables`; 2, 4 or 8: CTAs per column (T = 1) on the scalar
+// engine's cluster twin, reading `tables` (offsets in fp32 units).  p, q
+// and t are read only with kTwiddle.  Returns a cudaError_t code, or
 // kErrClusterUnschedulable.
 template <bool kPacked, bool kTwiddle>
 int col_pass(const void* in_re, const void* in_im, void* mid_re,
              void* mid_im, int dtype, int data_terms, long long batch, int n1,
-             int n2, int T, int cluster, const void* tables,
+             int n2, int T, int cluster, const void* tables, const void* mats,
              const long long* meta, const void* p, const void* q, int t,
              void* stream) {
   StagePlan plan;
@@ -329,13 +270,19 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
       (kTwiddle && (t < 1 || n2 % t != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* tab = static_cast<const float*>(tables);
+  const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(mats);
   const float* pp = static_cast<const float*>(p);
   const float* qq = static_cast<const float*>(q);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_COL(S, BT)                                                   \
-  return launch_col_engine<S, BT, kPacked, kTwiddle>(                    \
-      in_re, in_im, mid_re, mid_im, batch, n1, n2, T, cluster, plan, tab, \
-      pp, qq, t, s)
+  const int io = (kPacked ? kPassPairs : 0) | (kTwiddle ? kPassTwiddle : 0);
+#define TFFT_COL(S, BT)                                                      \
+  return cluster == 1                                                        \
+             ? launch_four_step_tc<S, BT>(in_re, in_im, mid_re, mid_im,      \
+                                          batch, n1, n2, T, io, plan, tab, m, \
+                                          pp, qq, t, s)                       \
+             : launch_col_cluster<S, BT, kPacked, kTwiddle>(                 \
+                   in_re, in_im, mid_re, mid_im, batch, n1, n2, T, cluster,  \
+                   plan, tab, pp, qq, t, s)
   if (dtype == 0 && data_terms == 1) TFFT_COL(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_COL(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_COL(float, 3);
@@ -343,25 +290,67 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// cluster: CTAs per row, as col_pass's per column.
-template <bool kInterleave, bool kTransposed>
+// Launch a transposed row pass (kernel C; K6 with kInterleave): T rows per
+// CTA on the tensor-core engine, or `cluster` CTAs per row, as col_pass.
+template <bool kInterleave>
 int row_pass(const void* mid_re, const void* mid_im, void* out_re,
              void* out_im, int dtype, int data_terms, long long batch, int n1,
-             int n2, int T, int cluster, const void* tables,
+             int n2, int T, int cluster, const void* tables, const void* mats,
              const long long* meta, void* stream) {
   StagePlan plan;
   if (!read_plan(meta, &plan) || !lanes_ok(n2, n1, T, cluster) || batch < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* tab = static_cast<const float*>(tables);
+  const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(mats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_ROW(S, BT)                                           \
-  return launch_row_engine<S, BT, kInterleave, kTransposed>(     \
-      mid_re, mid_im, out_re, out_im, batch, n1, n2, T, cluster, \
-      plan, tab, s)
+  const int io = kPassRow | (kInterleave ? kPassPairs : 0);
+#define TFFT_ROW(S, BT)                                                       \
+  return cluster == 1                                                         \
+             ? launch_four_step_tc<S, BT>(mid_re, mid_im, out_re, out_im,     \
+                                          batch, n1, n2, T, io, plan, tab, m, \
+                                          nullptr, nullptr, 0, s)             \
+             : launch_row_cluster<S, BT, kInterleave>(                        \
+                   mid_re, mid_im, out_re, out_im, batch, n1, n2, T, cluster, \
+                   plan, tab, s)
   if (dtype == 0 && data_terms == 1) TFFT_ROW(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_ROW(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_ROW(float, 3);
 #undef TFFT_ROW
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4's column pass on the scalar engine, one CTA per tile of T columns
+// (col_pass_kernel, kTwiddle = false): the reference a cluster of kernel A
+// is held against bit for bit (the same summation order as every cluster
+// twin), reading the fp32 `tables`.  Returns a cudaError_t code.
+inline int col_pass_scalar(const void* in_re, const void* in_im, void* mid_re,
+                           void* mid_im, int dtype, int data_terms,
+                           long long batch, int n1, int n2, int T,
+                           const void* tables, const long long* meta,
+                           void* stream) {
+  StagePlan plan;
+  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T, 1) || batch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* tab = static_cast<const float*>(tables);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int elems = n1 * T;
+#define TFFT_COL_SCALAR(S, BT, E)                                             \
+  return launch_stage_kernel(                                                 \
+      &col_pass_kernel<S, BT, false, false, E>, batch * (n2 / T),             \
+      elems < kThreads ? elems : kThreads,                                    \
+      operand_bytes(elems, BT, plan.sum_plane), 1, s,                         \
+      static_cast<const S*>(in_re), static_cast<const S*>(in_im),             \
+      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan, tab, \
+      nullptr, nullptr, 0)
+#define TFFT_COL_SCALAR_ENGINE(S, BT)                                 \
+  if (plan.engine == kEngPlanar) TFFT_COL_SCALAR(S, BT, kEngPlanar);  \
+  if (plan.engine == kEngKnobs) TFFT_COL_SCALAR(S, BT, kEngKnobs);    \
+  TFFT_COL_SCALAR(S, BT, kEngStacked)
+  if (dtype == 0 && data_terms == 1) { TFFT_COL_SCALAR_ENGINE(__nv_bfloat16, 1); }
+  if (dtype == 1 && data_terms == 2) { TFFT_COL_SCALAR_ENGINE(float, 2); }
+  if (dtype == 1 && data_terms == 3) { TFFT_COL_SCALAR_ENGINE(float, 3); }
+#undef TFFT_COL_SCALAR_ENGINE
+#undef TFFT_COL_SCALAR
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

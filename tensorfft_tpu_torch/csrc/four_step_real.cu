@@ -4,18 +4,18 @@
 #include "four_step_passes.cuh"
 
 // Every entry point returns a cudaError_t code (or kErrClusterUnschedulable;
-// cluster: CTAs per column, four_step_passes.cuh).  p: (n2/t, 2, n1) fp32,
-// q: (2, n1, t) fp32.
+// cluster: CTAs per column, four_step_passes.cuh).  mats: the bf16 matrices
+// of a one-CTA pass (col_pass).  p: (n2/t, 2, n1) fp32, q: (2, n1, t) fp32.
 
 // Packed column pass (K5's first pass): real (B, 2N) -> `mid` (B, N) planes.
 extern "C" int tfft_four_step_col_packed(const void* x, void* mid_re,
                                          void* mid_im, int dtype,
                                          int data_terms, long long batch,
                                          int n1, int n2, int T, int cluster,
-                                         const void* tables,
+                                         const void* tables, const void* mats,
                                          const long long* meta, const void* p,
                                          const void* q, int t, void* stream) {
   return tfft::col_pass<true, true>(x, nullptr, mid_re, mid_im, dtype,
                                     data_terms, batch, n1, n2, T, cluster,
-                                    tables, meta, p, q, t, stream);
+                                    tables, mats, meta, p, q, t, stream);
 }

@@ -2,7 +2,8 @@
 #include "four_step_passes.cuh"
 
 // Returns a cudaError_t code (or kErrClusterUnschedulable; cluster: CTAs
-// per row, four_step_passes.cuh).
+// per row, four_step_passes.cuh; mats: the bf16 matrices of a one-CTA
+// pass, col_pass).
 
 // Interleaving row pass (K6's second pass): `mid` (B, N) planes -> real
 // (B, 2N), natural bin k at x[b, 2k] (re) and x[b, 2k + 1] (im).
@@ -12,9 +13,10 @@ extern "C" int tfft_four_step_row_interleave(const void* mid_re,
                                              long long batch, int n1, int n2,
                                              int T, int cluster,
                                              const void* tables,
+                                             const void* mats,
                                              const long long* meta,
                                              void* stream) {
-  return tfft::row_pass<true, true>(mid_re, mid_im, x, nullptr, dtype,
-                                    data_terms, batch, n1, n2, T, cluster,
-                                    tables, meta, stream);
+  return tfft::row_pass<true>(mid_re, mid_im, x, nullptr, dtype, data_terms,
+                              batch, n1, n2, T, cluster, tables, mats, meta,
+                              stream);
 }

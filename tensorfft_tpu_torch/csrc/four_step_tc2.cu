@@ -1,0 +1,7 @@
+// The four-step passes' one-CTA tensor-core kernels for fp32 storage
+// with 2 data terms (four_step_tc.cuh).
+#include "four_step_tc.cuh"
+
+namespace tfft {
+template TFFT_FOUR_STEP_TC_PAIR(float, 2);
+}  // namespace tfft

@@ -1,5 +1,5 @@
-// The in-place row pass's launcher (row_pass<false, false> of
-// four_step_passes.cuh with its one-CTA tiles on the tensor-core engine),
+// The in-place row pass's launcher (kernel C of four_step_passes.cuh
+// storing in place, with its one-CTA tiles on the tensor-core engine),
 // shared by K3 (fused_batch_major.cu) and K4's row pass (fft2_row.cu).
 #pragma once
 
@@ -29,7 +29,7 @@ int launch_in_place_row(const void* mid_re, const void* mid_im, void* out_re,
       tables);
 }
 
-// row_pass<false, false> with the one-CTA tiles on the tensor-core engine:
+// The in-place row pass with the one-CTA tiles on the tensor-core engine:
 // `mats` holds their bf16 matrices (meta's offsets in bf16 units); a
 // cluster reads the fp32 `tables` (offsets in fp32 units).  Returns a
 // cudaError_t code, or kErrClusterUnschedulable.

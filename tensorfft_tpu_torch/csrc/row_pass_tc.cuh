@@ -1,12 +1,12 @@
 // The in-place row pass on the tensor-core engine: K3 (fused_batch_major.cu)
-// and K4's row pass (fft2_row.cu), the kInterleave = false, kTransposed =
-// false row pass of four_step_passes.cuh.  A tile of T rows per CTA runs
-// run_fft_tc (fft_mma.cuh) on its T consecutive rows, the maps of
-// row_pass_kernel<..., false, false, ...>; launch_row_tc is compiled once
+// and K4's row pass (fft2_row.cu), kernel C storing in place
+// (four_step_passes.cuh).  A tile of T rows per CTA runs run_fft_tc
+// (fft_mma.cuh) on its T consecutive rows, the maps of
+// row_cluster_kernel<..., false, false, ...>; launch_row_tc is compiled once
 // per storage/operand pair, in row_pass_tc{1,2,3}.cu, so nvcc builds the
 // three in parallel and the two entry points share them (in_place_row.cuh).
-// Kernel C and K6 (the transposed and interleaving row passes) keep
-// run_fft.
+// Kernel C and K6 (the transposed and interleaving row passes) run
+// four_step_tc_kernel (four_step_tc.cuh).
 #pragma once
 
 #include "fft_mma.cuh"

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 __all__ = ["library", "build_log", "check", "NVCC_FLAGS"]
@@ -39,14 +40,17 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tfft_fused_fft": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P],
     "tfft_four_step_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
-                           _P, _P, _I, _P],
+                           _P, _P, _P, _I, _P],
     "tfft_four_step_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
-                           _P],
+                           _P, _P],
     "tfft_four_step_col_packed": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P,
-                                  _P, _P, _P, _I, _P],
+                                  _P, _P, _P, _P, _I, _P],
     "tfft_four_step_row_interleave": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _I,
-                                      _P, _P, _P],
-    "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P],
+                                      _P, _P, _P, _P],
+    "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P,
+                      _P],
+    "tfft_fft2_col_scalar": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
+                             _P],
     "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P,
                       _P],
     "tfft_fused_batch_major": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
@@ -95,6 +99,13 @@ def _run(cmd, what):
     return proc.stdout + proc.stderr
 
 
+def _timed_run(cmd, what):
+    """_run, with a last line naming the source and nvcc's wall time."""
+    start = time.perf_counter()
+    log = _run(cmd, what)
+    return f"{log}[nvcc] {Path(cmd[-1]).name} {time.perf_counter() - start:.1f} s\n"
+
+
 def _compile(out: Path) -> None:
     """Compile each source to an object in parallel, then link."""
     cus, _ = _sources()
@@ -104,7 +115,7 @@ def _compile(out: Path) -> None:
         cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-I", str(_CSRC), "-o", o, str(c)]
                 for c, o in zip(cus, objs)]
         with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
-            logs = list(pool.map(lambda cmd: _run(cmd, "compiling"), cmds))
+            logs = list(pool.map(lambda cmd: _timed_run(cmd, "compiling"), cmds))
         so = str(Path(tmp) / out.name)
         _run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", so, *objs], "linking")
         (out.parent / "build.log").write_text("".join(logs))
@@ -128,7 +139,8 @@ def library() -> ctypes.CDLL:
 
 
 def build_log() -> str:
-    """nvcc's output (including ``-Xptxas -v``) of the library's build."""
+    """nvcc's output (including ``-Xptxas -v``) of the library's build, and
+    each source's compile time (``[nvcc] name seconds`` lines)."""
     library()
     return (_build_dir() / "build.log").read_text()
 

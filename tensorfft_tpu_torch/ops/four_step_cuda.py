@@ -44,11 +44,17 @@ Every pass takes the stage engines and numeric knobs of ``fused_cuda``
 gridslice kernels (K2cg, K2rg and K6's column pass) defer a TPU interleave
 that the port's passes do not have, so here a gridslice pass is the stacked
 pass, computed bit for bit, counted under its engine's name where the JAX
-gate would run the gridslice kernel and as stacked where the JAX package
-falls back to the stacked one.  The four-step pairs (C2C, K5, K6) keep the
+gate would run the gridslice kernel and under the stacked engine's where
+the JAX package falls back to the stacked one.  The four-step pairs (C2C, K5, K6) keep the
 JAX narrow-panel rule: bf16 state falls back to fp32 when the plan's
 ``lane_tile`` or ``k1_tile`` panel is narrower than 128
 (``plan.effective_state_dtype``).
+
+Every pass that one CTA holds runs on the tensor-core engine
+(``csrc/fft_mma.cuh``; kernels B and C through ``csrc/four_step_tc.cuh``,
+K3 and K4's row pass through ``csrc/row_pass_tc.cuh``), reading the bf16
+``fused_cuda.mma_tables``, and its counters carry ``mma``; a pass past one
+CTA runs the scalar engine's cluster twin on the fp32 ``kernel_tables``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels,
 and anything else raises.
@@ -234,44 +240,12 @@ def _knobs(engine, grouped, complex_mult, state_dtype):
                 state_dtype=state_dtype)
 
 
-def _pass_tables(radices, scales, sign, algorithm, first_dot, device, knobs):
-    """(stages, tables, meta) of one pass: every pass but kernel A's rounds
-    its input to a bf16 state."""
-    stages = pass_stages(tuple(radices), knobs["engine"], knobs["grouped"],
-                         knobs["complex_mult"], knobs["state_dtype"])
-    tables, meta = kernel_tables(tuple(radices), tuple(map(float, scales)),
-                                 int(sign), algorithm, first_dot, device,
-                                 knobs["engine"], knobs["grouped"],
-                                 knobs["complex_mult"], knobs["state_dtype"],
-                                 True)
-    return stages, tables, meta
-
-
-def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
-                sign, lane_tile, first_dot, knobs):
-    """Launch column pass ``symbol`` from ``src`` (planes or one real row
-    tensor) into the ``mid`` planes; returns the pass's variant.  A
-    ``lane_tile`` of None launches a pass without the four-step twiddle (no
-    P/Q operands)."""
-    stages, tables, meta = _pass_tables(radices1, scales1, sign, algorithm,
-                                        first_dot, src[0].device, knobs)
-    lanes, cluster = _pass_lanes(src[0], src[-1], n1, n2, algorithm, stages,
-                                 symbol)
-    pq = ()
-    if lane_tile is not None:
-        p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
-        pq = (p.data_ptr(), q.data_ptr(), t)
-    launch(symbol, (*src, *mid), policy_codes(src[0], algorithm),
-           src[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(),
-           meta.ctypes.data, *pq)
-    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster)
-
-
 def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs,
                   cluster):
-    """(tables, meta, mats pointer) of an in-place row pass (K4's, K3): the
-    tensor-core engine's bf16 tables on one CTA (``fused_cuda.mma_tables``),
-    the fp32 ones and no bf16 pointer on a cluster."""
+    """(tables, meta, mats pointer) of a pass: the tensor-core engine's bf16
+    tables on one CTA (``fused_cuda.mma_tables``), the fp32 ones and no bf16
+    pointer on a cluster.  Every pass but kernel A's rounds its input to a
+    bf16 state."""
     args = (tuple(radices), tuple(map(float, scales)), int(sign), algorithm,
             first_dot, device, knobs["engine"], knobs["grouped"],
             knobs["complex_mult"], knobs["state_dtype"], True)
@@ -282,26 +256,47 @@ def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs,
     return tables, meta, None
 
 
-def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
-                first_dot, knobs, mma=False):
-    """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
-    (planes or one real row tensor); returns the pass's variant.  ``mma``:
-    the in-place row pass, whose one-CTA tiles run the tensor-core engine."""
-    stages, tables, meta = _pass_tables(radices2, scales2, sign, algorithm,
-                                        first_dot, mid[0].device, knobs)
-    lanes, cluster = _pass_lanes(mid[0], mid[1], n2, n1, algorithm, stages,
+def _pass_launch(symbol, src, dst, algorithm, n, other, n1, n2, radices,
+                 scales, sign, first_dot, knobs, pq=()):
+    """Launch pass ``symbol`` (a column pass of length ``n`` = n1 over
+    ``other`` = n2 columns, or a row pass of n2 over n1 rows) from ``src``
+    into ``dst`` (planes, or one real row tensor); returns the pass's
+    variant.  One CTA per tile runs the tensor-core engine on the bf16
+    ``mats``; a cluster runs the scalar engine on the fp32 tables.  ``pq``:
+    the column pass's (P, Q, t) operands, if any."""
+    stages = pass_stages(tuple(radices), knobs["engine"], knobs["grouped"],
+                         knobs["complex_mult"], knobs["state_dtype"])
+    lanes, cluster = _pass_lanes(src[0], src[-1], n, other, algorithm, stages,
                                  symbol)
-    mats = ()
-    if mma:
-        tables, meta, ptr = _mma_operands(radices2, scales2, sign, algorithm,
-                                          first_dot, mid[0].device, knobs,
-                                          cluster)
-        mats = (ptr,)
-    launch(symbol, (*mid, *dst), policy_codes(mid[0], algorithm),
-           mid[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(),
-           *mats, meta.ctypes.data)
-    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster,
-                   mma=mma and cluster == 1)
+    tables, meta, mats = _mma_operands(radices, scales, sign, algorithm,
+                                       first_dot, src[0].device, knobs,
+                                       cluster)
+    launch(symbol, (*src, *dst), policy_codes(src[0], algorithm),
+           src[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(), mats,
+           meta.ctypes.data, *pq)
+    return variant(knobs["engine"], stages, knobs["state_dtype"], cluster)
+
+
+def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
+                sign, lane_tile, first_dot, knobs):
+    """Launch column pass ``symbol`` from ``src`` (planes or one real row
+    tensor) into the ``mid`` planes; returns the pass's variant.  A
+    ``lane_tile`` of None launches a pass without the four-step twiddle (no
+    P/Q operands)."""
+    pq = ()
+    if lane_tile is not None:
+        p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
+        pq = (p.data_ptr(), q.data_ptr(), t)
+    return _pass_launch(symbol, src, mid, algorithm, n1, n2, n1, n2,
+                        radices1, scales1, sign, first_dot, knobs, pq)
+
+
+def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
+                first_dot, knobs):
+    """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
+    (planes or one real row tensor); returns the pass's variant."""
+    return _pass_launch(symbol, mid, dst, algorithm, n2, n1, n1, n2, radices2,
+                        scales2, sign, first_dot, knobs)
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
@@ -673,8 +668,37 @@ def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
         return out_re, out_im
     count_launch(fft2_row_pass, _row_launch(
         "tfft_fft2_row", (mid_re, mid_im), (out_re, out_im), algorithm, h, w,
-        radices2, scales2, sign, "default", knobs, mma=True))
+        radices2, scales2, sign, "default", knobs))
     return out_re, out_im
+
+
+def _fft2_column_pass_scalar(re, im, *, radices1, scales1, sign=dft.FORWARD,
+                             algorithm="bf16", engine="stacked", grouped=False,
+                             complex_mult="block", state_dtype="float32"):
+    """K4's column pass on CUDA planes on the scalar engine, one CTA per
+    tile (``col_pass_kernel``, entry point ``tfft_fft2_col_scalar``), not
+    counted: the bitwise reference of kernel A on a cluster, every output of
+    which follows the scalar engine's summation order.  ``ValueError``
+    where the pass does not fit one CTA."""
+    _check_volumes(re, im, 1, radices1, "fft2_column_pass")
+    knobs = _knobs(pass_engine(engine, radices1, grouped, gridslice=False),
+                   grouped, complex_mult, state_dtype)
+    b, h, w = re.shape
+    stages = pass_stages(tuple(radices1), knobs["engine"], grouped,
+                         complex_mult, state_dtype)
+    lanes, cluster = _pass_lanes(re, im, h, w, algorithm, stages,
+                                 "fft2_column_pass")
+    if cluster != 1:
+        raise ValueError(f"a {h}-point column pass does not fit one CTA")
+    tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
+                                 int(sign), algorithm, "default", re.device,
+                                 knobs["engine"], grouped, complex_mult,
+                                 state_dtype, True)
+    mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
+    launch("tfft_fft2_col_scalar", (re, im, mid_re, mid_im),
+           policy_codes(re, algorithm), b, h, w, lanes, tables.data_ptr(),
+           meta.ctypes.data)
+    return mid_re, mid_im
 
 
 reset_launches(fft2_column_pass)
@@ -779,8 +803,7 @@ def fused_fft_batch_major(
            policy_codes(re, algorithm), b, n, lanes, cluster,
            tables.data_ptr(), mats, meta.ctypes.data)
     count_launch(fused_fft_batch_major,
-                 variant(knobs["engine"], stages, state_dtype, cluster,
-                         mma=cluster == 1))
+                 variant(knobs["engine"], stages, state_dtype, cluster))
     return out_re, out_im
 
 

@@ -202,13 +202,12 @@ def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
 
 
 def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
-            cluster: int = 1, mma: bool = False) -> str:
+            cluster: int = 1) -> str:
     """The launch counters' name for a pass: the engine (none for stacked),
-    the numeric knobs in effect, the CTAs of its cluster and ``mma`` for a
-    pass on the tensor-core engine (kernel A, K3 and K4's row pass on one
-    CTA), e.g. ``grouped,mult3``, ``pretwiddle,bf16_state``,
-    ``bf16_state,cluster2`` or ``grouped,mma``; ``stacked`` when there are
-    none."""
+    the numeric knobs in effect, then ``mma`` for a pass on one CTA (every
+    kernel runs those on the tensor-core engine) or the CTAs of its
+    cluster, e.g. ``mma``, ``grouped,mult3,mma``, ``pretwiddle,mma`` or
+    ``bf16_state,cluster2``."""
     tags = [] if engine == "stacked" else [engine]
     if any(st.kind == "grouped" for st in stages):
         tags.append("grouped")
@@ -216,11 +215,8 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
         tags.append("mult3")
     if state_dtype == "bfloat16":
         tags.append("bf16_state")
-    if cluster > 1:
-        tags.append(f"cluster{cluster}")
-    if mma:
-        tags.append("mma")
-    return ",".join(tags) or "stacked"
+    tags.append(f"cluster{cluster}" if cluster > 1 else "mma")
+    return ",".join(tags)
 
 
 def _stage_dtype(j: int, algorithm: str, first_dot: str):
@@ -654,8 +650,8 @@ def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
 
 
 def mma_route(st: Stage) -> bool:
-    """Whether a stage runs on the tensor cores in kernel A and the in-place
-    row pass (``csrc/fft_mma.cuh:mma_route``): a shared-matrix stage of
+    """Whether a stage runs on the tensor cores in a one-CTA pass
+    (``csrc/fft_mma.cuh:mma_route``): a shared-matrix stage of
     radix >= 8; a folded stage, or one of radix < 8, takes the vector
     route."""
     return not st.fold and st.radix >= 8
@@ -745,8 +741,7 @@ def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
     launch("tfft_fused_fft", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, cluster, tables.data_ptr(),
            mats_ptr, meta.ctypes.data)
-    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster,
-                                    mma=cluster == 1))
+    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster))
     return out_re, out_im
 
 

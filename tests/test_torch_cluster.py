@@ -229,7 +229,7 @@ def test_cluster_refusal_names_the_limit():
 
 def test_variant_names_the_cluster():
     stages = fused_cuda.pass_stages((256, 128))
-    assert fused_cuda.variant("stacked", stages, "float32") == "stacked"
+    assert fused_cuda.variant("stacked", stages, "float32") == "mma"
     assert fused_cuda.variant("stacked", stages, "float32", 2) == "cluster2"
     assert (fused_cuda.variant("stacked", stages, "bfloat16", 4)
             == "bf16_state,cluster4")

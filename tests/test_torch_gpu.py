@@ -10,6 +10,8 @@ Run on a machine with a CUDA device:
 Without one every test skips (decided in the ``cuda`` fixture, never at
 import or collection time).
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -309,10 +311,29 @@ def _engine_count(wrapper, engine):
 
 
 def _mma(variant):
-    """The counter name of a variant on the tensor-core engine (kernel A,
-    K3 and K4's row pass on one CTA): ``mma`` for the knob-free stacked
-    engine, else the variant with ``,mma``."""
+    """The counter name of a variant on the tensor-core engine (every
+    kernel's pass on one CTA): ``mma`` for the knob-free stacked engine,
+    else the variant with ``,mma``."""
     return "mma" if variant == "stacked" else f"{variant},mma"
+
+
+def _launched(wrapper, call):
+    """(call's output, the variants of ``wrapper`` it launched, with their
+    counts)."""
+    before = collections.Counter(wrapper.variant_launches)
+    out = call()
+    torch.cuda.synchronize()
+    return out, dict(collections.Counter(wrapper.variant_launches) - before)
+
+
+def _hold_mma(wrapper, call, want, bf16, max_frac=1e-3, max_ulps=1.0):
+    """Hold ``call`` (one launch of ``wrapper``) against ``want`` and check
+    that it ran the tensor-core engine (a ``mma`` variant)."""
+    got, launched = _launched(wrapper, call)
+    assert len(launched) == 1 and list(launched.values()) == [1], launched
+    assert next(iter(launched)).split(",")[-1] == "mma", launched
+    _hold(got if isinstance(got, (tuple, list)) else [got], want, bf16,
+          max_frac, max_ulps)
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
@@ -353,8 +374,8 @@ def test_planar_four_step_kernels_match_plain(cuda, n, split, engine, precision)
     row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
     bf16 = precision == "bfloat16"
     re, im = _planes(3, n, plan.precision.storage_dtype, cuda, seed=n)
-    before = (_engine_count(four_step_cuda.column_pass, engine),
-              _engine_count(four_step_cuda.row_pass, engine))
+    before = (_engine_count(four_step_cuda.column_pass, _mma(engine)),
+              _engine_count(four_step_cuda.row_pass, _mma(engine)))
     mid = four_step_cuda.column_pass_reference(re, im, **col)
     _hold(four_step_cuda.column_pass(re, im, **col), mid, bf16,
           FOUR_STEP_MAX_FRAC)
@@ -362,8 +383,8 @@ def test_planar_four_step_kernels_match_plain(cuda, n, split, engine, precision)
           four_step_cuda.row_pass_reference(*mid, **row), bf16,
           FOUR_STEP_MAX_FRAC)
     torch.cuda.synchronize()
-    assert (_engine_count(four_step_cuda.column_pass, engine),
-            _engine_count(four_step_cuda.row_pass, engine)) == (
+    assert (_engine_count(four_step_cuda.column_pass, _mma(engine)),
+            _engine_count(four_step_cuda.row_pass, _mma(engine))) == (
                 before[0] + 1, before[1] + 1)
 
 
@@ -526,9 +547,12 @@ def test_knob_four_step_kernels_match_plain(cuda, n, precision, tuning):
     frac = _bound(col_kw["state_dtype"], FOUR_STEP_MAX_FRAC)
     re, im = _planes(2, n, plan.precision.storage_dtype, cuda, seed=n)
     mid = four_step_cuda.column_pass_reference(re, im, **col_kw)
-    _hold(four_step_cuda.column_pass(re, im, **col_kw), mid, bf16, **frac)
-    _hold(four_step_cuda.row_pass(*mid, **row_kw),
-          four_step_cuda.row_pass_reference(*mid, **row_kw), bf16, **frac)
+    _hold_mma(four_step_cuda.column_pass,
+              lambda: four_step_cuda.column_pass(re, im, **col_kw), mid, bf16,
+              **frac)
+    _hold_mma(four_step_cuda.row_pass,
+              lambda: four_step_cuda.row_pass(*mid, **row_kw),
+              four_step_cuda.row_pass_reference(*mid, **row_kw), bf16, **frac)
     if plan.engine.startswith("gridslice"):
         _bitwise(tt.fft_split(re, im, plan), tt.fft_split(
             re, im, tt.create_plan(n, precision=precision,
@@ -549,12 +573,15 @@ def test_knob_real_pair_kernels_match_plain(cuda, knobs):
     col_kw, row_kw = four_step_cuda._pair_kwargs(**kw)
     frac = _bound(col_kw["state_dtype"], FOUR_STEP_MAX_FRAC)
     (x,) = _planes(2, 2 * n, torch.bfloat16, cuda, seed=5)[:1]
-    _hold(four_step_cuda.column_pass_packed(x, **col_kw),
-          four_step_cuda.column_pass_packed_reference(x, **col_kw), True, **frac)
+    _hold_mma(four_step_cuda.column_pass_packed,
+              lambda: four_step_cuda.column_pass_packed(x, **col_kw),
+              four_step_cuda.column_pass_packed_reference(x, **col_kw), True,
+              **frac)
     re, im = _planes(2, n, torch.bfloat16, cuda, seed=6)
-    _hold([four_step_cuda.row_pass_interleave(re, im, **row_kw)],
-          [four_step_cuda.row_pass_interleave_reference(re, im, **row_kw)],
-          True, **frac)
+    _hold_mma(four_step_cuda.row_pass_interleave,
+              lambda: four_step_cuda.row_pass_interleave(re, im, **row_kw),
+              [four_step_cuda.row_pass_interleave_reference(re, im, **row_kw)],
+              True, **frac)
 
 
 @pytest.mark.parametrize("knobs", [dict(grouped=True),
@@ -570,7 +597,9 @@ def test_knob_fft2_and_batch_major_match_plain(cuda, knobs):
                                                    cuda, seed=9))
     frac = _bound(knobs.get("state_dtype"), FOUR_STEP_MAX_FRAC)
     mid = four_step_cuda.fft2_column_pass_reference(re, im, **col)
-    _hold(four_step_cuda.fft2_column_pass(re, im, **col), mid, True, **frac)
+    _hold_mma(four_step_cuda.fft2_column_pass,
+              lambda: four_step_cuda.fft2_column_pass(re, im, **col), mid, True,
+              **frac)
     _hold(four_step_cuda.fft2_row_pass(*mid, **row),
           four_step_cuda.fft2_row_pass_reference(*mid, **row), True, **frac)
     rows = (re.reshape(h, w)[:256], im.reshape(h, w)[:256])
@@ -578,6 +607,52 @@ def test_knob_fft2_and_batch_major_match_plain(cuda, knobs):
     got = four_step_cuda.fused_fft_batch_major(*rows, **kw)
     _hold(got, fused_cuda.fused_fft_reference(*rows, round_input=True, **kw),
           True, **_bound(knobs.get("state_dtype"), 1e-3))
+
+
+# (n1, n2) of (B, n1, n2) planes whose column and row passes take tiles of
+# T = 1 ... 64 columns and rows, so the column tiles' loads and stores run
+# every access width (2 to 16 bytes), and a radix-2 pass the vector route.
+TILE_SPLITS = [(16384, 2), (8192, 4), (4096, 8), (2048, 16), (1024, 32),
+               (256, 64), (64, 256), (2, 8192)]
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n1,n2", TILE_SPLITS)
+def test_four_step_tc_every_tile_width(cuda, n1, n2, precision):
+    # Kernels B and C, K5, K6 and K4's column pass on the tensor-core engine
+    # at each tile width, against their plain versions.
+    plan1 = tt.create_plan(n1, precision=precision)
+    plan2 = tt.create_plan(n2, precision=precision)
+    dtype = plan1.precision.storage_dtype
+    bf16 = dtype is torch.bfloat16
+    common = dict(n1=n1, n2=n2, sign=-1, algorithm=plan1.precision.dot_algorithm)
+    col = dict(radices1=plan1.radices, scales1=stage_scales(plan1.radices, "forward", True),
+               lane_tile=128, **common)
+    row = dict(radices2=plan2.radices, scales2=stage_scales(plan2.radices, "forward", True),
+               **common)
+    re, im = _planes(2, n1 * n2, dtype, cuda, seed=n1)
+    mid = four_step_cuda.column_pass_reference(re, im, **col)
+    _hold_mma(four_step_cuda.column_pass,
+              lambda: four_step_cuda.column_pass(re, im, **col), mid, bf16,
+              FOUR_STEP_MAX_FRAC)
+    _hold_mma(four_step_cuda.row_pass, lambda: four_step_cuda.row_pass(*mid, **row),
+              four_step_cuda.row_pass_reference(*mid, **row), bf16, FOUR_STEP_MAX_FRAC)
+    x = torch.stack([re, im], -1).reshape(2, 2 * n1 * n2)
+    _hold_mma(four_step_cuda.column_pass_packed,
+              lambda: four_step_cuda.column_pass_packed(x, **col),
+              four_step_cuda.column_pass_packed_reference(x, **col), bf16,
+              FOUR_STEP_MAX_FRAC)
+    _hold_mma(four_step_cuda.row_pass_interleave,
+              lambda: four_step_cuda.row_pass_interleave(*mid, **row),
+              [four_step_cuda.row_pass_interleave_reference(*mid, **row)], bf16,
+              FOUR_STEP_MAX_FRAC)
+    k4 = dict(radices1=col["radices1"], scales1=col["scales1"], sign=-1,
+              algorithm=common["algorithm"])
+    x3 = (re.reshape(2, n1, n2), im.reshape(2, n1, n2))
+    _hold_mma(four_step_cuda.fft2_column_pass,
+              lambda: four_step_cuda.fft2_column_pass(*x3, **k4),
+              four_step_cuda.fft2_column_pass_reference(*x3, **k4), bf16,
+              FOUR_STEP_MAX_FRAC)
 
 
 # -- plans past one CTA: thread-block clusters ---------------------------------
@@ -650,8 +725,9 @@ def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
     # A row that one CTA holds, split over 2 and 4 CTAs through the private
     # launcher: the exchange changes where each value lives, not its value.
     # The one-CTA scalar engine is K4's column pass over the rows viewed as
-    # (B, N, 1) (run_fft, the same plan); one-CTA kernel A runs the tensor
-    # cores, another summation order, and is held at the fused bound.
+    # (B, N, 1) through its private launcher (run_fft, the same plan); every
+    # one-CTA pass runs the tensor cores, another summation order: kernel A
+    # is held at the fused bound, K4's column pass at the four-step bound.
     n = int(np.prod(radices))
     plan = tt.create_plan(n, precision=precision)
     dtype = plan.precision.storage_dtype
@@ -662,15 +738,19 @@ def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
               complex_mult="block", state_dtype="float32")
     kw.update(knobs)
     col = {k: v for k, v in kw.items() if k not in ("radices", "scales", "first_dot")}
-    scalar = four_step_cuda.fft2_column_pass(
-        re.reshape(8, n, 1), im.reshape(8, n, 1), radices1=radices,
-        scales1=kw["scales"], **col)
+    cols = (re.reshape(8, n, 1), im.reshape(8, n, 1))
+    scalar = four_step_cuda._fft2_column_pass_scalar(
+        *cols, radices1=radices, scales1=kw["scales"], **col)
     scalar = [t.reshape(8, n) for t in scalar]
     for cluster in (2, 4):
         _bitwise(fused_cuda._launch_fused(re, im, cluster=cluster, **kw), scalar)
     bf16 = dtype is torch.bfloat16 or kw["state_dtype"] == "bfloat16"
     _hold(fused_cuda.fused_fft(re, im, **kw), scalar, bf16,
           **_bound(kw["state_dtype"], 1e-3))
+    k4c = four_step_cuda.fft2_column_pass(*cols, radices1=radices,
+                                          scales1=kw["scales"], **col)
+    _hold([t.reshape(8, n) for t in k4c], scalar, bf16,
+          **_bound(kw["state_dtype"], FOUR_STEP_MAX_FRAC))
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
@@ -688,8 +768,8 @@ def test_cluster_four_step_passes_match_plain(cuda, split, precision):
     row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
     bf16 = precision == "bfloat16"
     re, im = _planes(2, n, plan.precision.storage_dtype, cuda, seed=split[0])
-    c_var, r_var = (("stacked", "cluster2") if split[1] == 32768
-                    else ("cluster2", "stacked"))
+    c_var, r_var = (("mma", "cluster2") if split[1] == 32768
+                    else ("cluster2", "mma"))
     c0 = four_step_cuda.column_pass.variant_launches[c_var]
     r0 = four_step_cuda.row_pass.variant_launches[r_var]
     mid = four_step_cuda.column_pass_reference(re, im, **col)
