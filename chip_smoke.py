@@ -8,9 +8,9 @@ first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills)
      and fails unless every line of ``csrc/ptxas_reference.txt`` (each
-     kernel outside the tensor-core engine: the cluster twins, the scalar
-     column pass kept as the cluster's bitwise reference and the R2C
-     epilogue kernels, as built before that engine) is in it unchanged;
+     kernel outside the tensor-core engine: kernel B's cluster twin, the
+     scalar one-CTA column pass and the R2C epilogue kernels, as built
+     before that engine) is in it unchanged;
   2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
@@ -68,9 +68,11 @@ first use, one process per source), then:
             call must launch exactly the cluster variants listed, each
             variant is held against its plain version (at 2^27 on the
             first 2^22 outputs), each plan passes the gate and the round
-            trip, kernel A on 2 CTAs must equal the one-CTA scalar engine
-            (a private launcher) bit for bit at N=16384, and a plan past 8
-            CTAs must be refused;
+            trip; at N=16384, forced onto a cluster through the private
+            launchers, kernel A on 2 and 4 CTAs, K3 and kernel C on 2 must
+            equal their one-CTA kernels bit for bit (and kernel A the
+            one-CTA scalar engine at the fused bound); a plan past 8 CTAs
+            must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -104,11 +106,12 @@ four-step passes moved there kernels B and C, K4's column pass, K5 and K6
 (``csrc/four_step_tc.cuh``).  Their launch counters name it (``mma``:
 ``fused_fft[mma]``, ``four_step_col[mma]``, ``fft2_col[grouped,mma]``,
 ``four_step_row_interleave[planar,mma]``, ...), and each call of a path
-must launch exactly those variants.  The cluster twins keep the scalar
-engine: kernel A on 2 CTAs is held bit for bit against the one-CTA scalar
-engine (K4's column pass over the rows viewed as (B, N, 1) columns, on the
-scalar engine through its private launcher), and against one-CTA kernel A
-at the fused bound and one-CTA K4c at the four-step bound.
+must launch exactly those variants.  Past one CTA, kernel A's and the row
+passes' cluster twins (``fused_fft[cluster2]``, K3, kernel C, K4's row
+pass, K6) run the same engine on a thread-block cluster, each CTA owning a
+block of every stage's columns (``csrc/fft_mma_cluster.cuh``), so each
+equals its one-CTA kernel bit for bit; kernel B's twin
+(``four_step_col[cluster2]``) keeps the scalar engine.
 
 The second-to-last lines are a JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -422,15 +425,18 @@ BIGN_CALLS = [
      {"pack_split": 1, "fused_fft[cluster2]": 2, "untangle_fwd": 1,
       "retangle_inv": 1, "interleave_split": 1}),
 ]
+# The twins of kernel A and of the row passes are compiled from
+# csrc/cluster_tc.cuh; kernel B's from four_step_fft.cu.
+_CLUSTER_TC = "tensorfft_tpu_torch/csrc/cluster_tc.cuh"
 BIGN_KERNELS = {
-    "fused_fft[cluster2]": _FUSED,
-    "fused_fft[bf16_state,cluster2]": _FUSED,
-    "fused_fft[bf16_state,cluster4]": _FUSED,
-    "fused_fft[mult3,cluster4]": _FUSED,
-    "fused_fft[grouped,mult3,cluster2]": _FUSED,
-    "four_step_row[cluster2]": _ROW,
+    "fused_fft[cluster2]": (_CLUSTER_TC, _FUSED[1]),
+    "fused_fft[bf16_state,cluster2]": (_CLUSTER_TC, _FUSED[1]),
+    "fused_fft[bf16_state,cluster4]": (_CLUSTER_TC, _FUSED[1]),
+    "fused_fft[mult3,cluster4]": (_CLUSTER_TC, _FUSED[1]),
+    "fused_fft[grouped,mult3,cluster2]": (_CLUSTER_TC, _FUSED[1]),
+    "four_step_row[cluster2]": (_CLUSTER_TC, _ROW[1]),
     "four_step_col[cluster2]": _COL,
-    "fused_fft_batch_major[cluster2]": ("tensorfft_tpu_torch/csrc/fused_batch_major.cu",
+    "fused_fft_batch_major[cluster2]": (_CLUSTER_TC,
                                         "tensorfft_tpu/ops/four_step_pallas.py:768"),
 }
 KERNELS.update(BIGN_KERNELS)
@@ -443,6 +449,9 @@ BIGN_VS_FOUR_STEP = ("K1 cluster N=32768", "K1 cluster bf16 state N=65536")
 BIGN_SLICE_ABOVE = 1 << 24
 BIGN_HOLD_ELEMS = 1 << 22
 
+# The kernels of the tensor-core engine: one CTA (..._tc_kernel) and the
+# cluster twins of kernel A and of the row passes.
+TC_KERNEL = re.compile(r"_tc_kernel<|fused_fft_cluster_kernel<|row_cluster_kernel<")
 # The -Xptxas -v lines every kernel but the tensor-core engine's must keep.
 PTXAS_REFERENCE = "tensorfft_tpu_torch/csrc/ptxas_reference.txt"
 
@@ -455,6 +464,13 @@ TPU_HOLD_ROWS = 256
 R2C_KERNELS = ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]", "pack_split",
                "interleave_split", "untangle_fwd", "retangle_inv",
                "four_step_col_packed[mma]", "four_step_row_interleave[mma]")
+
+
+def on_tensor_cores(name: str) -> bool:
+    """Whether a counted kernel variant runs the tensor-core engine (bf16
+    matrices): every one-CTA pass (``mma``) and every cluster twin but
+    kernel B's, which keeps the scalar engine (fp32 tables)."""
+    return "mma" in name or ("cluster" in name and not name.startswith("four_step_col"))
 
 
 def log(msg: str) -> None:
@@ -507,7 +523,7 @@ def ptxas_identity(summary: list[str]) -> None:
     missing = ref - collections.Counter(l.strip() for l in summary)
     log(f"[ptxas] {sum(ref.values()) - sum(missing.values())} of {sum(ref.values())} "
         f"reference kernels identical ({PTXAS_REFERENCE}), {sum(missing.values())} "
-        f"differ; new: {sum(1 for l in summary if '_tc_kernel<' in l)} "
+        f"differ; new: {sum(1 for l in summary if TC_KERNEL.search(l))} "
         f"tensor-core kernels")
     for line in missing:
         log(f"[ptxas] differs from the reference: {line}")
@@ -1564,32 +1580,51 @@ def main() -> int:
     log(f"[phase] bign path from {time.perf_counter() - t_start:.1f} s")
     bign_plans, bign_in = knob_path("bign", BIGN_CALLS, {}, SEED + 61,
                                     device_inputs)
-    # The exchange logic alone: a row one CTA holds, on a cluster of two
-    # through the private launcher, equals the one-CTA scalar engine bit for
-    # bit.  Every one-CTA pass runs the tensor cores, another summation
-    # order, so the bitwise reference is K4's column pass over the rows
-    # viewed as (B, N, 1) on the scalar engine through its private launcher
-    # (run_fft, one CTA per row, the same plan, the order every cluster
-    # output follows).  One-CTA kernel A is held against the cluster at the
-    # fused bound, one-CTA K4c (tensor cores) at the four-step bound.
+    # The cluster mode alone: a row one CTA holds, forced onto a cluster
+    # through the private launchers, equals the one-CTA tensor-core kernel
+    # bit for bit (kernel A on 2 and 4 CTAs, K3 and kernel C on 2).  The
+    # one-CTA scalar engine (K4's column pass over the rows viewed as
+    # (B, N, 1), private launcher; another summation order) is held at the
+    # fused bound, one-CTA K4c (tensor cores, columns) at the four-step one.
+    def same_bits(label, got, want):
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise RuntimeError(f"{label}: not bit-identical")
+        log(f"[bign] {label}: bit-identical")
+
     x16 = inputs(16384, 256, torch.bfloat16, SEED + 60)
-    kw16 = dict(radices=(128, 128), scales=stage_scales((128, 128), "forward", True),
-                sign=-1, algorithm="bf16", first_dot="default", engine="stacked",
-                grouped=False, complex_mult="block", state_dtype="float32")
+    r16 = (128, 128)
+    s16 = stage_scales(r16, "forward", True)
+    kw16 = dict(radices=r16, scales=s16, sign=-1, algorithm="bf16",
+                first_dot="default", engine="stacked", grouped=False,
+                complex_mult="block", state_dtype="float32")
+    one16 = fused_cuda._launch_fused(*x16, cluster=1, **kw16)
     cl16 = fused_cuda._launch_fused(*x16, cluster=2, **kw16)
+    same_bits("kernel A, N=16384 x B=256 on 2 CTAs vs one CTA", cl16, one16)
+    same_bits("kernel A, N=16384 x B=256 on 4 CTAs vs one CTA",
+              fused_cuda._launch_fused(*x16, cluster=4, **kw16), one16)
+    knobs16 = four_step_cuda._knobs("stacked", False, "block", "float32")
+    k3_16 = dict(radices=r16, scales=s16, sign=-1, algorithm="bf16",
+                 first_dot="default", knobs=knobs16)
+    same_bits("K3, N=16384 x B=256 on 2 CTAs vs one CTA",
+              four_step_cuda._launch_batch_major(*x16, cluster=2, **k3_16),
+              four_step_cuda._launch_batch_major(*x16, **k3_16))
+    mid16 = tuple(t.reshape(16, 16 * 16384) for t in x16)
+    row16 = dict(n1=16, n2=16384, radices2=r16, scales2=s16, sign=-1,
+                 algorithm="bf16", first_dot="default", knobs=knobs16)
+    same_bits("kernel C, n1=16 x n2=16384 x B=16 on 2 CTAs vs one CTA",
+              four_step_cuda._launch_row_pass(*mid16, cluster=2, **row16),
+              four_step_cuda._launch_row_pass(*mid16, **row16))
     cols16 = tuple(t.reshape(256, 16384, 1) for t in x16)
-    k4c16 = dict(radices1=kw16["radices"], scales1=kw16["scales"], sign=-1,
-                 algorithm="bf16")
+    k4c16 = dict(radices1=r16, scales1=s16, sign=-1, algorithm="bf16")
     col16 = four_step_cuda._fft2_column_pass_scalar(*cols16, **k4c16)
-    bitwise("fused_fft[cluster2]", "N=16384 x B=256 on 2 CTAs vs the one-CTA scalar "
-            "engine (K4 column pass over (B, N, 1), private launcher)", cl16,
-            [t.reshape(256, 16384) for t in col16])
     a16 = agreement([c.float().cpu() for c in cl16],
-                    [t.float().cpu() for t in fused_cuda.fused_fft(*x16, **kw16)],
+                    [t.reshape(256, 16384).float().cpu() for t in col16],
                     bf16=True)
-    log(f"[bign] N=16384 x B=256 on 2 CTAs vs one-CTA kernel A (tensor cores): {a16}")
+    log(f"[bign] N=16384 x B=256 on 2 CTAs vs the one-CTA scalar engine (K4 "
+        f"column pass over (B, N, 1), private launcher): {a16}")
     if not a16.within(FUSED_MAX_FRAC):
-        raise RuntimeError(f"kernel A on 2 CTAs and on one CTA disagree: {a16}")
+        raise RuntimeError(f"kernel A on 2 CTAs and the scalar engine disagree: {a16}")
     c16 = agreement([c.float().cpu() for c in cl16],
                     [t.reshape(256, 16384).float().cpu()
                      for t in four_step_cuda.fft2_column_pass(*cols16, **k4c16)],
@@ -1598,7 +1633,7 @@ def main() -> int:
         f"(tensor cores): {c16}")
     if not c16.within(FOUR_STEP_MAX_FRAC):
         raise RuntimeError(f"kernel A on 2 CTAs and one-CTA K4c disagree: {c16}")
-    del x16, cl16, col16
+    del x16, one16, cl16, mid16, col16
     # Past a cluster of 8 CTAs a plan is refused, before any launch.
     big = tt.create_plan(1 << 18, max_fused_length=1 << 18)
     ok, why = tt.plan_works_on_device(big, "cuda")
@@ -1999,7 +2034,8 @@ def main() -> int:
     log(f"[phase] tpu_tuned timing from {time.perf_counter() - t_start:.1f} s")
     for key, job in tpu_jobs.items():
         library = job["library"]() if job["library"] is not None else None
-        tables = sum(table_bytes(*t, mma="mma" in job["name"]) for t in job["tables"])
+        tables = sum(table_bytes(*t, mma=on_tensor_cores(job["name"]))
+                     for t in job["tables"])
         time_kernel(job["name"], job["shape"], job["call"], job["plain"], library,
                     job["args"], job["io_bytes"] + tables, job["ops"],
                     extra=f" | tables {tables} B", record=key == job["name"])

@@ -3,7 +3,8 @@
 #include "in_place_row.cuh"
 
 // Returns a cudaError_t code (or kErrClusterUnschedulable; cluster: CTAs
-// per row; mats: the bf16 matrices of a one-CTA pass, in_place_row_pass).
+// per row; mats: the bf16 matrices, on one CTA and on a cluster,
+// in_place_row_pass).
 // n1 = H, n2 = W.
 
 // Row pass: W-point FFTs of every row of `mid`, stored in place, so the

@@ -70,13 +70,16 @@
 // output is computed by the same arithmetic as in one CTA (summation order,
 // twiddle, split, rounding), so a cluster changes where a value lives and
 // nothing of its value; a knob-free stacked pass runs on the kEngKnobs
-// engine, whose per-stage tests it passes through.  Every stage kernel has
-// a cluster twin with the same load and store maps (fused_fft.cu,
-// four_step_passes.cuh).  The one-CTA path (run_fft and the kernels that
-// call it) is kept apart, so its kernels compile as they did before the
-// cluster mode: the register allocation of these kernels, at the
-// 128-register cap, moved with rewrites of their code that computed the
-// same values (spills changed in five kernels on the H100).
+// engine, whose per-stage tests it passes through.  Kernel B's cluster twin
+// (col_cluster_kernel, four_step_passes.cuh) runs this mode; the twins of
+// kernel A and of the row passes run the tensor-core engine's cluster mode
+// instead (fft_mma_cluster.cuh), where each CTA owns a block of every
+// stage's columns and reads only its own shared memory.  The one-CTA path
+// (run_fft and the kernels that call it) is kept apart, so its kernels
+// compile as they did before the cluster mode: the register allocation of
+// these kernels, at the 128-register cap, moved with rewrites of their code
+// that computed the same values (spills changed in five kernels on the
+// H100).
 //
 // Tables (D terms, twiddles) stay in global memory and are read through the
 // caches: a radix-128 stage's D is 64 KiB per term and cannot share the CTA's

@@ -18,7 +18,8 @@
 //
 // The real-to-complex path adds one variant of each, differing only in a
 // load or a store map (the kPassPairs bit of four_step_tc_kernel, the
-// `kPacked` / `kInterleave` template flags of the cluster twins):
+// `kPacked` template flag of kernel B's cluster twin, the kRowPairs bit of
+// kernel C's):
 //   K5 (four_step_pallas.py:four_step_fft_packed_real, pallas_call at :943,
 //   _col_kernel_packed) is kernel B reading the half-length packed view of
 //   a real (B, 2N) row: element (j1, j2) of the even and odd planes is
@@ -63,14 +64,18 @@
 // to 16 bytes (8 bytes at K4's T = 4 in bf16).  A pass longer than one CTA
 // holds (n > 16384, or bf16x6 with mult3's third operand plane at n =
 // 16384) takes one column or row (T = 1) per thread-block cluster of 2, 4 or
-// 8 CTAs on the scalar engine (col_cluster_kernel, row_cluster_kernel below:
-// the same maps through run_fft_cluster), as the JAX package runs a
-// 32768-point pass in one VMEM panel; every kernel here, K3, K4, K5 and K6
-// included, takes it.  col_pass_kernel, the scalar engine on one CTA, is
-// kept for one use: K4's column pass on it (col_pass_scalar) is the bitwise
-// reference of kernel A on a cluster.
+// 8 CTAs, as the JAX package runs a 32768-point pass in one VMEM panel;
+// every kernel here, K3, K4, K5 and K6 included, takes it.  The row passes'
+// twin runs the tensor-core engine on each CTA's column blocks
+// (row_cluster_kernel, cluster_tc.cuh); kernel B's twin (col_cluster_kernel
+// below) still runs the scalar engine's cluster mode (run_fft_cluster).
+// col_pass_kernel, the scalar engine on one CTA (the summation order of
+// kernel B's twin), is kept for one use: K4's column pass on it
+// (col_pass_scalar, compiled in fft2.cu alone) is a reference the tests
+// hold kernel A's twin against at the fused bound.
 #pragma once
 
+#include "cluster_tc.cuh"
 #include "four_step_tc.cuh"
 
 namespace tfft {
@@ -119,8 +124,9 @@ __global__ void __launch_bounds__(kThreads)
   run_fft<BT, kEngine>(op, n1, T, plan, tables, load, store);
 }
 
-// Kernels B and C on a cluster of C CTAs per column or row (T = 1,
-// cluster_index): the same maps, through run_fft_cluster.
+// Kernel B on a cluster of C CTAs per column (T = 1, cluster_index): the
+// same maps, through the scalar engine's run_fft_cluster.  (Kernel C's twin,
+// row_cluster_kernel, runs the tensor-core engine: cluster_tc.cuh.)
 template <typename S, int BT, bool kPacked, bool kTwiddle, int kEngine>
 __global__ void __launch_bounds__(kThreads)
     col_cluster_kernel(const S* __restrict__ in_re,
@@ -166,44 +172,6 @@ __global__ void __launch_bounds__(kThreads)
   run_fft_cluster<BT, kEngine>(op, n1, plan, tables, load, store);
 }
 
-template <typename S, int BT, bool kInterleave, bool kTransposed, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    row_cluster_kernel(const S* __restrict__ mid_re,
-                       const S* __restrict__ mid_im, S* __restrict__ out_re,
-                       S* __restrict__ out_im, int n1, int n2, int T,
-                       StagePlan plan, const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int tiles = n1 / T;
-  const unsigned tile = cluster_index();
-  const long long b = tile / tiles;
-  const int r0 = (tile - static_cast<int>(b) * tiles) * T;
-  const long long base = b * n1 * n2;
-  auto load = [&](int qi, int& idx, float& re, float& im) {
-    // q runs along the row (i fastest) so the global read is contiguous.
-    const int lane = qi / n2, i = qi - lane * n2;
-    idx = i * T + lane;
-    const long long at = base + static_cast<long long>(r0 + lane) * n2 + i;
-    re = to_float(mid_re[at]);
-    im = to_float(mid_im[at]);
-  };
-  auto store = [&](int k2, int lane, float re, float im) {
-    const long long at =
-        kTransposed ? base + static_cast<long long>(k2) * n1 + r0 + lane
-                    : base + static_cast<long long>(r0 + lane) * n2 + k2;
-    if constexpr (kInterleave) {
-      // out_re is the real (B, 2N) row; natural bin `at` is a pair.
-      out_re[2 * at] = from_float<S>(re);
-      out_re[2 * at + 1] = from_float<S>(im);
-    } else {
-      out_re[at] = from_float<S>(re);
-      out_im[at] = from_float<S>(im);
-    }
-  };
-  run_fft_cluster<BT, kEngine>(op, n2, plan, tables, load, store);
-}
-
-
 // Kernel B on a cluster of `cluster` CTAs per column (T = 1), on the
 // cluster twin of the plan's engine.
 template <typename S, int BT, bool kPacked, bool kTwiddle>
@@ -226,26 +194,6 @@ int launch_col_cluster(const void* in_re, const void* in_im, void* mid_re,
 #undef TFFT_COL_CLUSTER
 }
 
-// Kernel C on a cluster of `cluster` CTAs per row (T = 1).
-template <typename S, int BT, bool kInterleave>
-int launch_row_cluster(const void* mid_re, const void* mid_im, void* out_re,
-                       void* out_im, long long batch, int n1, int n2, int T,
-                       int cluster, const StagePlan& plan, const float* tables,
-                       cudaStream_t stream) {
-  const int elems = n2 * T / cluster;
-#define TFFT_ROW_CLUSTER(E)                                                  \
-  return launch_stage_kernel(                                                \
-      &row_cluster_kernel<S, BT, kInterleave, true, cluster_engine<E>()>,    \
-      batch * (n1 / T), elems < kThreads ? elems : kThreads,                 \
-      operand_bytes(elems, BT, plan.sum_plane), cluster, stream,             \
-      static_cast<const S*>(mid_re), static_cast<const S*>(mid_im),          \
-      static_cast<S*>(out_re), static_cast<S*>(out_im), n1, n2, T, plan,     \
-      tables)
-  if (plan.engine == kEngPlanar) TFFT_ROW_CLUSTER(kEngPlanar);
-  TFFT_ROW_CLUSTER(kEngKnobs);
-#undef TFFT_ROW_CLUSTER
-}
-
 // T transforms of length n per CTA (cluster == 1), or one per cluster.
 inline bool lanes_ok(int n, int other, int T, int cluster) {
   return T >= 1 && other % T == 0 && cluster_ok(n, T, cluster);
@@ -256,7 +204,8 @@ inline bool lanes_ok(int n, int other, int T, int cluster) {
 // CTA on the tensor-core engine (four_step_tc.cuh), reading the bf16
 // matrices `mats` (meta's offsets in bf16 units) and the twiddles of the
 // fp32 `tables`; 2, 4 or 8: CTAs per column (T = 1) on the scalar
-// engine's cluster twin, reading `tables` (offsets in fp32 units).  p, q
+// engine's cluster twin, reading `tables` (offsets in fp32 units: the
+// meta of fused_cuda.kernel_tables).  p, q
 // and t are read only with kTwiddle.  Returns a cudaError_t code, or
 // kErrClusterUnschedulable.
 template <bool kPacked, bool kTwiddle>
@@ -291,7 +240,9 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
 }
 
 // Launch a transposed row pass (kernel C; K6 with kInterleave): T rows per
-// CTA on the tensor-core engine, or `cluster` CTAs per row, as col_pass.
+// CTA, or `cluster` CTAs per row (launch_row_cluster_tc), both on the
+// tensor-core engine, reading the bf16 `mats` and the fp32 twiddles of
+// `tables`.
 template <bool kInterleave>
 int row_pass(const void* mid_re, const void* mid_im, void* out_re,
              void* out_im, int dtype, int data_terms, long long batch, int n1,
@@ -309,48 +260,14 @@ int row_pass(const void* mid_re, const void* mid_im, void* out_re,
              ? launch_four_step_tc<S, BT>(mid_re, mid_im, out_re, out_im,     \
                                           batch, n1, n2, T, io, plan, tab, m, \
                                           nullptr, nullptr, 0, s)             \
-             : launch_row_cluster<S, BT, kInterleave>(                        \
-                   mid_re, mid_im, out_re, out_im, batch, n1, n2, T, cluster, \
-                   plan, tab, s)
+             : launch_row_cluster_tc<S, BT>(                                  \
+                   mid_re, mid_im, out_re, out_im, batch, n1, n2, cluster,    \
+                   kRowTransposed | (kInterleave ? kRowPairs : 0), plan, tab, \
+                   m, s)
   if (dtype == 0 && data_terms == 1) TFFT_ROW(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_ROW(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_ROW(float, 3);
 #undef TFFT_ROW
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K4's column pass on the scalar engine, one CTA per tile of T columns
-// (col_pass_kernel, kTwiddle = false): the reference a cluster of kernel A
-// is held against bit for bit (the same summation order as every cluster
-// twin), reading the fp32 `tables`.  Returns a cudaError_t code.
-inline int col_pass_scalar(const void* in_re, const void* in_im, void* mid_re,
-                           void* mid_im, int dtype, int data_terms,
-                           long long batch, int n1, int n2, int T,
-                           const void* tables, const long long* meta,
-                           void* stream) {
-  StagePlan plan;
-  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T, 1) || batch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* tab = static_cast<const float*>(tables);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int elems = n1 * T;
-#define TFFT_COL_SCALAR(S, BT, E)                                             \
-  return launch_stage_kernel(                                                 \
-      &col_pass_kernel<S, BT, false, false, E>, batch * (n2 / T),             \
-      elems < kThreads ? elems : kThreads,                                    \
-      operand_bytes(elems, BT, plan.sum_plane), 1, s,                         \
-      static_cast<const S*>(in_re), static_cast<const S*>(in_im),             \
-      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan, tab, \
-      nullptr, nullptr, 0)
-#define TFFT_COL_SCALAR_ENGINE(S, BT)                                 \
-  if (plan.engine == kEngPlanar) TFFT_COL_SCALAR(S, BT, kEngPlanar);  \
-  if (plan.engine == kEngKnobs) TFFT_COL_SCALAR(S, BT, kEngKnobs);    \
-  TFFT_COL_SCALAR(S, BT, kEngStacked)
-  if (dtype == 0 && data_terms == 1) { TFFT_COL_SCALAR_ENGINE(__nv_bfloat16, 1); }
-  if (dtype == 1 && data_terms == 2) { TFFT_COL_SCALAR_ENGINE(float, 2); }
-  if (dtype == 1 && data_terms == 3) { TFFT_COL_SCALAR_ENGINE(float, 3); }
-#undef TFFT_COL_SCALAR_ENGINE
-#undef TFFT_COL_SCALAR
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

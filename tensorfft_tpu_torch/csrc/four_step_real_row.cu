@@ -2,8 +2,8 @@
 #include "four_step_passes.cuh"
 
 // Returns a cudaError_t code (or kErrClusterUnschedulable; cluster: CTAs
-// per row, four_step_passes.cuh; mats: the bf16 matrices of a one-CTA
-// pass, col_pass).
+// per row, four_step_passes.cuh; mats: the bf16 matrices, on one CTA
+// and on a cluster, row_pass).
 
 // Interleaving row pass (K6's second pass): `mid` (B, N) planes -> real
 // (B, 2N), natural bin k at x[b, 2k] (re) and x[b, 2k + 1] (im).

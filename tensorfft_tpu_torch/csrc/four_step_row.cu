@@ -2,8 +2,8 @@
 #include "four_step_passes.cuh"
 
 // Returns a cudaError_t code (or kErrClusterUnschedulable; cluster: CTAs
-// per row, four_step_passes.cuh; mats: the bf16 matrices of a one-CTA
-// pass, col_pass).
+// per row, four_step_passes.cuh; mats: the bf16 matrices, on one CTA
+// and on a cluster, row_pass).
 
 // Row pass (kernel C): `mid` (B, N) planes -> natural-order (B, N) planes.
 extern "C" int tfft_four_step_row(const void* mid_re, const void* mid_im,

@@ -18,8 +18,9 @@
 // stored element by element.  The one kernel per storage/operand pair and
 // engine serves every variant (the `io` bits say which), compiled once per
 // pair in four_step_tc{1,2,3}.cu so nvcc builds the three in parallel.
-// A pass past one CTA keeps its cluster twin (col_cluster_kernel,
-// row_cluster_kernel) on the scalar engine.
+// A pass past one CTA takes a cluster twin: kernel C's (row_cluster_kernel,
+// cluster_tc.cuh) on the tensor-core engine's cluster mode, kernel B's
+// (col_cluster_kernel) on the scalar engine.
 //
 // What bounds them on the H100: the stage products, as in kernel A (kernel
 // B's radix-256 stage runs at kernel A's rate, about 9x its HBM bound,

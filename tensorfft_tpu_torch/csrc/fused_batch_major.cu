@@ -22,7 +22,7 @@
 // Returns a cudaError_t code, or kErrClusterUnschedulable.  T: rows per
 // CTA, dividing batch, with n*T <= 16384; or, for a row longer than one CTA
 // holds, T = 1 and `cluster` (2, 4 or 8) CTAs per row.  mats: the bf16
-// matrices of a one-CTA pass (in_place_row_pass).
+// matrices, on one CTA and on a cluster (in_place_row_pass).
 extern "C" int tfft_fused_batch_major(const void* in_re, const void* in_im,
                                       void* out_re, void* out_im, int dtype,
                                       int data_terms, long long batch, int n,

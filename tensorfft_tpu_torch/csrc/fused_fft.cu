@@ -13,10 +13,10 @@
 // here a CTA reads its (B, N) row directly, so no transpose exists.
 // A row longer than one CTA holds (N > 16384, or bf16x6 with mult3's third
 // operand plane at N = 16384) takes a thread-block cluster of 2, 4 or 8
-// CTAs, each holding its slice of the operand (fused_fft_cluster_kernel,
-// run_fft_cluster in fft_stages.cuh); the JAX package runs those lengths
-// (its tuner's single-pass challengers at N = 32768 and 65536) in one VMEM
-// panel.
+// CTAs, each holding a block of every stage's columns
+// (fused_fft_cluster_kernel, cluster_tc.cuh, on run_fft_tc_cluster in
+// fft_mma_cluster.cuh); the JAX package runs those lengths (its tuner's
+// single-pass challengers at N = 32768 and 65536) in one VMEM panel.
 //
 // What bounds it on the H100: a one-CTA row runs the
 // tensor-core engine (fft_mma.cuh).  The shared-matrix stages are bf16
@@ -27,40 +27,18 @@
 // its per-slice table stream, bf16 and read once per CTA in contiguous
 // runs: at (64, 256) 16.8 MB per term per row, from L2.  The whole
 // transform stays in shared memory and the fp32 state in registers, as
-// before.  The cluster twin keeps run_fft_cluster's scalar products
-// (ldmatrix cannot read a peer CTA's shared memory).
+// before.  The cluster twin runs the same products on its own CTA's column
+// blocks (ldmatrix reads only local shared memory); the stage boundaries
+// exchange the state through distributed shared memory.
+#include "cluster_tc.cuh"
 #include "fused_fft_tc.cuh"
 
 namespace tfft {
 
-// Kernel A on a cluster of C CTAs per row (cluster_index): the same maps,
-// through run_fft_cluster.
-template <typename S, int BT, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_cluster_kernel(const S* __restrict__ in_re,
-                             const S* __restrict__ in_im,
-                             S* __restrict__ out_re, S* __restrict__ out_im,
-                             int n, StagePlan plan,
-                             const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
-  const long long base = static_cast<long long>(cluster_index()) * n;
-  auto load = [&](int q, int& idx, float& re, float& im) {
-    idx = q;
-    re = to_float(in_re[base + q]);
-    im = to_float(in_im[base + q]);
-  };
-  auto store = [&](int k, int lane, float re, float im) {
-    out_re[base + k] = from_float<S>(re);
-    out_im[base + k] = from_float<S>(im);
-  };
-  run_fft_cluster<BT, kEngine>(op, n, plan, tables, load, store);
-}
-
-// One CTA per row on the tensor-core engine (launch_fused_tc, compiled in
-// fused_fft_tc{1,2,3}.cu), or a cluster of `cluster` CTAs per row on the
-// scalar cluster engine.
-template <typename S, int BT, int kEngine>
+// One CTA per row (launch_fused_tc, compiled in fused_fft_tc{1,2,3}.cu), or
+// a cluster of `cluster` CTAs per row (launch_fused_cluster_tc, compiled in
+// cluster_tc{1,2,3}.cu), both on the tensor-core engine.
+template <typename S, int BT>
 int launch_fused(const void* in_re, const void* in_im, void* out_re,
                  void* out_im, long long batch, int n, int cluster,
                  const StagePlan& plan, const float* tables,
@@ -68,13 +46,8 @@ int launch_fused(const void* in_re, const void* in_im, void* out_re,
   if (cluster == 1)
     return launch_fused_tc<S, BT>(in_re, in_im, out_re, out_im, batch, n,
                                   plan, tables, mats, stream);
-  const int elems = n / cluster;
-  return launch_stage_kernel(
-      &fused_fft_cluster_kernel<S, BT, cluster_engine<kEngine>()>, batch,
-      elems < kThreads ? elems : kThreads,
-      operand_bytes(elems, BT, plan.sum_plane), cluster, stream,
-      static_cast<const S*>(in_re), static_cast<const S*>(in_im),
-      static_cast<S*>(out_re), static_cast<S*>(out_im), n, plan, tables);
+  return launch_fused_cluster_tc<S, BT>(in_re, in_im, out_re, out_im, batch,
+                                        n, cluster, plan, tables, mats, stream);
 }
 
 }  // namespace tfft
@@ -89,11 +62,10 @@ extern "C" const char* tfft_error_string(int err) {
 // Returns a cudaError_t code (0 on success), or kErrClusterUnschedulable.
 // dtype: 0 bf16 (with 1 data term), 1 fp32 (with 2 or 3): the
 // storage/operand pairs of the policies.  The engine is the plan's (meta's
-// stage modes).  cluster: CTAs per row (1, 2, 4 or 8; cluster_ok).  One
-// CTA per row reads its matrices from the bf16 `mats` (meta's matrix
-// offsets in bf16 units, each stage in its route's layout) and its
-// twiddles from `tables`; a cluster reads both from the fp32 `tables`
-// (meta's offsets in fp32 units) and ignores `mats`.
+// stage modes).  cluster: CTAs per row (1, 2, 4 or 8; cluster_ok).  The
+// matrices come from the bf16 `mats` (meta's matrix offsets in bf16 units,
+// each stage in its route's layout), the twiddles from the fp32 `tables`,
+// on one CTA and on a cluster alike.
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
@@ -107,16 +79,9 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
   const float* t = static_cast<const float*>(tables);
   const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(mats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TFFT_FUSED(S, BT)                                                  \
-  return plan.engine == kEngPlanar                                         \
-             ? launch_fused<S, BT, kEngPlanar>(in_re, in_im, out_re, out_im, \
-                                               batch, n, cluster, plan, t, m, s) \
-         : plan.engine == kEngKnobs                                        \
-             ? launch_fused<S, BT, kEngKnobs>(in_re, in_im, out_re, out_im,  \
-                                              batch, n, cluster, plan, t, m, s) \
-             : launch_fused<S, BT, kEngStacked>(in_re, in_im, out_re,      \
-                                                out_im, batch, n, cluster, \
-                                                plan, t, m, s)
+#define TFFT_FUSED(S, BT)                                              \
+  return launch_fused<S, BT>(in_re, in_im, out_re, out_im, batch, n,   \
+                             cluster, plan, t, m, s)
   if (dtype == 0 && data_terms == 1) TFFT_FUSED(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_FUSED(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_FUSED(float, 3);

@@ -1,8 +1,8 @@
 // The in-place row pass on the tensor-core engine: K3 (fused_batch_major.cu)
 // and K4's row pass (fft2_row.cu), kernel C storing in place
 // (four_step_passes.cuh).  A tile of T rows per CTA runs run_fft_tc
-// (fft_mma.cuh) on its T consecutive rows, the maps of
-// row_cluster_kernel<..., false, false, ...>; launch_row_tc is compiled once
+// (fft_mma.cuh) on its T consecutive rows, the maps of the in-place
+// row_cluster_kernel (cluster_tc.cuh); launch_row_tc is compiled once
 // per storage/operand pair, in row_pass_tc{1,2,3}.cu, so nvcc builds the
 // three in parallel and the two entry points share them (in_place_row.cuh).
 // Kernel C and K6 (the transposed and interleaving row passes) run

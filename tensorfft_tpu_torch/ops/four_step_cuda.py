@@ -53,8 +53,11 @@ JAX narrow-panel rule: bf16 state falls back to fp32 when the plan's
 Every pass that one CTA holds runs on the tensor-core engine
 (``csrc/fft_mma.cuh``; kernels B and C through ``csrc/four_step_tc.cuh``,
 K3 and K4's row pass through ``csrc/row_pass_tc.cuh``), reading the bf16
-``fused_cuda.mma_tables``, and its counters carry ``mma``; a pass past one
-CTA runs the scalar engine's cluster twin on the fp32 ``kernel_tables``.
+``fused_cuda.mma_tables``, and its counters carry ``mma``.  A pass past one
+CTA takes a thread-block cluster (counters ``clusterN``): the row passes
+(kernel C, K3, K4's row pass, K6) run the tensor-core engine's cluster mode
+on the same tables (``csrc/cluster_tc.cuh``), kernel B's column passes the
+scalar engine's cluster twin on the fp32 ``kernel_tables``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels,
 and anything else raises.
@@ -241,15 +244,15 @@ def _knobs(engine, grouped, complex_mult, state_dtype):
 
 
 def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs,
-                  cluster):
+                  scalar=False):
     """(tables, meta, mats pointer) of a pass: the tensor-core engine's bf16
-    tables on one CTA (``fused_cuda.mma_tables``), the fp32 ones and no bf16
-    pointer on a cluster.  Every pass but kernel A's rounds its input to a
-    bf16 state."""
+    tables (``fused_cuda.mma_tables``), or with ``scalar`` (kernel B's
+    cluster twin) the fp32 ones and no bf16 pointer.  Every pass but kernel
+    A's rounds its input to a bf16 state."""
     args = (tuple(radices), tuple(map(float, scales)), int(sign), algorithm,
             first_dot, device, knobs["engine"], knobs["grouped"],
             knobs["complex_mult"], knobs["state_dtype"], True)
-    if cluster == 1:
+    if not scalar:
         tables, meta, mats = mma_tables(*args)
         return tables, meta, mats.data_ptr()
     tables, meta = kernel_tables(*args)
@@ -257,20 +260,28 @@ def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs,
 
 
 def _pass_launch(symbol, src, dst, algorithm, n, other, n1, n2, radices,
-                 scales, sign, first_dot, knobs, pq=()):
-    """Launch pass ``symbol`` (a column pass of length ``n`` = n1 over
+                 scales, sign, first_dot, knobs, pq=(), column=False,
+                 cluster=None):
+    """Launch pass ``symbol`` (a ``column`` pass of length ``n`` = n1 over
     ``other`` = n2 columns, or a row pass of n2 over n1 rows) from ``src``
     into ``dst`` (planes, or one real row tensor); returns the pass's
-    variant.  One CTA per tile runs the tensor-core engine on the bf16
-    ``mats``; a cluster runs the scalar engine on the fp32 tables.  ``pq``:
-    the column pass's (P, Q, t) operands, if any."""
+    variant.  Every launch runs the tensor-core engine on the bf16 ``mats``
+    but a column pass on a cluster, which runs the scalar engine on the fp32
+    tables.  ``pq``: the column pass's (P, Q, t) operands, if any.
+    ``cluster`` forces a cluster of that many CTAs per transform (one
+    transform per cluster; any valid one computes the same output bit for
+    bit)."""
     stages = pass_stages(tuple(radices), knobs["engine"], knobs["grouped"],
                          knobs["complex_mult"], knobs["state_dtype"])
-    lanes, cluster = _pass_lanes(src[0], src[-1], n, other, algorithm, stages,
-                                 symbol)
+    lanes, fit = _pass_lanes(src[0], src[-1], n, other, algorithm, stages,
+                             symbol)
+    if cluster is None:
+        cluster = fit
+    elif cluster > 1:
+        lanes = 1
     tables, meta, mats = _mma_operands(radices, scales, sign, algorithm,
                                        first_dot, src[0].device, knobs,
-                                       cluster)
+                                       scalar=column and cluster > 1)
     launch(symbol, (*src, *dst), policy_codes(src[0], algorithm),
            src[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(), mats,
            meta.ctypes.data, *pq)
@@ -288,15 +299,16 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
         p, q, t = _device_pq(n1, n2, lane_tile, int(sign), src[0].device)
         pq = (p.data_ptr(), q.data_ptr(), t)
     return _pass_launch(symbol, src, mid, algorithm, n1, n2, n1, n2,
-                        radices1, scales1, sign, first_dot, knobs, pq)
+                        radices1, scales1, sign, first_dot, knobs, pq,
+                        column=True)
 
 
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
-                first_dot, knobs):
+                first_dot, knobs, cluster=None):
     """Launch row pass ``symbol`` from the ``mid`` planes into ``dst``
     (planes or one real row tensor); returns the pass's variant."""
     return _pass_launch(symbol, mid, dst, algorithm, n2, n1, n1, n2, radices2,
-                        scales2, sign, first_dot, knobs)
+                        scales2, sign, first_dot, knobs, cluster=cluster)
 
 
 def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
@@ -339,13 +351,24 @@ def row_pass(mid_re, mid_im, *, n1, n2, radices2, scales2, sign=dft.FORWARD,
         return row_pass_reference(
             mid_re, mid_im, n1=n1, n2=n2, radices2=radices2, scales2=scales2,
             sign=sign, algorithm=algorithm, first_dot=first_dot, **knobs)
+    return _launch_row_pass(mid_re, mid_im, n1=n1, n2=n2, radices2=radices2,
+                            scales2=scales2, sign=sign, algorithm=algorithm,
+                            first_dot=first_dot, knobs=knobs)
+
+
+def _launch_row_pass(mid_re, mid_im, *, n1, n2, radices2, scales2, sign,
+                     algorithm, first_dot, knobs, cluster=None):
+    """Launch kernel C on CUDA planes, counted in ``row_pass``'s counters;
+    ``cluster`` forces a cluster of that many CTAs per row (default:
+    ``fused_cuda.fit_cta``'s; any valid one computes the same output bit for
+    bit)."""
     out_re, out_im = torch.empty_like(mid_re), torch.empty_like(mid_im)
     if mid_re.shape[0] == 0:
         check_kernel_operands(mid_re, mid_im, algorithm, "row_pass")
         return out_re, out_im
     count_launch(row_pass, _row_launch(
         "tfft_four_step_row", (mid_re, mid_im), (out_re, out_im), algorithm,
-        n1, n2, radices2, scales2, sign, first_dot, knobs))
+        n1, n2, radices2, scales2, sign, first_dot, knobs, cluster))
     return out_re, out_im
 
 
@@ -790,20 +813,36 @@ def fused_fft_batch_major(
                                    first_dot=first_dot, round_input=True,
                                    **knobs)
     check_kernel_operands(re, im, algorithm, "fused_fft_batch_major")
+    return _launch_batch_major(re, im, radices=radices, scales=scales,
+                               sign=sign, algorithm=algorithm,
+                               first_dot=first_dot, knobs=knobs)
+
+
+def _launch_batch_major(re, im, *, radices, scales, sign, algorithm,
+                        first_dot, knobs, cluster=None):
+    """Launch K3 on CUDA planes, counted in ``fused_fft_batch_major``'s
+    counters; ``cluster`` forces a cluster of that many CTAs per row
+    (default: ``fused_cuda.fit_cta``'s; any valid one computes the same
+    output bit for bit)."""
+    b, n = re.shape
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     if b == 0:
         return out_re, out_im
-    stages = pass_stages(radices, knobs["engine"], grouped, complex_mult,
-                         state_dtype)
-    lanes, cluster = fit_cta(n, batch_major_lanes(n, b), algorithm, stages,
-                             "fused_fft_batch_major")
+    stages = pass_stages(tuple(radices), knobs["engine"], knobs["grouped"],
+                         knobs["complex_mult"], knobs["state_dtype"])
+    lanes, fit = fit_cta(n, batch_major_lanes(n, b), algorithm, stages,
+                         "fused_fft_batch_major")
+    if cluster is None:
+        cluster = fit
+    elif cluster > 1:
+        lanes = 1
     tables, meta, mats = _mma_operands(radices, scales, sign, algorithm,
-                                       first_dot, re.device, knobs, cluster)
+                                       first_dot, re.device, knobs)
     launch("tfft_fused_batch_major", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, lanes, cluster,
            tables.data_ptr(), mats, meta.ctypes.data)
     count_launch(fused_fft_batch_major,
-                 variant(knobs["engine"], stages, state_dtype, cluster))
+                 variant(knobs["engine"], stages, knobs["state_dtype"], cluster))
     return out_re, out_im
 
 

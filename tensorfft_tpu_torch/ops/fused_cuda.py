@@ -6,7 +6,8 @@ The TPU kernel (``tensorfft_tpu/ops/fused_pallas.py:fused_fft``) holds an
 batch-major (B, N) row in shared memory, so no (B, N) <-> (N, B) transpose
 exists on either side of the kernel.  A row longer than one CTA holds runs
 on a thread-block cluster of 2, 4 or 8 CTAs (:func:`fit_cta`), each holding
-a slice of the operand, with the same arithmetic.  Two stage engines:
+a block of every stage's columns (:func:`cluster_owner`), with the same
+arithmetic as one CTA.  Two stage engines:
 
 * the stacked engine (``stacked``, ``pretwiddle`` and the ``gridslice``
   engines; ``fused_pallas.stage_loop``): each stage is the block-complex
@@ -80,6 +81,8 @@ __all__ = [
     "fused_fft_reference",
     "kernel_tables",
     "mma_route",
+    "cluster_owner",
+    "cluster_slice_base",
     "mma_table_index",
     "mma_tables",
     "variant",
@@ -650,11 +653,33 @@ def kernel_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
 
 
 def mma_route(st: Stage) -> bool:
-    """Whether a stage runs on the tensor cores in a one-CTA pass
+    """Whether a stage runs on the tensor cores, on one CTA or a cluster
     (``csrc/fft_mma.cuh:mma_route``): a shared-matrix stage of
     radix >= 8; a folded stage, or one of radix < 8, takes the vector
     route."""
     return not st.fold and st.radix >= 8
+
+
+def cluster_owner(n: int, radix: int, cluster: int, index):
+    """(rank, local index) of operand index ``index`` = r * nt + g of a
+    stage of ``radix`` on a cluster of ``cluster`` CTAs holding one
+    transform of ``n`` (``csrc/fft_mma_cluster.cuh``): column g of the stage's
+    nt = n / radix lives on rank g // ntl, ntl = nt / cluster, at local index
+    r * ntl + g % ntl (before the stage's swizzle), so each CTA holds all R
+    rows of its own ntl columns and reads only its own shared memory."""
+    nt = n // radix
+    ntl = nt // cluster
+    r, g = np.divmod(np.asarray(index), nt)
+    rank, gl = np.divmod(g, ntl)
+    return rank, r * ntl + gl
+
+
+def cluster_slice_base(rank: int, ntl: int, m: int) -> int:
+    """The slice at which a folded stage's tables start on ``rank`` (ntl
+    columns per rank, M columns per slice, both powers of two): local column
+    gl reads slice ``cluster_slice_base + gl // m``, its own slice
+    (rank * ntl + gl) // m (``csrc/fft_mma_cluster.cuh``)."""
+    return rank * ntl // m
 
 
 def mma_table_index(radix: int, slices: int, matrices: int, terms: int,
@@ -691,8 +716,9 @@ def mma_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
                engine: str = "stacked", grouped: bool = False,
                complex_mult: str = "block", state_dtype: str = "float32",
                round_input: bool = True):
-    """Operands of a one-CTA pass on the tensor-core engine: (tables, meta,
-    mats).  ``mats`` is one bf16 tensor on ``device`` holding each stage's
+    """Operands of a pass on the tensor-core engine, on one CTA or a
+    cluster: (tables, meta, mats).  ``mats`` is one bf16 tensor on
+    ``device`` holding each stage's
     matrix terms in its route's layout (:func:`mma_table_index`), the same
     values as :func:`kernel_tables`' fp32 ones (each is a bf16 value, so
     the conversion is exact); ``meta`` is kernel_tables' with the matrix
@@ -720,9 +746,9 @@ def mma_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
 def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
                   engine, grouped, complex_mult, state_dtype, cluster=None):
     """Launch kernel A on CUDA planes, counted in ``fused_fft``'s counters:
-    one CTA per row on the tensor-core engine, or a cluster of ``cluster``
-    CTAs per row (default: the smallest that holds a row, :func:`fit_cta`;
-    a larger valid one computes the same output bit for bit)."""
+    one CTA per row, or a cluster of ``cluster`` CTAs per row (default: the
+    smallest that holds a row, :func:`fit_cta`; any valid one computes the
+    same output bit for bit), both on the tensor-core engine."""
     b, n = re.shape
     stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
     _, fit = fit_cta(n, 1, algorithm, stages, "fused_fft")
@@ -733,14 +759,10 @@ def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
     args = (radices, tuple(float(s) for s in scales), int(sign), algorithm,
             first_dot, re.device, engine, grouped, complex_mult, state_dtype,
             engine not in PLANAR_ENGINES)
-    if cluster == 1:
-        tables, meta, mats = mma_tables(*args)
-        mats_ptr = mats.data_ptr()
-    else:
-        (tables, meta), mats_ptr = kernel_tables(*args), None
+    tables, meta, mats = mma_tables(*args)
     launch("tfft_fused_fft", (re, im, out_re, out_im),
            policy_codes(re, algorithm), b, n, cluster, tables.data_ptr(),
-           mats_ptr, meta.ctypes.data)
+           mats.data_ptr(), meta.ctypes.data)
     count_launch(fused_fft, variant(engine, stages, state_dtype, cluster))
     return out_re, out_im
 

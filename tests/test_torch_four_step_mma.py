@@ -10,8 +10,9 @@ knobs; model the tensor-core summation order of a column pass (k-chunks of
 storage dtype) followed by a transposed row pass, and hold the model
 against the JAX package's ``four_step_fft`` (Pallas interpret mode); and,
 with ``launch`` replaced by a recorder, check that the launchers pass the
-bf16 matrices on one CTA and none on a cluster, with as many arguments as
-the entry points' ``_SIGNATURES`` declare.
+bf16 matrices on one CTA and to the row passes' cluster twin, and none to
+kernel B's cluster twin (the scalar engine), with as many arguments as the
+entry points' ``_SIGNATURES`` declare.
 
 Tolerance of the order model against JAX: the four-step bound of
 ``tests/test_torch_four_step.py``, one bf16 ulp of the output scale on at
@@ -113,7 +114,7 @@ def test_mma_order_four_step_matches_jax(n, max_fused, precision):
     assert a.within(FOUR_STEP_MAX_FRAC), a
 
 
-# -- the launchers: bf16 matrices on one CTA, none on a cluster --------------
+# -- the launchers: bf16 matrices but on kernel B's cluster twin -------------
 
 @pytest.fixture
 def recorded(monkeypatch):
@@ -162,6 +163,9 @@ PASS_SYMBOLS = ["tfft_four_step_col", "tfft_four_step_col_packed",
 @pytest.mark.parametrize("symbol", PASS_SYMBOLS)
 def test_launch_passes_mats_on_one_cta(recorded, symbol, cluster):
     # One CTA: a 64-point pass; a cluster: a 32768-point pass (2 CTAs).
+    # Every launch takes the bf16 matrices but kernel B's cluster twin (the
+    # column passes on a cluster), which runs the scalar engine on the fp32
+    # tables.
     col = "col" in symbol
     long, short = 32768 if cluster else 64, 64
     n1, n2 = (long, short) if col else (short, long)
@@ -177,9 +181,13 @@ def test_launch_passes_mats_on_one_cta(recorded, symbol, cluster):
     knobs = ("stacked", False, "block", "float32", True)
     key = (tuple(radices), tuple(1.0 / r for r in radices), -1, "bf16",
            "default", torch.device("cpu"))
-    if cluster:
+    if cluster and col:
         assert (n_cluster, lanes, mats, variant) == (2, 1, None, "cluster2")
         want_tables, want_meta = fused_cuda.kernel_tables(*key, *knobs)
+    elif cluster:
+        assert (n_cluster, lanes, variant) == (2, 1, "cluster2")
+        want_tables, want_meta, want_mats = fused_cuda.mma_tables(*key, *knobs)
+        assert mats == want_mats.data_ptr()
     else:
         assert n_cluster == 1 and variant == "mma"
         want_tables, want_meta, want_mats = fused_cuda.mma_tables(*key, *knobs)

@@ -723,11 +723,12 @@ def test_cluster_plans_pass_gate(cuda, n, precision, tuning, variant):
 ])
 def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
     # A row that one CTA holds, split over 2 and 4 CTAs through the private
-    # launcher: the exchange changes where each value lives, not its value.
-    # The one-CTA scalar engine is K4's column pass over the rows viewed as
-    # (B, N, 1) through its private launcher (run_fft, the same plan); every
-    # one-CTA pass runs the tensor cores, another summation order: kernel A
-    # is held at the fused bound, K4's column pass at the four-step bound.
+    # launcher: each CTA owns a block of every stage's columns and runs the
+    # one-CTA tensor-core products on it, so the output is one-CTA kernel
+    # A's bit for bit.  The one-CTA scalar engine (K4's column pass over the
+    # rows viewed as (B, N, 1) through its private launcher, run_fft: the
+    # same plan in another summation order) is held at the fused bound, and
+    # one-CTA K4c (tensor cores, columns) at the four-step bound.
     n = int(np.prod(radices))
     plan = tt.create_plan(n, precision=precision)
     dtype = plan.precision.storage_dtype
@@ -737,20 +738,92 @@ def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
               first_dot="default", engine="stacked", grouped=False,
               complex_mult="block", state_dtype="float32")
     kw.update(knobs)
+    one = fused_cuda._launch_fused(re, im, cluster=1, **kw)
+    _bitwise(fused_cuda.fused_fft(re, im, **kw), one)
+    bf16 = dtype is torch.bfloat16 or kw["state_dtype"] == "bfloat16"
     col = {k: v for k, v in kw.items() if k not in ("radices", "scales", "first_dot")}
     cols = (re.reshape(8, n, 1), im.reshape(8, n, 1))
     scalar = four_step_cuda._fft2_column_pass_scalar(
         *cols, radices1=radices, scales1=kw["scales"], **col)
     scalar = [t.reshape(8, n) for t in scalar]
     for cluster in (2, 4):
-        _bitwise(fused_cuda._launch_fused(re, im, cluster=cluster, **kw), scalar)
-    bf16 = dtype is torch.bfloat16 or kw["state_dtype"] == "bfloat16"
-    _hold(fused_cuda.fused_fft(re, im, **kw), scalar, bf16,
-          **_bound(kw["state_dtype"], 1e-3))
+        got = fused_cuda._launch_fused(re, im, cluster=cluster, **kw)
+        _bitwise(got, one)
+        _hold(got, scalar, bf16, **_bound(kw["state_dtype"], 1e-3))
     k4c = four_step_cuda.fft2_column_pass(*cols, radices1=radices,
                                           scales1=kw["scales"], **col)
     _hold([t.reshape(8, n) for t in k4c], scalar, bf16,
           **_bound(kw["state_dtype"], FOUR_STEP_MAX_FRAC))
+
+
+@pytest.mark.parametrize("precision,radices,knobs", [
+    ("bfloat16", (128, 128), {}),
+    ("float32", (64, 256), dict(grouped=True, state_dtype="bfloat16")),
+    ("bfloat16", (64, 256), dict(engine="planar")),
+])
+def test_cluster_row_passes_bitwise_one_cta(cuda, precision, radices, knobs):
+    # K3, kernel C, K6 and K4's row pass at 16384 points, forced onto 2
+    # CTAs through their private launchers, equal their one-CTA kernels bit
+    # for bit (the twin's in-place, transposed and interleaved stores).
+    n = int(np.prod(radices))
+    plan = tt.create_plan(n, precision=precision)
+    dtype, alg = plan.precision.storage_dtype, plan.precision.dot_algorithm
+    knobs = four_step_cuda._knobs(knobs.get("engine", "stacked"),
+                                  knobs.get("grouped", False), "block",
+                                  knobs.get("state_dtype", "float32"))
+    scales = stage_scales(radices, "forward", True)
+    re, im = _planes(16, n, dtype, cuda, seed=n + 1)
+    k3 = dict(radices=radices, scales=scales, sign=-1, algorithm=alg,
+              first_dot="default", knobs=knobs)
+    counts = four_step_cuda.fused_fft_batch_major.variant_launches
+    one_var = fused_cuda.variant(knobs["engine"], fused_cuda.pass_stages(
+        radices, knobs["engine"], knobs["grouped"], "block",
+        knobs["state_dtype"]), knobs["state_dtype"])
+    two_var = one_var.replace("mma", "cluster2")
+    before = (counts[one_var], counts[two_var])
+    _bitwise(four_step_cuda._launch_batch_major(re, im, cluster=2, **k3),
+             four_step_cuda._launch_batch_major(re, im, **k3))
+    torch.cuda.synchronize()
+    assert (counts[one_var], counts[two_var]) == (before[0] + 1, before[1] + 1)
+    n1 = 8
+    mid = (re.reshape(2, n1 * n), im.reshape(2, n1 * n))
+    row = dict(n1=n1, n2=n, radices2=radices, scales2=scales, sign=-1,
+               algorithm=alg, first_dot="default", knobs=knobs)
+    counts = four_step_cuda.row_pass.variant_launches
+    before = (counts[one_var], counts[two_var])
+    _bitwise(four_step_cuda._launch_row_pass(*mid, cluster=2, **row),
+             four_step_cuda._launch_row_pass(*mid, **row))
+    torch.cuda.synchronize()
+    assert (counts[one_var], counts[two_var]) == (before[0] + 1, before[1] + 1)
+    vol = tuple(t.reshape(2, n1, n) for t in mid)
+    for symbol, src, out in (
+            ("tfft_four_step_row_interleave", mid,
+             lambda: (torch.empty((2, 2 * n1 * n), dtype=dtype, device=cuda),)),
+            ("tfft_fft2_row", vol,
+             lambda: tuple(torch.empty_like(t) for t in vol))):
+        got = []
+        for cluster, var in ((2, two_var), (None, one_var)):
+            got.append(out())
+            assert four_step_cuda._row_launch(
+                symbol, src, got[-1], alg, n1, n, radices, scales, -1,
+                "default", knobs, cluster=cluster) == var
+        _bitwise(*got)
+
+
+def test_cluster_k3_and_kernel_a_bitwise(cuda):
+    # K3 and kernel A on 2 CTAs at N = 32768 x 2048 compute every output
+    # alike: bit for bit.
+    tuning = dict(strategy="fused", radices=(256, 128), max_fused_length=32768)
+    re, im = _planes(2048, 32768, torch.bfloat16, cuda, seed=11)
+    k1 = fused_cuda.fused_fft.variant_launches["cluster2"]
+    k3 = four_step_cuda.fused_fft_batch_major.variant_launches["cluster2"]
+    a = tt.fft_split(re, im, tt.create_plan(32768, tuning=tuning))
+    b = tt.fft_split(re, im, tt.create_plan(32768, tuning=tuning,
+                                            fused_layout="batch_major"))
+    torch.cuda.synchronize()
+    assert fused_cuda.fused_fft.variant_launches["cluster2"] == k1 + 1
+    assert four_step_cuda.fused_fft_batch_major.variant_launches["cluster2"] == k3 + 1
+    _bitwise(b, a)
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
