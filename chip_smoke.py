@@ -8,9 +8,9 @@ first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills)
      and fails unless every line of ``csrc/ptxas_reference.txt`` (each
-     kernel outside the tensor-core engine: kernel B's cluster twin, the
-     scalar one-CTA column pass and the R2C epilogue kernels, as built
-     before that engine) is in it unchanged;
+     kernel outside the tensor-core engine: the scalar one-CTA column pass
+     and the R2C epilogue kernels, as built before that engine) is in it
+     unchanged;
   2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
@@ -62,17 +62,20 @@ first use, one process per source), then:
             A on 2 CTAs at N=32768 x 2048 (bf16, and float32 with a bf16
             state), on 4 at N=65536 x 1024 (bf16 state) and 65536 x 64
             (float32, mult3), and on 2 for bf16x6 with mult3 at N=16384 x
-            256; kernel C, then kernel B, on 2 CTAs for the 32768-point pass
-            of N=2^27 x 1 at splits (4096, 32768) and (32768, 4096); K3 at
-            N=32768 x 2048; the fused R2C route at real N=65536 x 1024; each
-            call must launch exactly the cluster variants listed, each
-            variant is held against its plain version (at 2^27 on the
-            first 2^22 outputs), each plan passes the gate and the round
-            trip; at N=16384, forced onto a cluster through the private
-            launchers, kernel A on 2 and 4 CTAs, K3 and kernel C on 2 must
-            equal their one-CTA kernels bit for bit (and kernel A the
-            one-CTA scalar engine at the fused bound); a plan past 8 CTAs
-            must be refused;
+            256; kernel C on 2 CTAs, then kernel B on the column-cluster
+            rule's tile (4 adjacent columns on 8 CTAs), for the 32768-point
+            pass of N=2^27 x 1 at splits (4096, 32768) and (32768, 4096);
+            K5 and K6's column pass on that tile at real N=2^21 x 4, split
+            (32768, 32); K3 at N=32768 x 2048; the fused R2C route at real
+            N=65536 x 1024; each call must launch exactly the cluster
+            variants listed, each variant is held against its plain version
+            (at 2^27 on the first 2^22 outputs), each plan passes the gate
+            and the round trip; at N=16384, forced onto a cluster through
+            the private launchers, kernel A on 2 and 4 CTAs, K3 and kernel C
+            on 2, and kernel B, K4's column pass and K5 on every (lanes,
+            cluster) that holds them must equal their one-CTA kernels bit
+            for bit (and kernel A the one-CTA scalar engine at the fused
+            bound); a plan past 8 CTAs must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
      the 4096 x 4096 planes in bf16 and float32 and on the 512^3 volume,
@@ -98,7 +101,9 @@ first use, one process per source), then:
      operations at the peak rate of their type, whichever is larger), and
      the N-D entry points against their ``torch.fft`` counterparts; a
      four-step pass's one call is the whole transform's ``torch.fft.fft``
-     (``rfft``/``irfft`` on the R2C route) at its shape.
+     (``rfft``/``irfft`` on the R2C route) at its shape; kernel B's twin
+     at 2^27 on each (lanes, cluster) candidate of the column-cluster rule,
+     in turns, and the whole 2^27 transform at that split.
 
 Every kernel's one-CTA calls run on the tensor-core engine
 (``csrc/fft_mma.cuh``): kernel A, K3 and K4's row pass, and since the
@@ -106,12 +111,13 @@ four-step passes moved there kernels B and C, K4's column pass, K5 and K6
 (``csrc/four_step_tc.cuh``).  Their launch counters name it (``mma``:
 ``fused_fft[mma]``, ``four_step_col[mma]``, ``fft2_col[grouped,mma]``,
 ``four_step_row_interleave[planar,mma]``, ...), and each call of a path
-must launch exactly those variants.  Past one CTA, kernel A's and the row
-passes' cluster twins (``fused_fft[cluster2]``, K3, kernel C, K4's row
-pass, K6) run the same engine on a thread-block cluster, each CTA owning a
-block of every stage's columns (``csrc/fft_mma_cluster.cuh``), so each
-equals its one-CTA kernel bit for bit; kernel B's twin
-(``four_step_col[cluster2]``) keeps the scalar engine.
+must launch exactly those variants.  Past one CTA, the cluster twins
+(``fused_fft[cluster2]``, K3, kernel C, K4's row pass, K6; kernel B, K4's
+column pass and K5 with 4 adjacent columns per cluster,
+``four_step_col[cluster8]``) run the same engine on a thread-block cluster,
+each CTA owning a block of every stage's columns
+(``csrc/fft_mma_cluster.cuh``), so each equals its one-CTA kernel bit for
+bit.
 
 The second-to-last lines are a JSON object of per-kernel results and the
 card's name and power limit; the last line is
@@ -387,6 +393,13 @@ TPU_CALLS = [
     ("K1 bf16 state float32 N=4096", "c2c", 4096, 256, "float32",
      {"state_dtype": "bfloat16"}, {"fused_fft[bf16_state,mma]": 2}),
 ]
+# Kernel B's cluster twin on the column-cluster rule's tile
+# (fused_cuda.column_cluster: 4 adjacent columns on 8 CTAs for a 32768-point
+# pass), as kernel B and as K5, and the rule's candidates at 2^27, (lanes,
+# cluster), timed in turns.
+K2C_TWIN = "four_step_col[cluster8]"
+K5_TWIN = "four_step_col_packed[cluster8]"
+K2C_CANDIDATES = ((1, 2), (2, 4), (4, 8))
 # The bign path: the plans the JAX package runs past one CTA, each on a
 # thread-block cluster (fused_cuda.fit_cta), in TPU_CALLS' format.  The
 # single-pass plans at N = 32768 and 65536 are the JAX tuner's fused_bign
@@ -414,7 +427,11 @@ BIGN_CALLS = [
      {"four_step_col[mma]": 2, "four_step_row[cluster2]": 2}),
     ("K2c cluster N=2^27 (32768, 4096)", "c2c", 1 << 27, 1, "bfloat16",
      {"strategy": "four_step", "four_step_split": [32768, 4096]},
-     {"four_step_col[cluster2]": 2, "four_step_row[mma]": 2}),
+     {K2C_TWIN: 2, "four_step_row[mma]": 2}),
+    ("K5 K6 cluster real N=2^21 (32768, 32)", "r2c", 1 << 21, 4, "bfloat16",
+     {"strategy": "four_step", "four_step_split": [32768, 32]},
+     {K5_TWIN: 1, "four_step_row[mma]": 1, K2C_TWIN: 1,
+      "four_step_row_interleave[mma]": 1, **dict.fromkeys(_R2C, 1)}),
     ("K1 bf16x6 mult3 N=16384", "c2c", 16384, 256, "float32_x6",
      dict(TPU_ENTRIES[16384], complex_mult="mult3"),
      {"fused_fft[grouped,mult3,cluster2]": 2}),
@@ -426,8 +443,9 @@ BIGN_CALLS = [
       "retangle_inv": 1, "interleave_split": 1}),
 ]
 # The twins of kernel A and of the row passes are compiled from
-# csrc/cluster_tc.cuh; kernel B's from four_step_fft.cu.
+# csrc/cluster_tc.cuh; kernel B's (K5's too) from csrc/cluster_col_tc.cuh.
 _CLUSTER_TC = "tensorfft_tpu_torch/csrc/cluster_tc.cuh"
+_CLUSTER_COL_TC = "tensorfft_tpu_torch/csrc/cluster_col_tc.cuh"
 BIGN_KERNELS = {
     "fused_fft[cluster2]": (_CLUSTER_TC, _FUSED[1]),
     "fused_fft[bf16_state,cluster2]": (_CLUSTER_TC, _FUSED[1]),
@@ -435,7 +453,8 @@ BIGN_KERNELS = {
     "fused_fft[mult3,cluster4]": (_CLUSTER_TC, _FUSED[1]),
     "fused_fft[grouped,mult3,cluster2]": (_CLUSTER_TC, _FUSED[1]),
     "four_step_row[cluster2]": (_CLUSTER_TC, _ROW[1]),
-    "four_step_col[cluster2]": _COL,
+    K2C_TWIN: (_CLUSTER_COL_TC, _COL[1]),
+    K5_TWIN: (_CLUSTER_COL_TC, "tensorfft_tpu/ops/four_step_pallas.py:943"),
     "fused_fft_batch_major[cluster2]": (_CLUSTER_TC,
                                         "tensorfft_tpu/ops/four_step_pallas.py:768"),
 }
@@ -450,7 +469,7 @@ BIGN_SLICE_ABOVE = 1 << 24
 BIGN_HOLD_ELEMS = 1 << 22
 
 # The kernels of the tensor-core engine: one CTA (..._tc_kernel) and the
-# cluster twins of kernel A and of the row passes.
+# cluster twins (kernel A's, the row passes', kernel B's col_cluster_tc_kernel).
 TC_KERNEL = re.compile(r"_tc_kernel<|fused_fft_cluster_kernel<|row_cluster_kernel<")
 # The -Xptxas -v lines every kernel but the tensor-core engine's must keep.
 PTXAS_REFERENCE = "tensorfft_tpu_torch/csrc/ptxas_reference.txt"
@@ -468,9 +487,8 @@ R2C_KERNELS = ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]", "pa
 
 def on_tensor_cores(name: str) -> bool:
     """Whether a counted kernel variant runs the tensor-core engine (bf16
-    matrices): every one-CTA pass (``mma``) and every cluster twin but
-    kernel B's, which keeps the scalar engine (fp32 tables)."""
-    return "mma" in name or ("cluster" in name and not name.startswith("four_step_col"))
+    matrices): every one-CTA pass (``mma``) and every cluster twin."""
+    return "mma" in name or "cluster" in name
 
 
 def log(msg: str) -> None:
@@ -1615,6 +1633,24 @@ def main() -> int:
     same_bits("kernel C, n1=16 x n2=16384 x B=16 on 2 CTAs vs one CTA",
               four_step_cuda._launch_row_pass(*mid16, cluster=2, **row16),
               four_step_cuda._launch_row_pass(*mid16, **row16))
+    # Kernel B, K4's column pass and K5 over 256 columns of 16384 points,
+    # forced onto every (lanes, cluster) that holds them.
+    b16 = tuple(t.reshape(1, -1) for t in x16)
+    cp16 = dict(n1=16384, n2=256, radices1=r16, scales1=s16, sign=-1,
+                algorithm="bf16", first_dot="default", knobs=knobs16)
+    for what, src, lane_tile in (
+            ("kernel B", b16, 128),
+            ("K4c", tuple(t.reshape(1, 16384, 256) for t in x16), None),
+            ("K5", (torch.stack(b16, -1).reshape(1, -1),), 128)):
+        one = four_step_cuda._launch_col_pass(src, lane_tile=lane_tile, **cp16)
+        for lanes, cluster in [(t, c) for c in (2, 4, 8) for t in (1, 2, 4, 8)
+                               if t <= c]:
+            same_bits(f"{what}, n1=16384 x n2=256 on {lanes} columns x {cluster} "
+                      f"CTAs vs one CTA",
+                      four_step_cuda._launch_col_pass(
+                          src, lane_tile=lane_tile, cluster=cluster, lanes=lanes,
+                          **cp16), one)
+        del one
     cols16 = tuple(t.reshape(256, 16384, 1) for t in x16)
     k4c16 = dict(radices1=r16, scales1=s16, sign=-1, algorithm="bf16")
     col16 = four_step_cuda._fft2_column_pass_scalar(*cols16, **k4c16)
@@ -1633,7 +1669,7 @@ def main() -> int:
         f"(tensor cores): {c16}")
     if not c16.within(FOUR_STEP_MAX_FRAC):
         raise RuntimeError(f"kernel A on 2 CTAs and one-CTA K4c disagree: {c16}")
-    del x16, one16, cl16, mid16, col16
+    del x16, one16, cl16, mid16, col16, b16
     # Past a cluster of 8 CTAs a plan is refused, before any launch.
     big = tt.create_plan(1 << 18, max_fused_length=1 << 18)
     ok, why = tt.plan_works_on_device(big, "cuda")
@@ -2040,6 +2076,46 @@ def main() -> int:
                     job["args"], job["io_bytes"] + tables, job["ops"],
                     extra=f" | tables {tables} B", record=key == job["name"])
         del library
+
+    # Kernel B's twin at 2^27 on each (lanes, cluster) candidate of the
+    # column-cluster rule, on the bign path's input, in turns (every
+    # candidate, then every one again), beside its bound (bf16 tables).
+    log(f"[phase] column-cluster candidates from {time.perf_counter() - t_start:.1f} s")
+    label = "K2c cluster N=2^27 (32768, 4096)"
+    plan, x = bign_plans[label], bign_in[label]
+    _, _, col, _ = pass_kwargs(plan, True)
+    knobs = four_step_cuda._knobs(col["engine"], col["grouped"],
+                                  col["complex_mult"], col["state_dtype"])
+    ck = {k: col[k] for k in ("n1", "n2", "radices1", "scales1", "sign",
+                              "lane_tile", "algorithm", "first_dot")}
+    elems = col["n1"] * col["n2"]
+    b_ms, b_by = bound(4 * 2 * elems + pq_bytes(col)
+                       + table_bytes(plan, col["radices1"], col["scales1"], -1,
+                                     mma=True),
+                       pass_flops(plan, col["radices1"], elems), H100.bf16_flops)
+    rule = fused_cuda.column_cluster(
+        col["n1"], four_step_cuda.pass_lanes(col["n1"], col["n2"]), col["n2"],
+        col["algorithm"], fused_cuda.pass_stages(tuple(col["radices1"])), label)
+    runs = {tc: [] for tc in K2C_CANDIDATES}
+    for _ in range(2):
+        for lanes, cluster in K2C_CANDIDATES:
+            runs[lanes, cluster].append(measure(
+                lambda r, i, t=lanes, c=cluster: four_step_cuda._launch_col_pass(
+                    (r, i), cluster=c, lanes=t, knobs=knobs, **ck),
+                x, iters=5).average_time_ms)
+    for (lanes, cluster), v in runs.items():
+        log(f"[time] K2c candidate {lanes} columns x {cluster} CTAs, N=2^27 x 1 "
+            f"(32768, 4096) bf16: kernel {min(v):.4f} ms (runs "
+            f"{', '.join(f'{t:.4f}' for t in v)}) | bound {b_ms:.4f} ms ({b_by}) | "
+            f"{b_ms / min(v):.1%} of bound | "
+            f"{'the rule' if (lanes, cluster) == rule else 'not taken'} | {smi}")
+    # The whole transform at that split: the twin on the rule's tile, then
+    # one-CTA kernel C.
+    runs = [measure(lambda r, i: tt.fft_split(r, i, plan), x, iters=5).average_time_ms
+            for _ in range(2)]
+    log(f"[time] fft_split N=2^27 x 1 (32768, 4096) bf16, kernel B's twin on "
+        f"{rule[0]} columns x {rule[1]} CTAs, then one-CTA kernel C: {min(runs):.4f} ms "
+        f"(runs {', '.join(f'{t:.4f}' for t in runs)}) | {smi}")
 
     # The choice the JAX tuner's fused_bign branch makes: K1 on a cluster
     # against the default four-step plan at the same N and rows, in turns

@@ -10,7 +10,7 @@
 //     kRowTransposed | kRowPairs; four_step_passes.cuh).
 // The launchers are compiled once per storage/operand pair, in
 // cluster_tc{1,2,3}.cu, so nvcc builds the three in parallel.  Kernel B's
-// twin (col_cluster_kernel) keeps the scalar engine (fft_stages.cuh).
+// twin, a tile of T columns per cluster, is cluster_col_tc.cuh.
 //
 // What bounds them on the H100: the stage products, on the tensor cores as
 // in one CTA, and the exchange between stages, one distributed-shared-

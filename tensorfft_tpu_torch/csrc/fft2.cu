@@ -4,7 +4,8 @@
 // column pass and the in-place row pass of four_step_passes.cuh.
 //
 // What bounds them on the H100: as kernels B and C, the stage products, on
-// the tensor cores on one CTA (four_step_tc.cuh).  Beyond that, the column
+// the tensor cores (four_step_tc.cuh; past one CTA, the twins of
+// cluster_col_tc.cuh and cluster_tc.cuh).  Beyond that, the column
 // pass reads and writes H-strided columns, T adjacent columns per CTA (T = 4
 // at H = W = 4096, so 8-byte runs in bf16, a quarter of a 32-byte sector);
 // the row pass reads and stores its rows contiguously.
@@ -13,10 +14,10 @@
 namespace tfft {
 
 // K4's column pass on the scalar engine, one CTA per tile of T columns
-// (col_pass_kernel, kTwiddle = false): the summation order of kernel B's
-// cluster twin, on one CTA, reading the fp32 `tables`; a reference the
-// tests hold kernel A's cluster twin against at the fused bound.  Returns a
-// cudaError_t code.
+// (col_pass_kernel, kTwiddle = false), reading the fp32 `tables`: each
+// output summed by fmaf in r order, not in the tensor-core engine's chunk
+// order, a reference the tests hold kernel A's cluster twin against at the
+// fused bound.  Returns a cudaError_t code.
 inline int col_pass_scalar(const void* in_re, const void* in_im, void* mid_re,
                            void* mid_im, int dtype, int data_terms,
                            long long batch, int n1, int n2, int T,
@@ -51,8 +52,8 @@ inline int col_pass_scalar(const void* in_re, const void* in_im, void* mid_re,
 }  // namespace tfft
 
 // Every entry point returns a cudaError_t code (or kErrClusterUnschedulable;
-// cluster: CTAs per column or row, four_step_passes.cuh; mats: the bf16
-// matrices of a one-CTA pass, col_pass).  n1 = H, n2 = W.
+// cluster: CTAs per tile of T columns, four_step_passes.cuh; mats: the
+// bf16 matrices, col_pass).  n1 = H, n2 = W.
 
 // Column pass: H-point FFTs down every column, no twiddle -> `mid` (B, H, W)
 // in the storage dtype.  Replaces the pallas_call at four_step_pallas.py:646.
@@ -69,7 +70,7 @@ extern "C" int tfft_fft2_col(const void* in_re, const void* in_im,
 }
 
 // The same column pass, one CTA per tile, on the scalar engine
-// (col_pass_scalar): kernel B's cluster-twin summation order on one CTA, a
+// (col_pass_scalar): the scalar engine's summation order on one CTA, a
 // reference kernel A's twin is held against at the fused bound.
 extern "C" int tfft_fft2_col_scalar(const void* in_re, const void* in_im,
                                     void* mid_re, void* mid_im, int dtype,

@@ -3,9 +3,8 @@
 // row pass), and kernels B and C (four_step_tc.cuh: the four-step column
 // and row passes, K4's column pass, K5's packed column pass and K6's
 // interleaving row pass, through the tile mode of run_fft_tc).  A pass past
-// one CTA runs this engine's cluster mode (fft_mma_cluster.cuh: kernel A's
-// and the row passes' twins) or, kernel B's twin, the scalar engine's
-// (fft_stages.cuh).
+// one CTA runs this engine's cluster mode (fft_mma_cluster.cuh: the twins of
+// kernel A, of the row passes and, on column tiles, of kernel B).
 //
 // The same stages, twiddles, splits, roundings and knobs as run_fft
 // (fft_stages.cuh), with two product routes in place of its scalar loop:

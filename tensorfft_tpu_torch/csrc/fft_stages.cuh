@@ -57,29 +57,10 @@
 // The last stage writes straight to global memory through the kernel's
 // store functor; stage 0 reads through its load functor.
 //
-// Cluster mode (run_fft_cluster).  A transform larger than one CTA (n >
-// kMaxCtaElems, or an operand over 227 KB: bf16x6 with mult3's third plane
-// at n = 16384) is split over a thread-block cluster of C = 2, 4 or 8 CTAs,
-// one transform (T = 1) per cluster.  CTA rank r owns operand indices
-// [r*E, (r+1)*E), E = n/C, in its own shared memory, and computes the
-// outputs o = r*E + tid + e*blockDim, so each thread still keeps at most
-// kMaxEpt outputs.  A stage's operand read of index i, and the next stage's
-// write of it, go to rank i / E through distributed shared memory
-// (cluster.map_shared_rank); the CTA barriers become cluster barriers, with
-// one more before the first access so that every peer is running.  Each
-// output is computed by the same arithmetic as in one CTA (summation order,
-// twiddle, split, rounding), so a cluster changes where a value lives and
-// nothing of its value; a knob-free stacked pass runs on the kEngKnobs
-// engine, whose per-stage tests it passes through.  Kernel B's cluster twin
-// (col_cluster_kernel, four_step_passes.cuh) runs this mode; the twins of
-// kernel A and of the row passes run the tensor-core engine's cluster mode
-// instead (fft_mma_cluster.cuh), where each CTA owns a block of every
-// stage's columns and reads only its own shared memory.  The one-CTA path
-// (run_fft and the kernels that call it) is kept apart, so its kernels
-// compile as they did before the cluster mode: the register allocation of
-// these kernels, at the 128-register cap, moved with rewrites of their code
-// that computed the same values (spills changed in five kernels on the
-// H100).
+// Clusters.  A pass larger than one CTA holds runs on a thread-block
+// cluster of 2, 4 or 8 CTAs, on the tensor-core engine's cluster mode
+// (fft_mma_cluster.cuh); this file supplies its launch (launch_stage_kernel,
+// check_cluster) and the cluster's tile index (cluster_index).
 //
 // Tables (D terms, twiddles) stay in global memory and are read through the
 // caches: a radix-128 stage's D is 64 KiB per term and cannot share the CTA's
@@ -200,14 +181,16 @@ constexpr int cluster_engine() {
   return kEngine == kEngStacked ? kEngKnobs : kEngine;
 }
 
-// Whether `cluster` (1, 2, 4 or 8) CTAs can run one pass of n*T elements
-// (T == 1 in a cluster of more than one CTA; each CTA's slice of n/cluster
-// elements a power of two, so that a rank is an index's top bits).
+// Whether `cluster` (1, 2, 4 or 8) CTAs can run one pass of T transforms
+// of n elements: each CTA's slice of n*T/cluster elements at most one CTA's
+// and, in a cluster, a power of two, so that a rank is an index's top bits.
+// Only kernel B's twin takes T > 1 on a cluster (lanes_ok).
 inline bool cluster_ok(long long n, int T, int cluster) {
   if (cluster == 1) return T >= 1 && n * T <= kMaxCtaElems;
   if (cluster != 2 && cluster != 4 && cluster != kMaxCluster) return false;
-  const long long e = n / cluster;
-  return T == 1 && n % cluster == 0 && e <= kMaxCtaElems && (e & (e - 1)) == 0;
+  const long long e = n * T / cluster;
+  return T >= 1 && (n * T) % cluster == 0 && e <= kMaxCtaElems &&
+         (e & (e - 1)) == 0;
 }
 
 // Whether the card can place one cluster of `config` of kernel `kern`:
@@ -347,49 +330,6 @@ __device__ __forceinline__ void put_stage_operand(__nv_bfloat16* op, int elems,
   }
 }
 
-// -- cluster mode: the operand of a pass spread over the CTAs of a cluster --
-
-// The buffer holding operand index i of the pass, with i made an index into
-// it: that of rank i >> lg (E = 2^lg operand elements per CTA), in
-// distributed shared memory.
-__device__ __forceinline__ __nv_bfloat16* operand_at(__nv_bfloat16* op, int lg,
-                                                     int& i) {
-  const int rank = i >> lg;
-  i -= rank << lg;
-  return cg::this_cluster().map_shared_rank(op, rank);
-}
-
-// Operand index zi of the pass, BT terms of (re, im) and, with kSum, of
-// mult3's z_re + z_im plane, read from the rank that owns it.
-template <int BT, bool kSum>
-__device__ __forceinline__ void read_peer(const __nv_bfloat16* op, int elems,
-                                          int lg, int zi, float (&z_re)[BT],
-                                          float (&z_im)[BT],
-                                          float (&z_s)[BT]) {
-  const __nv_bfloat16* src =
-      operand_at(const_cast<__nv_bfloat16*>(op), lg, zi);
-#pragma unroll
-  for (int j = 0; j < BT; ++j) {
-    z_re[j] = __bfloat162float(src[(2 * j) * elems + zi]);
-    z_im[j] = __bfloat162float(src[(2 * j + 1) * elems + zi]);
-    if constexpr (kSum) z_s[j] = __bfloat162float(src[(2 * BT + j) * elems + zi]);
-  }
-}
-
-// put_stage_operand at the pass's operand index idx, written to the rank
-// that owns it.
-template <int BT, int kEngine>
-__device__ __forceinline__ void put_peer(__nv_bfloat16* op, int elems, int lg,
-                                         int idx, float re, float im,
-                                         int flags) {
-  __nv_bfloat16* dst = operand_at(op, lg, idx);
-  put_stage_operand<BT, kEngine>(dst, elems, idx, re, im, flags);
-}
-
-// A barrier of every thread of the cluster, ordering distributed shared
-// memory.
-__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
-
 // One output of one stage of the stacked engine: sum over r of
 // D[r_out, r] * z[r] for every partial product (i, j) of the dot algorithm
 // (matrix term i, data term j, i + j < levels), combined level by level as
@@ -402,15 +342,13 @@ __device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
 // (ts: the term stride, slices * matrices * R*R).  kShared: one [D_re,
 // D_im] slice, so ts = 2*R*R, written as the knob-free engine has always
 // indexed it; its multi-term kernels (bf16ax2, bf16x3, bf16x6) ran 9-18 %
-// slower on the H100 with the stride passed in.  kCluster: the operand
-// index r*nt + g is the pass's, read from the rank that owns it (lg:
-// read_peer).
-template <int AT, int BT, bool kShared = false, bool kCluster = false>
+// slower on the H100 with the stride passed in.
+template <int AT, int BT, bool kShared = false>
 __device__ __forceinline__ void stage_dot(const __nv_bfloat16* op, int elems,
                                           int nt, int R,
                                           const float* __restrict__ d, int ts,
                                           int r_out, int g, float& out_re,
-                                          float& out_im, int lg = 0) {
+                                          float& out_im) {
   constexpr int L = AT > BT ? AT : BT;
   float acc_re[AT][BT], acc_im[AT][BT];
 #pragma unroll
@@ -422,14 +360,10 @@ __device__ __forceinline__ void stage_dot(const __nv_bfloat16* op, int elems,
   for (int r = 0; r < R; ++r) {
     const int zi = r * nt + g;
     float z_re[BT], z_im[BT];
-    if constexpr (kCluster) {
-      read_peer<BT, false>(op, elems, lg, zi, z_re, z_im, z_re);
-    } else {
 #pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
-        z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
-      }
+    for (int j = 0; j < BT; ++j) {
+      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
+      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
     }
 #pragma unroll
     for (int i = 0; i < AT; ++i) {
@@ -498,11 +432,11 @@ __device__ __forceinline__ float combine_levels(const float (&acc)[AT][BT]) {
 // out_im = A_im.re + A_re.im.  The matrix's term i holds A_re at d + i*ts
 // and A_im R*R entries later (ts: the term stride, K*2*R*R on a folded
 // stage).
-template <int AT, int BT, bool kCluster = false>
+template <int AT, int BT>
 __device__ __forceinline__ void stage_dot_planar(
     const __nv_bfloat16* op, int elems, int nt, int R,
     const float* __restrict__ d, int ts, int r_out, int g, float& out_re,
-    float& out_im, int lg = 0) {
+    float& out_im) {
   constexpr int L = AT > BT ? AT : BT;
   float acc[4][AT][BT];
 #pragma unroll
@@ -516,14 +450,10 @@ __device__ __forceinline__ void stage_dot_planar(
   for (int r = 0; r < R; ++r) {
     const int zi = r * nt + g;
     float z_re[BT], z_im[BT];
-    if constexpr (kCluster) {
-      read_peer<BT, false>(op, elems, lg, zi, z_re, z_im, z_re);
-    } else {
 #pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
-        z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
-      }
+    for (int j = 0; j < BT; ++j) {
+      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
+      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
     }
 #pragma unroll
     for (int i = 0; i < AT; ++i) {
@@ -551,11 +481,11 @@ __device__ __forceinline__ void stage_dot_planar(
 // levels, then out_re = t1 - t2, out_im = (t3 - t1) - t2, as
 // fused_pallas._mult3 and the plain version subtract them.  The matrix's
 // term i holds M_re at d + i*ts, M_im and S R*R and 2*R*R entries later.
-template <int AT, int BT, bool kCluster = false>
+template <int AT, int BT>
 __device__ __forceinline__ void stage_dot_mult3(
     const __nv_bfloat16* op, int elems, int nt, int R,
     const float* __restrict__ d, int ts, int r_out, int g, float& out_re,
-    float& out_im, int lg = 0) {
+    float& out_im) {
   constexpr int L = AT > BT ? AT : BT;
   float acc[3][AT][BT];
 #pragma unroll
@@ -570,15 +500,11 @@ __device__ __forceinline__ void stage_dot_mult3(
   for (int r = 0; r < R; ++r) {
     const int zi = r * nt + g;
     float z_re[BT], z_im[BT], z_s[BT];
-    if constexpr (kCluster) {
-      read_peer<BT, true>(op, elems, lg, zi, z_re, z_im, z_s);
-    } else {
 #pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
-        z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
-        z_s[j] = __bfloat162float(sum[j * elems + zi]);
-      }
+    for (int j = 0; j < BT; ++j) {
+      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
+      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
+      z_s[j] = __bfloat162float(sum[j * elems + zi]);
     }
 #pragma unroll
     for (int i = 0; i < AT; ++i) {
@@ -755,148 +681,6 @@ __device__ void run_fft(__nv_bfloat16* op, int n, int T,
       }
     }
     __syncthreads();
-    K *= R;
-  }
-}
-
-// stage_outputs in cluster mode: this CTA's outputs o = base + tid + e *
-// blockDim of the pass, each read through read_peer.
-template <int AT, int BT, int kEngine>
-__device__ __forceinline__ void stage_outputs_cluster(
-    const __nv_bfloat16* op, int elems, int base, int lg, int ept, int nt,
-    int R, const float* d, int ts, int slice_elems, int slice_stride,
-    bool mult3, float (&o_re)[kMaxEpt], float (&o_im)[kMaxEpt]) {
-#pragma unroll
-  for (int e = 0; e < kMaxEpt; ++e) {
-    if (e < ept) {
-      const int o = base + threadIdx.x + e * blockDim.x;
-      const int r_out = o / nt, g = o - r_out * nt;
-      const float* dd =
-          slice_elems > 0 ? d + (g / slice_elems) * slice_stride : d;
-      if constexpr (kEngine == kEngPlanar) {
-        stage_dot_planar<AT, BT, true>(op, elems, nt, R, dd, ts, r_out, g,
-                                       o_re[e], o_im[e], lg);
-      } else if (mult3) {
-        stage_dot_mult3<AT, BT, true>(op, elems, nt, R, dd, ts, r_out, g,
-                                      o_re[e], o_im[e], lg);
-      } else {
-        stage_dot<AT, BT, false, true>(op, elems, nt, R, dd, ts, r_out, g,
-                                       o_re[e], o_im[e], lg);
-      }
-    }
-  }
-}
-
-// run_fft on a thread-block cluster of C CTAs holding one transform (T ==
-// 1): CTA rank r owns operand indices [r*E, (r+1)*E), E = n/C; the load
-// functor is asked for the q of that slice, the store functor for the
-// outputs the CTA computes.  The same stages, in the same order, as
-// run_fft; the engine is kEngKnobs or kEngPlanar (cluster_engine).
-template <int BT, int kEngine, class Load, class Store>
-__device__ void run_fft_cluster(__nv_bfloat16* op, int n,
-                                const StagePlan& plan, const float* tables,
-                                const Load& load, const Store& store) {
-  static_assert(kEngine != kEngStacked, "a cluster runs cluster_engine()");
-  const int elems = n / static_cast<int>(cg::this_cluster().num_blocks());
-  const int base = static_cast<int>(cg::this_cluster().block_rank()) * elems;
-  const int lg = __ffs(elems) - 1;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int ept = elems / nthr;
-  cluster_sync();  // every peer runs before its memory is touched
-
-  for (int q = base + tid; q < base + elems; q += nthr) {
-    int idx;
-    float re, im;
-    load(q, idx, re, im);
-    if (plan.round_input) {
-      re = bf16_round(re);
-      im = bf16_round(im);
-    }
-    put_peer<BT, kEngine>(op, elems, lg, idx, re, im, plan.flags[0]);
-  }
-  cluster_sync();
-
-  int K = 1, M = n;
-  for (int s = 0; s < plan.n_stages; ++s) {
-    const int R = plan.radix[s];
-    M /= R;
-    const int nt = n / R;
-    const float* d = tables + plan.d_off[s];
-    const bool fold = folded(plan.mode[s]);
-    const bool mult3 =
-        kEngine == kEngKnobs && (plan.flags[s] & kFlagMult3) != 0;
-    const int slice_stride = (mult3 ? 3 : 2) * R * R;
-    const int ts = (fold ? K : 1) * slice_stride;
-    const int slice_elems = fold ? M : 0;
-    float o_re[kMaxEpt], o_im[kMaxEpt];
-    if constexpr (BT == 1) {
-      if (plan.a_terms[s] == 2)
-        stage_outputs_cluster<2, 1, kEngine>(op, elems, base, lg, ept, nt, R,
-                                             d, ts, slice_elems, slice_stride,
-                                             mult3, o_re, o_im);
-      else
-        stage_outputs_cluster<1, 1, kEngine>(op, elems, base, lg, ept, nt, R,
-                                             d, ts, slice_elems, slice_stride,
-                                             mult3, o_re, o_im);
-    } else {
-      stage_outputs_cluster<BT, BT, kEngine>(op, elems, base, lg, ept, nt, R,
-                                             d, ts, slice_elems, slice_stride,
-                                             mult3, o_re, o_im);
-    }
-    // Every operand read before it is overwritten; after the last stage,
-    // before any CTA of the cluster exits.
-    cluster_sync();
-    if (plan.bf16_state) {
-#pragma unroll
-      for (int e = 0; e < kMaxEpt; ++e) {
-        if (e < ept) {
-          o_re[e] = bf16_round(o_re[e]);
-          o_im[e] = bf16_round(o_im[e]);
-        }
-      }
-    }
-
-    if (s + 1 == plan.n_stages) {
-      // M == 1 here: g = kk, natural bin k = r_out*K + kk.
-#pragma unroll
-      for (int e = 0; e < kMaxEpt; ++e) {
-        if (e < ept) {
-          const int o = base + tid + e * nthr;
-          const int r_out = o / nt, kk = o - r_out * nt;
-          store(r_out * K + kk, 0, o_re[e], o_im[e]);
-        }
-      }
-    } else {
-      const int R2 = plan.radix[s + 1], K2 = K * R, M2 = M / R2;
-      const float* w = tables + plan.w_off[s + 1];
-      const int flags2 = plan.flags[s + 1];
-      // A folded next stage takes the untwiddled state.
-      const bool twiddle = !folded(plan.mode[s + 1]);
-      const bool round_tw = (flags2 & kFlagRoundTw) != 0;
-#pragma unroll
-      for (int e = 0; e < kMaxEpt; ++e) {
-        if (e < ept) {
-          const int o = base + tid + e * nthr;
-          const int r_out = o / nt, g = o - r_out * nt;
-          const int kk = g / M, mm = g - kk * M;
-          const int kk2 = r_out * K + kk;
-          const int r2 = mm / M2, mm2 = mm - r2 * M2;
-          float z_re = o_re[e], z_im = o_im[e];
-          if (twiddle) {
-            cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
-                 __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
-            if (round_tw) {
-              z_re = bf16_round(z_re);
-              z_im = bf16_round(z_im);
-            }
-          }
-          put_peer<BT, kEngine>(op, elems, lg, (r2 * K2 + kk2) * M2 + mm2,
-                                z_re, z_im, flags2);
-        }
-      }
-    }
-    cluster_sync();
     K *= R;
   }
 }

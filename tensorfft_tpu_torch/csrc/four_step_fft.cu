@@ -3,8 +3,8 @@
 #include "four_step_passes.cuh"
 
 // Every entry point returns a cudaError_t code (or kErrClusterUnschedulable;
-// cluster: CTAs per column, four_step_passes.cuh).  mats: the bf16 matrices
-// of a one-CTA pass (col_pass).  p: (n2/t, 2, n1) fp32, q: (2, n1, t) fp32.
+// cluster: CTAs per tile of T columns, four_step_passes.cuh).  mats: the
+// bf16 matrices (col_pass).  p: (n2/t, 2, n1) fp32, q: (2, n1, t) fp32.
 
 // Column pass (kernel B): (B, N) planes -> `mid` (B, N) planes.
 extern "C" int tfft_four_step_col(const void* in_re, const void* in_im,

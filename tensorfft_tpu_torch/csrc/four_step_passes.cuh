@@ -17,9 +17,8 @@
 // natural-order spectrum with no third pass.
 //
 // The real-to-complex path adds one variant of each, differing only in a
-// load or a store map (the kPassPairs bit of four_step_tc_kernel, the
-// `kPacked` template flag of kernel B's cluster twin, the kRowPairs bit of
-// kernel C's):
+// load or a store map (the kPassPairs bit of four_step_tc_kernel and of
+// kernel B's cluster twin, the kRowPairs bit of kernel C's):
 //   K5 (four_step_pallas.py:four_step_fft_packed_real, pallas_call at :943,
 //   _col_kernel_packed) is kernel B reading the half-length packed view of
 //   a real (B, 2N) row: element (j1, j2) of the even and odd planes is
@@ -53,28 +52,30 @@
 // (the TPU's in-VMEM transpose), stored in place; entry point in
 // fused_batch_major.cu.
 //
-// What bounds them on the H100.  A pass that one CTA holds runs on the
-// tensor-core engine (fft_mma.cuh; kernels B and C through
-// four_step_tc.cuh, K3 and K4's row pass through row_pass_tc.cuh): its
-// shared-matrix stages are bf16 mma.sync products, as in kernel A.  Beyond
-// them, kernel B reads and writes columns strided by n2 and kernel C writes
-// strided by n1.  Each CTA therefore takes T adjacent columns (B) or rows
-// (C), as many as one CTA's n*T <= 16384 elements allow (capped at 64), so
-// the strided side moves T contiguous elements per row, in one access of up
-// to 16 bytes (8 bytes at K4's T = 4 in bf16).  A pass longer than one CTA
-// holds (n > 16384, or bf16x6 with mult3's third operand plane at n =
-// 16384) takes one column or row (T = 1) per thread-block cluster of 2, 4 or
-// 8 CTAs, as the JAX package runs a 32768-point pass in one VMEM panel;
-// every kernel here, K3, K4, K5 and K6 included, takes it.  The row passes'
-// twin runs the tensor-core engine on each CTA's column blocks
-// (row_cluster_kernel, cluster_tc.cuh); kernel B's twin (col_cluster_kernel
-// below) still runs the scalar engine's cluster mode (run_fft_cluster).
-// col_pass_kernel, the scalar engine on one CTA (the summation order of
-// kernel B's twin), is kept for one use: K4's column pass on it
-// (col_pass_scalar, compiled in fft2.cu alone) is a reference the tests
-// hold kernel A's twin against at the fused bound.
+// What bounds them on the H100.  Every pass runs on the tensor-core engine
+// (fft_mma.cuh; kernels B and C through four_step_tc.cuh, K3 and K4's row
+// pass through row_pass_tc.cuh): its shared-matrix stages are bf16 mma.sync
+// products, as in kernel A.  Beyond them, kernel B reads and writes columns
+// strided by n2 and kernel C writes strided by n1.  Each CTA therefore
+// takes T adjacent columns (B) or rows (C), as many as one CTA's n*T <=
+// 16384 elements allow (capped at 64), so the strided side moves T
+// contiguous elements per row, in one access of up to 16 bytes (8 bytes at
+// K4's T = 4 in bf16).  A pass longer than one CTA holds (n > 16384, or
+// bf16x6 with mult3's third operand plane at n = 16384) takes a
+// thread-block cluster of 2, 4 or 8 CTAs, as the JAX package runs a
+// 32768-point pass in one VMEM panel; every kernel here, K3, K4, K5 and K6
+// included, takes it, on the tensor-core engine's cluster mode: the row
+// passes' twin one row per cluster (row_cluster_kernel, cluster_tc.cuh),
+// kernel B's a tile of T adjacent columns per cluster (col_cluster_tc_kernel,
+// cluster_col_tc.cuh), T and the cluster chosen by fused_cuda's
+// column-cluster rule.  col_pass_kernel, the scalar engine on one CTA, is
+// kept for one use: K4's column pass on it (col_pass_scalar, compiled in
+// fft2.cu alone) sums each output in another order than the tensor-core
+// engine, a reference the tests hold kernel A's twin against at the fused
+// bound.
 #pragma once
 
+#include "cluster_col_tc.cuh"
 #include "cluster_tc.cuh"
 #include "four_step_tc.cuh"
 
@@ -124,90 +125,21 @@ __global__ void __launch_bounds__(kThreads)
   run_fft<BT, kEngine>(op, n1, T, plan, tables, load, store);
 }
 
-// Kernel B on a cluster of C CTAs per column (T = 1, cluster_index): the
-// same maps, through the scalar engine's run_fft_cluster.  (Kernel C's twin,
-// row_cluster_kernel, runs the tensor-core engine: cluster_tc.cuh.)
-template <typename S, int BT, bool kPacked, bool kTwiddle, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    col_cluster_kernel(const S* __restrict__ in_re,
-                       const S* __restrict__ in_im, S* __restrict__ mid_re,
-                       S* __restrict__ mid_im, int n1, int n2, int T,
-                       StagePlan plan, const float* __restrict__ tables,
-                       const float* __restrict__ p,
-                       const float* __restrict__ q, int t) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int tiles = n2 / T;
-  const unsigned tile = cluster_index();
-  const long long b = tile / tiles;
-  const int c0 = (tile - static_cast<int>(b) * tiles) * T;
-  const long long base = b * n1 * n2 + c0;
-  auto load = [&](int qi, int& idx, float& re, float& im) {
-    const int i = qi / T, lane = qi - i * T;
-    idx = qi;
-    const long long at = base + static_cast<long long>(i) * n2 + lane;
-    if constexpr (kPacked) {
-      // in_re is the real (B, 2N) row; half-length element `at` is a pair.
-      re = to_float(in_re[2 * at]);
-      im = to_float(in_re[2 * at + 1]);
-    } else {
-      re = to_float(in_re[at]);
-      im = to_float(in_im[at]);
-    }
-  };
-  auto store = [&](int k1, int lane, float re, float im) {
-    float o_re = re, o_im = im;
-    if constexpr (kTwiddle) {
-      const int j2 = c0 + lane;
-      const int a = j2 / t, bb = j2 - a * t;
-      float w_re, w_im;
-      cmul(__ldg(p + (2 * a) * n1 + k1), __ldg(p + (2 * a + 1) * n1 + k1),
-           __ldg(q + k1 * t + bb), __ldg(q + (n1 + k1) * t + bb), w_re, w_im);
-      cmul(re, im, w_re, w_im, o_re, o_im);
-    }
-    const long long at = base + static_cast<long long>(k1) * n2 + lane;
-    mid_re[at] = from_float<S>(o_re);
-    mid_im[at] = from_float<S>(o_im);
-  };
-  run_fft_cluster<BT, kEngine>(op, n1, plan, tables, load, store);
-}
-
-// Kernel B on a cluster of `cluster` CTAs per column (T = 1), on the
-// cluster twin of the plan's engine.
-template <typename S, int BT, bool kPacked, bool kTwiddle>
-int launch_col_cluster(const void* in_re, const void* in_im, void* mid_re,
-                       void* mid_im, long long batch, int n1, int n2, int T,
-                       int cluster, const StagePlan& plan, const float* tables,
-                       const float* p, const float* q, int t,
-                       cudaStream_t stream) {
-  const int elems = n1 * T / cluster;
-#define TFFT_COL_CLUSTER(E)                                                  \
-  return launch_stage_kernel(                                                \
-      &col_cluster_kernel<S, BT, kPacked, kTwiddle, cluster_engine<E>()>,    \
-      batch * (n2 / T), elems < kThreads ? elems : kThreads,                 \
-      operand_bytes(elems, BT, plan.sum_plane), cluster, stream,             \
-      static_cast<const S*>(in_re), static_cast<const S*>(in_im),            \
-      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan,     \
-      tables, p, q, t)
-  if (plan.engine == kEngPlanar) TFFT_COL_CLUSTER(kEngPlanar);
-  TFFT_COL_CLUSTER(kEngKnobs);
-#undef TFFT_COL_CLUSTER
-}
-
-// T transforms of length n per CTA (cluster == 1), or one per cluster.
+// T transforms of length n per CTA (cluster == 1), or one per cluster of
+// `cluster` CTAs: the one-CTA kernels and the row passes' twin (kernel B's
+// takes T per cluster, col_pass).
 inline bool lanes_ok(int n, int other, int T, int cluster) {
-  return T >= 1 && other % T == 0 && cluster_ok(n, T, cluster);
+  return T >= 1 && other % T == 0 && (cluster == 1 || T == 1) &&
+         cluster_ok(n, T, cluster);
 }
 
 // Launch a column pass for the storage/operand pair of a policy: dtype 0
-// bf16 (with 1 data term), 1 fp32 (with 2 or 3).  cluster 1: T columns per
-// CTA on the tensor-core engine (four_step_tc.cuh), reading the bf16
+// bf16 (with 1 data term), 1 fp32 (with 2 or 3), T columns per CTA
+// (cluster 1, four_step_tc.cuh) or per cluster of 2, 4 or 8 CTAs
+// (cluster_col_tc.cuh), both on the tensor-core engine, reading the bf16
 // matrices `mats` (meta's offsets in bf16 units) and the twiddles of the
-// fp32 `tables`; 2, 4 or 8: CTAs per column (T = 1) on the scalar
-// engine's cluster twin, reading `tables` (offsets in fp32 units: the
-// meta of fused_cuda.kernel_tables).  p, q
-// and t are read only with kTwiddle.  Returns a cudaError_t code, or
-// kErrClusterUnschedulable.
+// fp32 `tables`.  p, q and t are read only with kTwiddle.  Returns a
+// cudaError_t code, or kErrClusterUnschedulable.
 template <bool kPacked, bool kTwiddle>
 int col_pass(const void* in_re, const void* in_im, void* mid_re,
              void* mid_im, int dtype, int data_terms, long long batch, int n1,
@@ -215,7 +147,8 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
              const long long* meta, const void* p, const void* q, int t,
              void* stream) {
   StagePlan plan;
-  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T, cluster) || batch < 1 ||
+  if (!read_plan(meta, &plan) || T < 1 || n2 % T != 0 ||
+      !cluster_ok(n1, T, cluster) || batch < 1 ||
       (kTwiddle && (t < 1 || n2 % t != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* tab = static_cast<const float*>(tables);
@@ -229,9 +162,9 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
              ? launch_four_step_tc<S, BT>(in_re, in_im, mid_re, mid_im,      \
                                           batch, n1, n2, T, io, plan, tab, m, \
                                           pp, qq, t, s)                       \
-             : launch_col_cluster<S, BT, kPacked, kTwiddle>(                 \
-                   in_re, in_im, mid_re, mid_im, batch, n1, n2, T, cluster,  \
-                   plan, tab, pp, qq, t, s)
+             : launch_col_cluster_tc<S, BT>(in_re, in_im, mid_re, mid_im,    \
+                                            batch, n1, n2, T, cluster, io,   \
+                                            plan, tab, m, pp, qq, t, s)
   if (dtype == 0 && data_terms == 1) TFFT_COL(__nv_bfloat16, 1);
   if (dtype == 1 && data_terms == 2) TFFT_COL(float, 2);
   if (dtype == 1 && data_terms == 3) TFFT_COL(float, 3);
@@ -240,7 +173,7 @@ int col_pass(const void* in_re, const void* in_im, void* mid_re,
 }
 
 // Launch a transposed row pass (kernel C; K6 with kInterleave): T rows per
-// CTA, or `cluster` CTAs per row (launch_row_cluster_tc), both on the
+// CTA, or `cluster` CTAs per row (T = 1, launch_row_cluster_tc), both on the
 // tensor-core engine, reading the bf16 `mats` and the fp32 twiddles of
 // `tables`.
 template <bool kInterleave>

@@ -8,19 +8,19 @@
 //     row), in accesses of up to 16 bytes per row; bin k1 of column lane
 //     back to k1*n2 + lane, multiplied by the four-step twiddle
 //     P[k1, j2 / t] * Q[k1, j2 % t] in fp32 in the last stage's epilogue,
-//     before the one rounding to the storage dtype, as the scalar kernel
-//     and the TPU's _col_kernel round it (K4's column pass: no twiddle);
+//     before the one rounding to the storage dtype, as the TPU's
+//     _col_kernel rounds it (K4's column pass: no twiddle);
 //   kernel C: T consecutive rows of `mid` (kTileRows, the in-place row
 //     pass's loads), bin k2 of row r0 + lane stored transposed at
 //     k2*n1 + r0 + lane (kTileCols; K6: kTilePairs into the real row).
 // The last stage is staged in shared memory as [k][lane], so a warp's
-// stores are runs of T (2T) elements per bin where the scalar kernels
-// stored element by element.  The one kernel per storage/operand pair and
+// stores are runs of T (2T) elements per bin, not element by element.  The one kernel per storage/operand pair and
 // engine serves every variant (the `io` bits say which), compiled once per
 // pair in four_step_tc{1,2,3}.cu so nvcc builds the three in parallel.
-// A pass past one CTA takes a cluster twin: kernel C's (row_cluster_kernel,
-// cluster_tc.cuh) on the tensor-core engine's cluster mode, kernel B's
-// (col_cluster_kernel) on the scalar engine.
+// A pass past one CTA takes a cluster twin on the tensor-core engine's
+// cluster mode: kernel C's (row_cluster_kernel, cluster_tc.cuh) one row per
+// cluster, kernel B's (col_cluster_tc_kernel, cluster_col_tc.cuh) a tile of
+// T columns per cluster with the same epilogue.
 //
 // What bounds them on the H100: the stage products, as in kernel A (kernel
 // B's radix-256 stage runs at kernel A's rate, about 9x its HBM bound,

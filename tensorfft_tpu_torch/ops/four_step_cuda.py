@@ -50,14 +50,14 @@ JAX narrow-panel rule: bf16 state falls back to fp32 when the plan's
 ``lane_tile`` or ``k1_tile`` panel is narrower than 128
 (``plan.effective_state_dtype``).
 
-Every pass that one CTA holds runs on the tensor-core engine
-(``csrc/fft_mma.cuh``; kernels B and C through ``csrc/four_step_tc.cuh``,
-K3 and K4's row pass through ``csrc/row_pass_tc.cuh``), reading the bf16
-``fused_cuda.mma_tables``, and its counters carry ``mma``.  A pass past one
-CTA takes a thread-block cluster (counters ``clusterN``): the row passes
-(kernel C, K3, K4's row pass, K6) run the tensor-core engine's cluster mode
-on the same tables (``csrc/cluster_tc.cuh``), kernel B's column passes the
-scalar engine's cluster twin on the fp32 ``kernel_tables``.
+Every pass runs on the tensor-core engine (``csrc/fft_mma.cuh``), reading
+the bf16 ``fused_cuda.mma_tables``.  One CTA (counters ``mma``): kernels B
+and C through ``csrc/four_step_tc.cuh``, K3 and K4's row pass through
+``csrc/row_pass_tc.cuh``.  Past one CTA, a thread-block cluster (counters
+``clusterN``) runs the engine's cluster mode: the row passes (kernel C, K3,
+K4's row pass, K6) one row per cluster (``csrc/cluster_tc.cuh``), the column
+passes (kernel B, K4's column pass, K5) a tile of adjacent columns per
+cluster (``csrc/cluster_col_tc.cuh``, ``fused_cuda.column_cluster``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels,
 and anything else raises.
@@ -76,6 +76,7 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     MAX_CTA_ELEMS,
     check_kernel_operands,
     check_planes,
+    column_cluster,
     count_launch,
     fit_cta,
     fused_fft_reference,
@@ -229,12 +230,16 @@ def _check_split(re, n1, n2, what):
         raise ValueError(f"{what}: N={re.shape[1]} != n1*n2 = {n1}*{n2}")
 
 
-def _pass_lanes(re, im, n, other, algorithm, stages, what):
-    """Shared launcher checks; returns the pass's (lanes per CTA, CTAs per
-    cluster): lanes halved while mult3's third operand plane does not fit
-    one CTA, and a pass longer than one CTA holds split over a thread-block
-    cluster (``fused_cuda.fit_cta``)."""
+def _pass_lanes(re, im, n, other, algorithm, stages, what, column=False):
+    """Shared launcher checks; returns the pass's (lanes, CTAs per cluster):
+    lanes halved while mult3's third operand plane does not fit one CTA,
+    and a pass longer than one CTA holds split over a thread-block cluster
+    (``fused_cuda.fit_cta``), a ``column`` pass with adjacent columns per
+    cluster (``fused_cuda.column_cluster``)."""
     check_kernel_operands(re, im, algorithm, what)
+    if column:
+        return column_cluster(n, pass_lanes(n, other), other, algorithm,
+                              stages, what)
     return fit_cta(n, pass_lanes(n, other), algorithm, stages, what)
 
 
@@ -243,45 +248,38 @@ def _knobs(engine, grouped, complex_mult, state_dtype):
                 state_dtype=state_dtype)
 
 
-def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs,
-                  scalar=False):
+def _mma_operands(radices, scales, sign, algorithm, first_dot, device, knobs):
     """(tables, meta, mats pointer) of a pass: the tensor-core engine's bf16
-    tables (``fused_cuda.mma_tables``), or with ``scalar`` (kernel B's
-    cluster twin) the fp32 ones and no bf16 pointer.  Every pass but kernel
-    A's rounds its input to a bf16 state."""
-    args = (tuple(radices), tuple(map(float, scales)), int(sign), algorithm,
-            first_dot, device, knobs["engine"], knobs["grouped"],
-            knobs["complex_mult"], knobs["state_dtype"], True)
-    if not scalar:
-        tables, meta, mats = mma_tables(*args)
-        return tables, meta, mats.data_ptr()
-    tables, meta = kernel_tables(*args)
-    return tables, meta, None
+    tables (``fused_cuda.mma_tables``).  Every pass but kernel A's rounds
+    its input to a bf16 state."""
+    tables, meta, mats = mma_tables(
+        tuple(radices), tuple(map(float, scales)), int(sign), algorithm,
+        first_dot, device, knobs["engine"], knobs["grouped"],
+        knobs["complex_mult"], knobs["state_dtype"], True)
+    return tables, meta, mats.data_ptr()
 
 
 def _pass_launch(symbol, src, dst, algorithm, n, other, n1, n2, radices,
                  scales, sign, first_dot, knobs, pq=(), column=False,
-                 cluster=None):
+                 cluster=None, lanes=None):
     """Launch pass ``symbol`` (a ``column`` pass of length ``n`` = n1 over
     ``other`` = n2 columns, or a row pass of n2 over n1 rows) from ``src``
-    into ``dst`` (planes, or one real row tensor); returns the pass's
-    variant.  Every launch runs the tensor-core engine on the bf16 ``mats``
-    but a column pass on a cluster, which runs the scalar engine on the fp32
-    tables.  ``pq``: the column pass's (P, Q, t) operands, if any.
-    ``cluster`` forces a cluster of that many CTAs per transform (one
-    transform per cluster; any valid one computes the same output bit for
-    bit)."""
+    into ``dst`` (planes, or one real row tensor) on the tensor-core engine;
+    returns the pass's variant.  ``pq``: the column pass's (P, Q, t)
+    operands, if any.  ``cluster`` forces a cluster of that many CTAs per
+    tile, and ``lanes`` the transforms per tile (one on a cluster unless
+    given; only a column pass takes more; any valid pair computes the same
+    output bit for bit)."""
     stages = pass_stages(tuple(radices), knobs["engine"], knobs["grouped"],
                          knobs["complex_mult"], knobs["state_dtype"])
-    lanes, fit = _pass_lanes(src[0], src[-1], n, other, algorithm, stages,
-                             symbol)
+    fit_lanes, fit = _pass_lanes(src[0], src[-1], n, other, algorithm,
+                                 stages, symbol, column)
     if cluster is None:
         cluster = fit
-    elif cluster > 1:
-        lanes = 1
+    if lanes is None:
+        lanes = fit_lanes if cluster == fit else 1
     tables, meta, mats = _mma_operands(radices, scales, sign, algorithm,
-                                       first_dot, src[0].device, knobs,
-                                       scalar=column and cluster > 1)
+                                       first_dot, src[0].device, knobs)
     launch(symbol, (*src, *dst), policy_codes(src[0], algorithm),
            src[0].shape[0], n1, n2, lanes, cluster, tables.data_ptr(), mats,
            meta.ctypes.data, *pq)
@@ -289,7 +287,7 @@ def _pass_launch(symbol, src, dst, algorithm, n, other, n1, n2, radices,
 
 
 def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
-                sign, lane_tile, first_dot, knobs):
+                sign, lane_tile, first_dot, knobs, cluster=None, lanes=None):
     """Launch column pass ``symbol`` from ``src`` (planes or one real row
     tensor) into the ``mid`` planes; returns the pass's variant.  A
     ``lane_tile`` of None launches a pass without the four-step twiddle (no
@@ -300,7 +298,34 @@ def _col_launch(symbol, src, mid, algorithm, n1, n2, radices1, scales1,
         pq = (p.data_ptr(), q.data_ptr(), t)
     return _pass_launch(symbol, src, mid, algorithm, n1, n2, n1, n2,
                         radices1, scales1, sign, first_dot, knobs, pq,
-                        column=True)
+                        column=True, cluster=cluster, lanes=lanes)
+
+
+def _launch_col_pass(src, *, n1, n2, radices1, scales1, sign, lane_tile,
+                     algorithm, first_dot, knobs, cluster=None, lanes=None):
+    """Launch a column pass on CUDA tensors, counted in its wrapper's
+    counters, and return the ``mid`` planes: kernel B on (B, N) planes
+    (``column_pass``), K5 on one real (B, 2N) row tensor
+    (``column_pass_packed``), K4's on (B, H, W) planes (``fft2_column_pass``,
+    ``lane_tile`` None).  ``cluster`` and ``lanes`` force CTAs per tile and
+    adjacent columns per tile (default: ``fused_cuda.column_cluster``'s;
+    any valid pair computes the same output bit for bit)."""
+    x = src[0]
+    if len(src) == 1:
+        wrapper, symbol = column_pass_packed, "tfft_four_step_col_packed"
+        mid = tuple(torch.empty((x.shape[0], n1 * n2), dtype=x.dtype,
+                                device=x.device) for _ in range(2))
+    else:
+        wrapper, symbol = ((column_pass, "tfft_four_step_col") if x.ndim == 2
+                           else (fft2_column_pass, "tfft_fft2_col"))
+        mid = tuple(torch.empty_like(t) for t in src)
+    if x.shape[0] == 0:
+        check_kernel_operands(x, src[-1], algorithm, wrapper.__name__)
+        return mid
+    count_launch(wrapper, _col_launch(
+        symbol, src, mid, algorithm, n1, n2, radices1, scales1, sign,
+        lane_tile, first_dot, knobs, cluster, lanes))
+    return mid
 
 
 def _row_launch(symbol, mid, dst, algorithm, n1, n2, radices2, scales2, sign,
@@ -327,14 +352,10 @@ def column_pass(re, im, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
             re, im, n1=n1, n2=n2, radices1=radices1, scales1=scales1,
             sign=sign, lane_tile=lane_tile, algorithm=algorithm,
             first_dot=first_dot, **knobs)
-    mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
-    if re.shape[0] == 0:
-        check_kernel_operands(re, im, algorithm, "column_pass")
-        return mid_re, mid_im
-    count_launch(column_pass, _col_launch(
-        "tfft_four_step_col", (re, im), (mid_re, mid_im), algorithm, n1, n2,
-        radices1, scales1, sign, lane_tile, first_dot, knobs))
-    return mid_re, mid_im
+    return _launch_col_pass((re, im), n1=n1, n2=n2, radices1=radices1,
+                            scales1=scales1, sign=sign, lane_tile=lane_tile,
+                            algorithm=algorithm, first_dot=first_dot,
+                            knobs=knobs)
 
 
 def row_pass(mid_re, mid_im, *, n1, n2, radices2, scales2, sign=dft.FORWARD,
@@ -413,16 +434,10 @@ def column_pass_packed(x, *, n1, n2, radices1, scales1, sign=dft.FORWARD,
             x, n1=n1, n2=n2, radices1=radices1, scales1=scales1, sign=sign,
             lane_tile=lane_tile, algorithm=algorithm, first_dot=first_dot,
             **knobs)
-    b = x.shape[0]
-    mid_re = torch.empty((b, n1 * n2), dtype=x.dtype, device=x.device)
-    mid_im = torch.empty_like(mid_re)
-    if b == 0:
-        check_kernel_operands(x, x, algorithm, "column_pass_packed")
-        return mid_re, mid_im
-    count_launch(column_pass_packed, _col_launch(
-        "tfft_four_step_col_packed", (x,), (mid_re, mid_im), algorithm, n1,
-        n2, radices1, scales1, sign, lane_tile, first_dot, knobs))
-    return mid_re, mid_im
+    return _launch_col_pass((x,), n1=n1, n2=n2, radices1=radices1,
+                            scales1=scales1, sign=sign, lane_tile=lane_tile,
+                            algorithm=algorithm, first_dot=first_dot,
+                            knobs=knobs)
 
 
 def row_pass_interleave(mid_re, mid_im, *, n1, n2, radices2, scales2,
@@ -660,15 +675,11 @@ def fft2_column_pass(re, im, *, radices1, scales1, sign=dft.FORWARD,
         return fft2_column_pass_reference(re, im, radices1=radices1,
                                           scales1=scales1, sign=sign,
                                           algorithm=algorithm, **knobs)
-    b, h, w = re.shape
-    mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
-    if b == 0:
-        check_kernel_operands(re, im, algorithm, "fft2_column_pass")
-        return mid_re, mid_im
-    count_launch(fft2_column_pass, _col_launch(
-        "tfft_fft2_col", (re, im), (mid_re, mid_im), algorithm, h, w,
-        radices1, scales1, sign, None, "default", knobs))
-    return mid_re, mid_im
+    _, h, w = re.shape
+    return _launch_col_pass((re, im), n1=h, n2=w, radices1=radices1,
+                            scales1=scales1, sign=sign, lane_tile=None,
+                            algorithm=algorithm, first_dot="default",
+                            knobs=knobs)
 
 
 def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
@@ -700,9 +711,10 @@ def _fft2_column_pass_scalar(re, im, *, radices1, scales1, sign=dft.FORWARD,
                              complex_mult="block", state_dtype="float32"):
     """K4's column pass on CUDA planes on the scalar engine, one CTA per
     tile (``col_pass_kernel``, entry point ``tfft_fft2_col_scalar``), not
-    counted: the bitwise reference of kernel A on a cluster, every output of
-    which follows the scalar engine's summation order.  ``ValueError``
-    where the pass does not fit one CTA."""
+    counted: each output summed by fmaf in r order, not in the tensor-core
+    engine's chunk order, a reference kernel A's cluster twin is held
+    against at the fused bound.  ``ValueError`` where the pass does not fit
+    one CTA."""
     _check_volumes(re, im, 1, radices1, "fft2_column_pass")
     knobs = _knobs(pass_engine(engine, radices1, grouped, gridslice=False),
                    grouped, complex_mult, state_dtype)

@@ -88,6 +88,7 @@ __all__ = [
     "variant",
     "cta_smem_bytes",
     "fit_cta",
+    "column_cluster",
     "check_planes",
     "check_kernel_operands",
     "count_launch",
@@ -526,10 +527,9 @@ def fit_cta(n: int, lanes: int, algorithm: str, stages,
     needs more shared memory than it has (mult3's third operand plane);
     where one transform alone does not fit, it is split over the smallest
     thread-block cluster of 2, 4 or 8 CTAs (one transform per cluster) whose
-    slices of n / cluster elements each fit (csrc/fft_stages.cuh, cluster
-    mode).  So a plan that one CTA holds keeps its kernel.  ``ValueError``
-    where even MAX_CLUSTER CTAs do not hold it: no other route runs in its
-    place."""
+    slices of n / cluster elements each fit (csrc/fft_mma_cluster.cuh).  So
+    a plan that one CTA holds keeps its kernel.  ``ValueError`` where even
+    MAX_CLUSTER CTAs do not hold it: no other route runs in its place."""
     mult3 = any(st.mult3 for st in stages)
     limit = H100.smem_per_block_bytes
 
@@ -549,6 +549,25 @@ def fit_cta(n: int, lanes: int, algorithm: str, stages,
                 f"{limit} B of shared memory each; power-of-two lengths "
                 f"only); the plan does not work on this device")
         lanes, cluster = 1, cluster * 2
+    return lanes, cluster
+
+
+def column_cluster(n: int, lanes: int, other: int, algorithm: str, stages,
+                   what: str) -> Tuple[int, int]:
+    """(lanes, cluster) of a column pass of length ``n`` over ``other``
+    columns (kernel B, K4's column pass, K5): :func:`fit_cta`'s for
+    ``lanes`` adjacent columns per CTA, and past one CTA a tile of adjacent
+    columns per cluster (``csrc/cluster_col_tc.cuh``), each doubling of the
+    lanes doubling the cluster, while the lanes divide ``other`` and the
+    cluster stays within MAX_CLUSTER CTAs.  Each CTA then holds the
+    elements it held with one lane, and the strided loads and stores move
+    ``lanes`` contiguous elements per row.  At n = 32768 that is 4 columns
+    on 8 CTAs, the fastest of the candidates (1, 2), (2, 4) and (4, 8) on
+    the card (``chip_smoke.py``'s K2c candidates, PERF.md)."""
+    lanes, cluster = fit_cta(n, lanes, algorithm, stages, what)
+    while (cluster > 1 and other % (lanes * 2) == 0
+           and cluster * 2 <= MAX_CLUSTER):
+        lanes, cluster = lanes * 2, cluster * 2
     return lanes, cluster
 
 
@@ -660,26 +679,29 @@ def mma_route(st: Stage) -> bool:
     return not st.fold and st.radix >= 8
 
 
-def cluster_owner(n: int, radix: int, cluster: int, index):
+def cluster_owner(n: int, radix: int, cluster: int, index, lanes: int = 1):
     """(rank, local index) of operand index ``index`` = r * nt + g of a
     stage of ``radix`` on a cluster of ``cluster`` CTAs holding one
-    transform of ``n`` (``csrc/fft_mma_cluster.cuh``): column g of the stage's
-    nt = n / radix lives on rank g // ntl, ntl = nt / cluster, at local index
-    r * ntl + g % ntl (before the stage's swizzle), so each CTA holds all R
-    rows of its own ntl columns and reads only its own shared memory."""
-    nt = n // radix
+    transform of ``n``, or a column tile of ``lanes`` transforms, element i
+    of transform lane at i * lanes + lane (``csrc/fft_mma_cluster.cuh``):
+    column g of the stage's nt = n * lanes / radix lives on rank g // ntl,
+    ntl = nt / cluster, at local index r * ntl + g % ntl (before the stage's
+    swizzle), so each CTA holds all R rows of its own ntl columns and reads
+    only its own shared memory."""
+    nt = n * lanes // radix
     ntl = nt // cluster
     r, g = np.divmod(np.asarray(index), nt)
     rank, gl = np.divmod(g, ntl)
     return rank, r * ntl + gl
 
 
-def cluster_slice_base(rank: int, ntl: int, m: int) -> int:
+def cluster_slice_base(rank: int, ntl: int, m: int, lanes: int = 1) -> int:
     """The slice at which a folded stage's tables start on ``rank`` (ntl
-    columns per rank, M columns per slice, both powers of two): local column
-    gl reads slice ``cluster_slice_base + gl // m``, its own slice
-    (rank * ntl + gl) // m (``csrc/fft_mma_cluster.cuh``)."""
-    return rank * ntl // m
+    columns per rank, M columns of a transform per slice, ``lanes``
+    transforms side by side, all powers of two): local column gl reads slice
+    ``cluster_slice_base + gl // (m * lanes)``, its own slice
+    (rank * ntl + gl) // (m * lanes) (``csrc/fft_mma_cluster.cuh``)."""
+    return rank * ntl // (m * lanes)
 
 
 def mma_table_index(radix: int, slices: int, matrices: int, terms: int,

@@ -1,7 +1,8 @@
 """Plans past one CTA: the JAX package's single-pass plans at N = 32768 and
 65536, four-step passes of 32768, bf16x6 with mult3 at N = 16384, K3 and the
 R2C fused route past 16384, which the port runs on thread-block clusters
-(``fused_cuda.fit_cta``, the cluster mode of ``csrc/fft_stages.cuh``).
+(``fused_cuda.fit_cta``, and for the column passes
+``fused_cuda.column_cluster``; ``csrc/fft_mma_cluster.cuh``).
 
 On the CPU the wrappers run their plain versions, so these tests hold the
 port's plans and transforms against the JAX package (Pallas interpret mode)
@@ -219,6 +220,44 @@ def test_one_cta_plans_keep_their_kernel():
                 assert _fit(n, alg, lanes=lanes) == (lanes, 1)
     # mult3's third plane halves the lanes before any cluster is taken.
     assert _fit(8192, "bf16x6", True, lanes=2) == (1, 1)
+
+
+# (n1, columns n2, dot algorithm, mult3 stages, (lanes, cluster)) of the
+# column-cluster rule: one CTA keeps pass_lanes' tile; past it, each
+# doubling of the lanes doubles fit_cta's cluster, while the lanes divide
+# n2 and the cluster stays within 8 CTAs.
+COLUMN_TABLE = [
+    (16384, 4096, "bf16", False, (1, 1)),
+    (4096, 4096, "bf16", False, (4, 1)),
+    (32768, 4096, "bf16", False, (4, 8)),   # the 2^27 split (32768, 4096)
+    (32768, 32, "bf16", False, (4, 8)),
+    (32768, 2, "bf16", False, (2, 4)),
+    (32768, 1, "bf16", False, (1, 2)),
+    (32768, 4096, "bf16x3", False, (4, 8)),
+    (65536, 4096, "bf16", False, (2, 8)),
+    (131072, 4096, "bf16", False, (1, 8)),
+    (16384, 4096, "bf16x6", True, (4, 8)),
+    (8192, 4096, "bf16x6", True, (1, 1)),
+]
+
+
+@pytest.mark.parametrize("n,other,algorithm,mult3,want", COLUMN_TABLE)
+def test_column_cluster_rule(n, other, algorithm, mult3, want):
+    radices = (128,) + (n // 128,) if mult3 else (n,)
+    stages = fused_cuda.pass_stages(radices, complex_mult="mult3" if mult3
+                                    else "block")
+    lanes = four_step_cuda.pass_lanes(n, other)
+    assert fused_cuda.column_cluster(n, lanes, other, algorithm, stages,
+                                     "test") == want
+    # Each CTA of the cluster holds what it held with one lane.
+    _, fit = _fit(n, algorithm, mult3)
+    assert want[1] == 1 or n * want[0] // want[1] == n // fit
+
+
+def test_column_cluster_refuses_past_8_ctas():
+    stages = fused_cuda.pass_stages((1 << 18,))
+    with pytest.raises(ValueError, match="cluster of 8 CTAs"):
+        fused_cuda.column_cluster(1 << 18, 1, 4096, "bf16", stages, "test")
 
 
 def test_cluster_refusal_names_the_limit():

@@ -11,14 +11,19 @@ cluster table) and on a sweep of C = 2, 4, 8 at N = 1024-16384: a bijection
 onto C x [0, n / C), each rank's buffer equal to its columns row by row, a
 folded stage's slice offset giving each column its own slice, and a numpy
 model of the engine's data movement (local stage products, one write per
-output to the rank the map names) equal to ``np.fft.fft``.
+output to the rank the map names) equal to ``np.fft.fft``.  The same checks
+run on the column-tile mode of kernel B's twin (T adjacent columns per
+cluster, the lanes innermost: ``cluster_owner(..., lanes=T)``), whose model
+adds the column tile's load at a pitch of n2 (K5: packed pairs), the lanes
+and the four-step P.Q epilogue, and equals ``np.fft.fft`` down the columns
+times the four-step twiddle (K4c: without it).
 """
 import numpy as np
 import pytest
 import torch
 
 import tensorfft_tpu_torch as tt
-from tensorfft_tpu_torch.ops import fused_cuda
+from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda
 from tensorfft_tpu_torch.plan import optimal_radices
 
 torch.set_num_threads(1)
@@ -222,3 +227,194 @@ def test_plan_cluster_model_is_the_fft(n, radices, stages, cluster):
 @pytest.mark.parametrize("n,radices,cluster", SWEEP)
 def test_sweep_cluster_model_is_the_fft(n, radices, cluster):
     _check_model(n, radices, cluster, seed=n + 3 * cluster)
+
+
+# -- column tiles: kernel B's twin, T adjacent columns per cluster ----------
+#
+# Element i of column lane sits at operand index i * T + lane, so a stage's
+# column is g = gm * T + lane and each rank owns ntl = n * T / R / C
+# consecutive ones (``cluster_owner(..., lanes=T)``).  The 2^27 split
+# (32768, 4096) puts a 32768-point column pass (radices (32, 32, 32)) on a
+# cluster; the column-cluster rule's candidates there are (T, C) = (1, 2),
+# (2, 4) and (4, 8).
+K2C_RADICES = (32, 32, 32)
+COL_PLANS = [pytest.param(32768, K2C_RADICES, t, c, id=f"K2c-2^27-T{t}-c{c}")
+             for t, c in ((1, 2), (2, 4), (4, 8))]
+# n1 = 1024 ... 16384 with T = 1, 2, 4 on 2, 4 and 8 CTAs, wherever each
+# stage's columns split into the cluster's blocks.
+COL_SWEEP = [pytest.param(n, optimal_radices(n), t, c, id=f"{n}-T{t}-c{c}")
+             for n in (1024, 2048, 4096, 8192, 16384)
+             for t in (1, 2, 4) for c in (2, 4, 8)
+             if max(optimal_radices(n)) * c <= n * t]
+
+
+def _check_tile_bijection(n, radices, lanes, cluster):
+    e = n * lanes // cluster
+    for r in radices:
+        rank, local = fused_cuda.cluster_owner(n, r, cluster,
+                                               np.arange(n * lanes), lanes)
+        assert rank.min() == 0 and rank.max() == cluster - 1
+        assert local.min() == 0 and local.max() == e - 1
+        assert np.array_equal(np.sort(rank * e + local), np.arange(n * lanes))
+
+
+def _check_tile_buffers(n, radices, lanes, cluster, seed):
+    # Element (i, lane) of the tile at operand index i * lanes + lane: rank
+    # c's buffer, row by row, is the stage's columns c * ntl ... of the
+    # operand (R rows of n * lanes / R columns).
+    x = np.random.default_rng(seed).standard_normal((n, lanes))
+    e = n * lanes // cluster
+    for r in radices:
+        ntl = e // r
+        rank, local = fused_cuda.cluster_owner(n, r, cluster,
+                                               np.arange(n * lanes), lanes)
+        buf = np.empty((cluster, e))
+        buf[rank, local] = x.reshape(-1)
+        cols = x.reshape(r, n * lanes // r)
+        for c in range(cluster):
+            assert np.array_equal(buf[c].reshape(r, ntl),
+                                  cols[:, c * ntl:(c + 1) * ntl])
+
+
+def _check_tile_slices(n, radices, lanes, cluster):
+    # Column g = gm * lanes + lane of a stage with M columns per slice reads
+    # slice gm // M: on rank c, local column gl, the base plus
+    # gl // (M * lanes).
+    k = 1
+    for r in radices:
+        m = n // (k * r)
+        ntl = n * lanes // r // cluster
+        for c in range(cluster):
+            gl = np.arange(ntl)
+            got = fused_cuda.cluster_slice_base(c, ntl, m, lanes) + gl // (m * lanes)
+            assert np.array_equal(got, ((c * ntl + gl) // lanes) // m)
+            assert got.max() < k
+        k *= r
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_PLANS)
+def test_col_plan_map_is_a_bijection(n, radices, lanes, cluster):
+    _check_tile_bijection(n, radices, lanes, cluster)
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_SWEEP)
+def test_col_sweep_map_is_a_bijection(n, radices, lanes, cluster):
+    _check_tile_bijection(n, radices, lanes, cluster)
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_PLANS)
+def test_col_plan_rank_buffers_are_its_columns(n, radices, lanes, cluster):
+    _check_tile_buffers(n, radices, lanes, cluster, seed=n + lanes)
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_SWEEP)
+def test_col_sweep_rank_buffers_are_its_columns(n, radices, lanes, cluster):
+    _check_tile_buffers(n, radices, lanes, cluster, seed=n + 7 * lanes + cluster)
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_PLANS)
+def test_col_plan_slice_offsets(n, radices, lanes, cluster):
+    _check_tile_slices(n, radices, lanes, cluster)
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_SWEEP)
+def test_col_sweep_slice_offsets(n, radices, lanes, cluster):
+    _check_tile_slices(n, radices, lanes, cluster)
+
+
+def _simulate_tile(x, radices, cluster, lanes, c0, pairs=False, epilogue=None):
+    """The engine's column-tile mode on complex128 values: columns c0 ...
+    c0 + lanes - 1 of the (n, pitch) block ``x`` (``pairs``: the (n, 2 *
+    pitch) real block, element (i, j) the pair x[i, 2j], x[i, 2j + 1]).
+    Stage 0 loads each rank's block by the kernel's map (local q = r * ntl
+    + gl holds element (r * n / R0 + g // lanes, g % lanes), g = rank * ntl +
+    gl), which must be the one ``cluster_owner`` gives; each stage
+    multiplies a rank's [R][ntl] buffer by the DFT matrix and writes each
+    output, twiddled by column gm = g // lanes, to the rank and local index
+    cluster_owner names; the last stage's output (r_out, g) is bin k = r_out
+    * K + g // lanes of column g % lanes, passed through ``epilogue(k,
+    lane, value)`` and stored at (k, c0 + lane)."""
+    n = x.shape[0]
+    pitch = x.shape[1] // (2 if pairs else 1)
+    e = n * lanes // cluster
+    ntl = e // radices[0]
+    bufs = np.full((cluster, e), np.nan, dtype=complex)
+    q = np.arange(e)
+    for c in range(cluster):
+        g = c * ntl + q % ntl
+        i, col = (q // ntl) * (n // radices[0]) + g // lanes, c0 + g % lanes
+        bufs[c] = x[i, 2 * col] + 1j * x[i, 2 * col + 1] if pairs else x[i, col]
+        rank, local = fused_cuda.cluster_owner(n, radices[0], cluster,
+                                               i * lanes + g % lanes, lanes)
+        assert np.all(rank == c) and np.array_equal(local, q)
+    k, m = 1, n
+    for s, r in enumerate(radices):
+        m //= r
+        ntl = e // r
+        d = np.exp(-2j * np.pi * np.outer(np.arange(r), np.arange(r)) / r)
+        outs = np.einsum("or,crg->cog", d, bufs.reshape(cluster, r, ntl))
+        c, r_out, gl = np.meshgrid(np.arange(cluster), np.arange(r),
+                                   np.arange(ntl), indexing="ij")
+        gm, lane = np.divmod(c * ntl + gl, lanes)
+        if s + 1 == len(radices):
+            y = np.full((n, pitch), np.nan, dtype=complex)
+            kb = r_out * k + gm
+            y[kb, c0 + lane] = outs if epilogue is None else epilogue(kb, lane, outs)
+            return y
+        r2 = radices[s + 1]
+        k2, m2 = k * r, m // r2
+        kk, mm = np.divmod(gm, m)
+        kk2 = r_out * k + kk
+        rr2, mm2 = np.divmod(mm, m2)
+        w = np.exp(-2j * np.pi * rr2 * kk2 / (k2 * r2))
+        rank2, local2 = fused_cuda.cluster_owner(
+            n, r2, cluster, ((rr2 * k2 + kk2) * m2 + mm2) * lanes + lane, lanes)
+        bufs = np.full((cluster, e), np.nan, dtype=complex)
+        bufs[rank2, local2] = outs * w
+        k *= r
+    raise AssertionError("no stages")
+
+
+def _check_tile_model(n, radices, lanes, cluster, kind, seed, n2=16):
+    """K2c (the four-step P.Q twiddle in the epilogue, from the same
+    fp32 tables), K4c (no twiddle) or K5 (packed pairs, twiddle) on the
+    columns c0 = lanes ... 2 * lanes - 1 of an (n, n2) block: the model
+    equals np.fft.fft down those columns, times the twiddle."""
+    rng = np.random.default_rng(seed)
+    pairs = kind == "K5"
+    x = rng.standard_normal((n, 2 * n2 if pairs else n2))
+    z = x[:, 0::2] + 1j * x[:, 1::2] if pairs else x + 1j * rng.standard_normal((n, n2))
+    c0 = lanes
+    epilogue = None
+    if kind != "K4c":
+        p, qq, t = four_step_cuda.four_step_tables(n, n2, 128, -1)
+        p = p.astype(np.float64)
+        qq = qq.astype(np.float64)
+
+        def epilogue(k1, lane, v):
+            j2 = c0 + lane
+            w_p = p[j2 // t, 0, k1] + 1j * p[j2 // t, 1, k1]
+            w_q = qq[0, k1, j2 % t] + 1j * qq[1, k1, j2 % t]
+            return v * w_p * w_q
+    y = _simulate_tile(z if not pairs else x, radices, cluster, lanes, c0,
+                       pairs=pairs, epilogue=epilogue)
+    cols = slice(c0, c0 + lanes)
+    want = np.fft.fft(z[:, cols], axis=0)
+    if kind != "K4c":
+        k1, j2 = np.meshgrid(np.arange(n), np.arange(c0, c0 + lanes), indexing="ij")
+        want = want * np.exp(-2j * np.pi * k1 * j2 / (n * n2))
+    got = y[:, cols]
+    assert np.all(np.isfinite(got)) and np.all(np.isnan(np.delete(y, cols, axis=1)))
+    assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want))
+
+
+@pytest.mark.parametrize("kind", ["K2c", "K4c", "K5"])
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_PLANS)
+def test_col_plan_model_is_the_column_pass(n, radices, lanes, cluster, kind):
+    _check_tile_model(n, radices, lanes, cluster, kind, seed=lanes + cluster)
+
+
+@pytest.mark.parametrize("n,radices,lanes,cluster", COL_SWEEP)
+def test_col_sweep_model_is_the_column_pass(n, radices, lanes, cluster):
+    kind = ("K2c", "K4c", "K5")[(n.bit_length() + lanes + cluster) % 3]
+    _check_tile_model(n, radices, lanes, cluster, kind, seed=n + lanes + cluster)

@@ -162,10 +162,10 @@ PASS_SYMBOLS = ["tfft_four_step_col", "tfft_four_step_col_packed",
 @pytest.mark.parametrize("cluster", [False, True], ids=["one_cta", "cluster"])
 @pytest.mark.parametrize("symbol", PASS_SYMBOLS)
 def test_launch_passes_mats_on_one_cta(recorded, symbol, cluster):
-    # One CTA: a 64-point pass; a cluster: a 32768-point pass (2 CTAs).
-    # Every launch takes the bf16 matrices but kernel B's cluster twin (the
-    # column passes on a cluster), which runs the scalar engine on the fp32
-    # tables.
+    # One CTA: a 64-point pass; a cluster: a 32768-point pass (2 CTAs per
+    # row; a column pass a tile of adjacent columns per cluster,
+    # fused_cuda.column_cluster).  Every launch, one CTA or a cluster, takes
+    # the bf16 matrices of the tensor-core engine.
     col = "col" in symbol
     long, short = 32768 if cluster else 64, 64
     n1, n2 = (long, short) if col else (short, long)
@@ -182,8 +182,13 @@ def test_launch_passes_mats_on_one_cta(recorded, symbol, cluster):
     key = (tuple(radices), tuple(1.0 / r for r in radices), -1, "bf16",
            "default", torch.device("cpu"))
     if cluster and col:
-        assert (n_cluster, lanes, mats, variant) == (2, 1, None, "cluster2")
-        want_tables, want_meta = fused_cuda.kernel_tables(*key, *knobs)
+        want_lanes, want_cluster = fused_cuda.column_cluster(
+            n1, 1, n2, "bf16", fused_cuda.pass_stages(tuple(radices)), "test")
+        assert want_cluster > 1
+        assert (n_cluster, lanes, variant) == (want_cluster, want_lanes,
+                                               f"cluster{want_cluster}")
+        want_tables, want_meta, want_mats = fused_cuda.mma_tables(*key, *knobs)
+        assert mats is not None and mats == want_mats.data_ptr()
     elif cluster:
         assert (n_cluster, lanes, variant) == (2, 1, "cluster2")
         want_tables, want_meta, want_mats = fused_cuda.mma_tables(*key, *knobs)

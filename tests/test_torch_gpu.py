@@ -841,8 +841,12 @@ def test_cluster_four_step_passes_match_plain(cuda, split, precision):
     row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
     bf16 = precision == "bfloat16"
     re, im = _planes(2, n, plan.precision.storage_dtype, cuda, seed=split[0])
+    # The column pass past one CTA takes the column-cluster rule's cluster.
+    stages = fused_cuda.pass_stages(tuple(kw["radices1"]))
+    _, c_cluster = fused_cuda.column_cluster(split[0], 1, split[1],
+                                             kw["algorithm"], stages, "test")
     c_var, r_var = (("mma", "cluster2") if split[1] == 32768
-                    else ("cluster2", "mma"))
+                    else (f"cluster{c_cluster}", "mma"))
     c0 = four_step_cuda.column_pass.variant_launches[c_var]
     r0 = four_step_cuda.row_pass.variant_launches[r_var]
     mid = four_step_cuda.column_pass_reference(re, im, **col)
@@ -857,6 +861,93 @@ def test_cluster_four_step_passes_match_plain(cuda, split, precision):
     o_re, o_im = tt.fft_split(*x, plan)
     d = deviation((o_re.double().cpu().numpy(), o_im.double().cpu().numpy()),
                   fft_oracle(sig[0][None], sig[1][None]))
+    assert d.passes_reference_gate(), d
+
+
+def _col_cases(n1, n2):
+    """Every (lanes, cluster) a column pass of n1 over n2 columns may be
+    forced onto past one CTA: a power-of-two tile of columns dividing n2 on
+    2, 4 or 8 CTAs of at most 16384 elements each."""
+    return [(t, c) for c in (2, 4, 8) for t in (1, 2, 4, 8)
+            if n2 % t == 0 and n1 * t // c <= fused_cuda.MAX_CTA_ELEMS]
+
+
+@pytest.mark.parametrize("engine", ["stacked", "planar"])
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n1", [8192, 16384])
+def test_cluster_col_pass_bitwise_one_cta(cuda, n1, precision, engine):
+    # Kernel B, K4's column pass and K5 forced onto every (lanes, cluster)
+    # through the private launcher: each CTA owns a block of every stage's
+    # columns, the lanes innermost, so each output is the one-CTA kernel's
+    # bit for bit (twiddle epilogue, pair loads and column-tile stores
+    # included).
+    n2 = 8
+    plan = tt.create_plan(n1, precision=precision)
+    dtype, alg = plan.precision.storage_dtype, plan.precision.dot_algorithm
+    radices = plan.radices
+    knobs = four_step_cuda._knobs(engine, False, "block", "float32")
+    stages = fused_cuda.pass_stages(radices, engine)
+    one_var = fused_cuda.variant(engine, stages, "float32")
+    re, im = _planes(2, n1 * n2, dtype, cuda, seed=n1 + len(engine))
+    kw = dict(n1=n1, n2=n2, radices1=radices,
+              scales1=stage_scales(radices, "forward", True), sign=-1,
+              algorithm=alg, first_dot="default", knobs=knobs)
+    for wrapper, src, lane_tile in (
+            (four_step_cuda.column_pass, (re, im), 128),
+            (four_step_cuda.fft2_column_pass,
+             (re.reshape(2, n1, n2), im.reshape(2, n1, n2)), None),
+            (four_step_cuda.column_pass_packed,
+             (torch.stack([re, im], -1).reshape(2, 2 * n1 * n2),), 128)):
+        counts = wrapper.variant_launches
+        before = counts[one_var]
+        one = four_step_cuda._launch_col_pass(src, lane_tile=lane_tile, **kw)
+        torch.cuda.synchronize()
+        assert counts[one_var] == before + 1
+        for lanes, cluster in _col_cases(n1, n2):
+            var = one_var.replace("mma", f"cluster{cluster}")
+            before = counts[var]
+            got = four_step_cuda._launch_col_pass(src, lane_tile=lane_tile,
+                                                  cluster=cluster, lanes=lanes,
+                                                  **kw)
+            torch.cuda.synchronize()
+            assert counts[var] == before + 1, (lanes, cluster)
+            _bitwise(got, one)
+
+
+def test_cluster_column_twin_k4c_and_k5_pass_gate(cuda):
+    # The column twin on the entry points: a 2D transform with H = 32768
+    # (K4's column pass past one CTA) and a real four-step transform whose
+    # 32768-point column pass is K5's, each launching the twin once and
+    # passing the gate against numpy.
+    h, w = 32768, 16
+    stages = fused_cuda.pass_stages(tt.create_plan(h, max_fused_length=h).radices)
+    _, cluster = fused_cuda.column_cluster(h, 1, w, "bf16", stages, "test")
+    sig = make_test_signal(h * w, 42, 42 * 42)
+    x = [torch.from_numpy(s.reshape(h, w)).to(cuda, torch.bfloat16) for s in sig]
+    counts = four_step_cuda.fft2_column_pass.variant_launches
+    before = counts[f"cluster{cluster}"]
+    o_re, o_im = tt.fftn_split(*x, axes=(-2, -1), max_fused_length=h)
+    torch.cuda.synchronize()
+    assert counts[f"cluster{cluster}"] == before + 1
+    want = np.fft.fft2(sig[0].reshape(h, w) + 1j * sig[1].reshape(h, w)) / (h * w)
+    d = deviation((o_re.double().cpu().numpy(), o_im.double().cpu().numpy()),
+                  (want.real, want.imag))
+    assert d.passes_reference_gate(), d
+    m = 1 << 20
+    plan = tt.create_plan(m, tuning=dict(strategy="four_step",
+                                         four_step_split=(32768, 32)))
+    radices1 = tuple(four_step_call_kwargs(plan, True)["radices1"])
+    _, cluster = fused_cuda.column_cluster(32768, 1, 32, "bf16",
+                                           fused_cuda.pass_stages(radices1), "test")
+    x64 = np.stack(make_test_signal(2 * m, 42, 42 * 42))
+    counts = four_step_cuda.column_pass_packed.variant_launches
+    before = counts[f"cluster{cluster}"]
+    spec = tt.rfft_split(torch.from_numpy(x64).to(cuda, torch.bfloat16), plan)
+    torch.cuda.synchronize()
+    assert counts[f"cluster{cluster}"] == before + 1
+    want = np.fft.rfft(x64, axis=-1) / (2 * m)
+    d = deviation((spec[0].double().cpu().numpy(), spec[1].double().cpu().numpy()),
+                  (want.real, want.imag))
     assert d.passes_reference_gate(), d
 
 
