@@ -8,9 +8,9 @@ first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills)
      and fails unless every line of ``csrc/ptxas_reference.txt`` (each
-     kernel outside the tensor-core engine: the scalar one-CTA column pass
-     and the R2C epilogue kernels, as built before that engine) is in it
-     unchanged;
+     kernel outside the tensor-core engine, as built before it: the scalar
+     one-CTA column pass, pack and interleave) is in it unchanged, and
+     prints the untangle pair's lines again on their own;
   2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
      path was launched:
@@ -82,9 +82,10 @@ first use, one process per source), then:
      kernel A on the volume's axis-0 rows), then the R2C kernels again
      under the float32 policy at a cut size
      (``testing.metrics.agreement``: one bf16 ulp of the
-     output scale, on at most 0.1% of elements for kernel A and the untangle
-     pair and 1% for the four-step passes; fp32 within 1e-5 relative; pack
-     and interleave bit-identical);
+     output scale, on at most 0.1% of elements for kernel A and 1% for the
+     four-step passes; fp32 within 1e-5 relative; pack, interleave and the
+     untangle pair bit-identical, the pair also on the short rows of
+     ``rfftn_split``'s last axis at a real 4096 x 4096);
   4. runs the reference accuracy gate (avg <= 1e-3, sigma <= 1e-2,
      max <= 0.5 against the numpy fp64 oracle) for the C2C path at
      N = 256 ... 2^20 (bf16) and N = 4096, 16384, 2^20 (float32), and for
@@ -103,7 +104,8 @@ first use, one process per source), then:
      four-step pass's one call is the whole transform's ``torch.fft.fft``
      (``rfft``/``irfft`` on the R2C route) at its shape; kernel B's twin
      at 2^27 on each (lanes, cluster) candidate of the column-cluster rule,
-     in turns, and the whole 2^27 transform at that split.
+     in turns, and the whole 2^27 transform at that split; the untangle pair
+     also on those short rows (M = 2048 x B = 4096).
 
 Every kernel's one-CTA calls run on the tensor-core engine
 (``csrc/fft_mma.cuh``): kernel A, K3 and K4's row pass, and since the
@@ -157,7 +159,11 @@ R2C_FLAGSHIP = [
     ("r2c-fused", 32768, 4096),
     ("r2c-config4", 1 << 20, 16),
 ]
-R2C_SHAPE = {label: f"real N={n} x B={b} bf16" for label, n, b in R2C_FLAGSHIP}
+# The untangle pair on short rows: the last axis of rfftn_split at a real
+# 4096 x 4096 (M = 2048, B = 4096), timed and held beside the main path's.
+R2C_SHORT = ("r2c-short-rows", 4096, 4096)
+R2C_SHAPE = {label: f"real N={n} x B={b} bf16"
+             for label, n, b in R2C_FLAGSHIP + [R2C_SHORT]}
 # The float32 variants of the R2C kernels against their plain versions: the
 # main path's lengths, with the batch cut.
 R2C_FP32 = [("r2c-fused", 32768, 256), ("r2c-config4", 1 << 20, 2)]
@@ -626,6 +632,9 @@ def main() -> int:
     for line in summary:
         log(line)
     ptxas_identity(summary)
+    for line in summary:
+        if "untangle_pairs_kernel<" in line or "retangle_pairs_kernel<" in line:
+            log(f"[ptxas] untangle pair:{line}")
 
     def inputs(n, b, dtype, seed, planes=2):
         rng = np.random.default_rng(seed)
@@ -844,8 +853,8 @@ def main() -> int:
         inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
                    out_dtype=torch.bfloat16)
         z = rfft_cuda.retangle_inv(s_re, s_im, **inv)
-        hold("retangle_inv", label, z,
-             rfft_cuda.retangle_inv_reference(s_re, s_im, **inv), FUSED_MAX_FRAC)
+        bitwise("retangle_inv", label, z,
+                rfft_cuda.retangle_inv_reference(s_re, s_im, **inv))
         if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
             _, _, col, _ = pass_kwargs(plan, True)
             _, _, _, row = pass_kwargs(plan, False)
@@ -870,17 +879,16 @@ def main() -> int:
             bitwise("interleave_split", label, [rfft_cuda.interleave_split(*o)],
                     [rfft_cuda.interleave_split_reference(*o)])
             r2c_args[label] = dict(x=x, Z=Z, spec=(s_re, s_im), planes=o)
-        hold("untangle_fwd", label,
-             rfft_cuda.untangle_fwd(*Z, n=n, scale=fwd_scale),
-             rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fwd_scale),
-             FUSED_MAX_FRAC)
+        bitwise("untangle_fwd", label,
+                rfft_cuda.untangle_fwd(*Z, n=n, scale=fwd_scale),
+                rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fwd_scale))
         r2c_args[label]["fwd_scale"] = fwd_scale
         r2c_args[label]["inv"] = inv
         # fp32 storage in, bf16 out: K10's input need not be the storage dtype.
         f_re, f_im = s_re.float(), s_im.float()
-        hold("retangle_inv", f"{label} fp32-in",
-             rfft_cuda.retangle_inv(f_re, f_im, **inv),
-             rfft_cuda.retangle_inv_reference(f_re, f_im, **inv), FUSED_MAX_FRAC)
+        bitwise("retangle_inv", f"{label} fp32-in",
+                rfft_cuda.retangle_inv(f_re, f_im, **inv),
+                rfft_cuda.retangle_inv_reference(f_re, f_im, **inv))
 
     # The same kernels under the float32 policy (fp32 storage, bf16x3).
     for label, n, b in R2C_FP32:
@@ -891,8 +899,8 @@ def main() -> int:
         inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
                    out_dtype=torch.float32)
         z = rfft_cuda.retangle_inv(s_re, s_im, **inv)
-        hold("retangle_inv", tag, z,
-             rfft_cuda.retangle_inv_reference(s_re, s_im, **inv), bf16=False)
+        bitwise("retangle_inv", tag, z,
+                rfft_cuda.retangle_inv_reference(s_re, s_im, **inv))
         if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
             _, _, col, _ = pass_kwargs(plan, True)
             _, _, inv_col, row = pass_kwargs(plan, False)
@@ -913,8 +921,23 @@ def main() -> int:
             bitwise("interleave_split", tag, [rfft_cuda.interleave_split(*o)],
                     [rfft_cuda.interleave_split_reference(*o)])
         fs = float(_output_scale(plan, True))
-        hold("untangle_fwd", tag, rfft_cuda.untangle_fwd(*Z, n=n, scale=fs),
-             rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fs), bf16=False)
+        bitwise("untangle_fwd", tag, rfft_cuda.untangle_fwd(*Z, n=n, scale=fs),
+                rfft_cuda.untangle_fwd_reference(*Z, n=n, scale=fs))
+
+    # The untangle pair on short rows (many rows of a few runs each).
+    short_label, short_n, short_b = R2C_SHORT
+    short_plan = tt.create_plan(short_n // 2)
+    short = dict(n=short_n, b=short_b, fs=float(_output_scale(short_plan, True)),
+                 inv=dict(n=short_n, scale=float(_inverse_pre_scale(short_plan)),
+                          out_dtype=torch.bfloat16),
+                 Z=inputs(short_n // 2, short_b, torch.bfloat16, SEED + 21),
+                 spec=inputs(short_n // 2 + 1, short_b, torch.bfloat16, SEED + 22))
+    bitwise("untangle_fwd", R2C_SHAPE[short_label],
+            rfft_cuda.untangle_fwd(*short["Z"], n=short_n, scale=short["fs"]),
+            rfft_cuda.untangle_fwd_reference(*short["Z"], n=short_n, scale=short["fs"]))
+    bitwise("retangle_inv", R2C_SHAPE[short_label],
+            rfft_cuda.retangle_inv(*short["spec"], **short["inv"]),
+            rfft_cuda.retangle_inv_reference(*short["spec"], **short["inv"]))
 
     def fft2_kwargs(hh, ww, precision):
         """The K4 pass arguments of fftn_split's 2D branch (forward): the
@@ -1386,14 +1409,12 @@ def main() -> int:
         hold_fused(label, "c2c", plan, z, zf, precision)
         fs = float(_output_scale(plan, True))
         name, got = named(lambda: rfft_cuda.untangle_fwd(*zf, n=n, scale=fs))
-        hold(name, label, got, rfft_cuda.untangle_fwd_reference(*zf, n=n, scale=fs),
-             **tol(precision, "float32", False))
+        bitwise(name, label, got, rfft_cuda.untangle_fwd_reference(*zf, n=n, scale=fs))
         inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
                    out_dtype=plan.precision.storage_dtype)
         s_rows = [t[rows] for t in spec]
         name, zi = named(lambda: rfft_cuda.retangle_inv(*s_rows, **inv))
-        hold(name, label, zi, rfft_cuda.retangle_inv_reference(*s_rows, **inv),
-             **tol(precision, "float32", False))
+        bitwise(name, label, zi, rfft_cuda.retangle_inv_reference(*s_rows, **inv))
         o = tt.ifft_split(*zi, plan)
         bitwise("interleave_split", label, [rfft_cuda.interleave_split(*o)],
                 [rfft_cuda.interleave_split_reference(*o)])
@@ -1444,13 +1465,11 @@ def main() -> int:
         fs = float(_output_scale(plan, True))
         z_fwd = four_step_cuda.four_step_fft_packed_real(x[0], **kw)
         name, got = named(lambda: rfft_cuda.untangle_fwd(*z_fwd, n=n, scale=fs))
-        hold(name, label, got, rfft_cuda.untangle_fwd_reference(*z_fwd, n=n, scale=fs),
-             **tol(precision, "float32", False))
+        bitwise(name, label, got, rfft_cuda.untangle_fwd_reference(*z_fwd, n=n, scale=fs))
         inv = dict(n=n, scale=float(_inverse_pre_scale(plan)),
                    out_dtype=plan.precision.storage_dtype)
         name, z = named(lambda: rfft_cuda.retangle_inv(*spec, **inv))
-        hold(name, label, z, rfft_cuda.retangle_inv_reference(*spec, **inv),
-             **tol(precision, "float32", False))
+        bitwise(name, label, z, rfft_cuda.retangle_inv_reference(*spec, **inv))
         _, _, inv_col, inv_row = pass_kwargs(plan, False)
         hold_passes(label, plan, z, precision, shape, four_step_cuda.column_pass,
                     four_step_cuda.column_pass_reference,
@@ -1831,13 +1850,9 @@ def main() -> int:
                                 bound_ms=b_ms, bound_by=b_by,
                                 shape=R2C_SHAPE[label])
 
-    for label, (plan, x) in r2c.items():
-        b, n = x.shape
-        m = n // 2
-        s = 2  # bf16 bytes
-        a = r2c_args[label]
-        fs, inv = a["fwd_scale"], a["inv"]
-        Z, spec = a["Z"], a["spec"]
+    def time_untangle_pair(label, n, b, fs, inv, Z, spec):
+        """K9 on Z and K10 on spec, bf16 (B, N/2) and (B, N/2 + 1) planes."""
+        m, s = n // 2, 2  # bf16 bytes
         table = 2 * 4 * m
         time_r2c("untangle_fwd", label,
                  lambda r, i: rfft_cuda.untangle_fwd(r, i, n=n, scale=fs),
@@ -1849,6 +1864,15 @@ def main() -> int:
                  lambda r, i: rfft_cuda.retangle_inv_reference(r, i, **inv),
                  None, spec, 2 * s * b * (m + 1) + table + 2 * s * b * m,
                  UNTANGLE_OPS * b * m, H100.fp32_flops)
+
+    for label, (plan, x) in r2c.items():
+        b, n = x.shape
+        m = n // 2
+        s = 2  # bf16 bytes
+        a = r2c_args[label]
+        fs, inv = a["fwd_scale"], a["inv"]
+        Z, spec = a["Z"], a["spec"]
+        time_untangle_pair(label, n, b, fs, inv, Z, spec)
         if plan.resolve_strategy() is tt.Strategy.FOUR_STEP:
             col, row = a["col"], a["row"]
             elems = m * b
@@ -1908,6 +1932,8 @@ def main() -> int:
             f"{t_tirf.average_time_ms:.4f} ms | half-length C2C plan "
             f"{c2c[0].resolve_strategy().value} | {smi}")
         del x32, spec32
+    time_untangle_pair(short_label, **short)
+    del short
 
     # The N-D path: each K4 pass at 4096 x 4096 bf16, then the entry points
     # against their torch.fft counterparts on complex64 of the same shape.

@@ -153,25 +153,62 @@ def test_pack_interleave_kernels_match_plain(cuda, m, dtype):
         before[0] + 1, before[1] + 1)
 
 
+def _untangle_pair_bitwise(z, x, m, scaling, out):
+    """K9 on planes z (B, M), K10 on planes x (B, M+1) to ``out``: one launch
+    each, equal to the plain versions bit for bit."""
+    plan = tt.create_plan(2, scaling=scaling)
+    scale = float(_output_scale(plan, True))
+    before = (rfft_cuda.untangle_fwd.launches, rfft_cuda.retangle_inv.launches)
+    got = rfft_cuda.untangle_fwd(*z, n=2 * m, scale=scale)
+    assert not got[1][:, -1].any()
+    _bitwise(got, rfft_cuda.untangle_fwd_reference(*z, n=2 * m, scale=scale))
+    kw = dict(n=2 * m, scale=float(_inverse_pre_scale(plan)), out_dtype=out)
+    got = rfft_cuda.retangle_inv(*x, **kw)
+    assert got[0].dtype is out
+    _bitwise(got, rfft_cuda.retangle_inv_reference(*x, **kw))
+    torch.cuda.synchronize()
+    assert (rfft_cuda.untangle_fwd.launches, rfft_cuda.retangle_inv.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
 @pytest.mark.parametrize("scaling", ["forward", "none", "ortho"])
 @pytest.mark.parametrize("dtype,out", [(torch.bfloat16, torch.bfloat16),
+                                       (torch.bfloat16, torch.float32),
                                        (torch.float32, torch.float32),
                                        (torch.float32, torch.bfloat16)])
-@pytest.mark.parametrize("m", [1, 2, 64, 16384, 1 << 19])
+@pytest.mark.parametrize("m", [1, 2, 3, 8, 12, 64, 16384, 1 << 19])
 def test_untangle_retangle_kernels_match_plain(cuda, m, dtype, out, scaling):
-    plan = tt.create_plan(2, scaling=scaling)
-    z_re, z_im = _planes(3, m, dtype, cuda, seed=m + 1)
-    scale = float(_output_scale(plan, True))
-    got = rfft_cuda.untangle_fwd(z_re, z_im, n=2 * m, scale=scale)
-    assert not got[1][:, -1].any()
-    _hold(got, rfft_cuda.untangle_fwd_reference(z_re, z_im, n=2 * m, scale=scale),
-          bf16=dtype is torch.bfloat16)
-    x_re, x_im = _planes(3, m + 1, dtype, cuda, seed=m + 2)
-    kw = dict(n=2 * m, scale=float(_inverse_pre_scale(plan)), out_dtype=out)
-    got = rfft_cuda.retangle_inv(x_re, x_im, **kw)
-    assert got[0].dtype is out
-    _hold(got, rfft_cuda.retangle_inv_reference(x_re, x_im, **kw),
-          bf16=out is torch.bfloat16)
+    # B = 9: rows start at every misalignment of the pitch-(M+1) planes.
+    z = _planes(9, m, dtype, cuda, seed=m + 1)
+    x = _planes(9, m + 1, dtype, cuda, seed=m + 2)
+    _untangle_pair_bitwise(z, x, m, scaling, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_untangle_retangle_kernels_past_grid_y(cuda, dtype):
+    """B = 70,000 rows of M = 256, past the 65535 limit of a grid's y."""
+    z = _planes(70000, 256, dtype, cuda, seed=3)
+    x = _planes(70000, 257, dtype, cuda, seed=4)
+    _untangle_pair_bitwise(z, x, 256, "forward", dtype)
+
+
+def _offset_planes(b, n, dtype, device, offset, seed):
+    """Planes (b, n) that start ``offset`` elements into their buffers."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, b * n + offset), dtype=np.float32)
+    return [torch.from_numpy(p).to(device, dtype)[offset:].view(b, n) for p in x]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [8, 64, 1024])
+def test_untangle_retangle_kernels_on_offset_rows(cuda, m, dtype):
+    """Planes off a 16-byte boundary: Z one element in takes the
+    element-wise branch, X three elements in shifts its pointer's phase into
+    every row's."""
+    z = _offset_planes(9, m, dtype, cuda, 1, seed=m + 5)
+    x = _offset_planes(9, m + 1, dtype, cuda, 3, seed=m + 6)
+    assert z[0].data_ptr() % 16 and x[0].data_ptr() % 16
+    _untangle_pair_bitwise(z, x, m, "forward", dtype)
 
 
 @pytest.mark.parametrize("precision", ["bfloat16", "float32"])
