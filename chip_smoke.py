@@ -86,10 +86,37 @@ first use, one process per source), then:
      four-step passes; fp32 within 1e-5 relative; pack, interleave and the
      untangle pair bit-identical, the pair also on the short rows of
      ``rfftn_split``'s last axis at a real 4096 x 4096);
-  4. runs the reference accuracy gate (avg <= 1e-3, sigma <= 1e-2,
-     max <= 0.5 against the numpy fp64 oracle) for the C2C path at
-     N = 256 ... 2^20 (bf16) and N = 4096, 16384, 2^20 (float32), and for
-     the R2C path against ``np.fft.rfft(x)/N`` at real N = 512 ... 2^21
+  4. drives two more counted paths:
+       conformance: the ported harness (``testing.conformance.
+            run_unit_sweep`` with ``device="cuda"``) over REFERENCE_SWEEP,
+            N = 256 ... 2^20 at 10 seeds, then its tail 2^21 ... 2^28 at 10
+            seeds, under bf16 and float32: the reference gate (avg <= 1e-3,
+            sigma <= 1e-2, max <= 0.5) at every (N, seed), with the signal,
+            the complex128 oracle and the deviation made on the card (held
+            once against their numpy versions at 2^20), one line per length
+            and policy with its worst avg, sigma and max; each run launches
+            kernel A (N <= 16384) or kernels B and C once, and nothing else;
+            every run's max within CONFORMANCE_MAX_BF16_ULPS bf16 ulps (or
+            CONFORMANCE_MAX_F32_REL) of the spectrum's scale, a bound an
+            all-zero output fails where the gate does not; then one seed per
+            length and policy again, each kernel held against its plain
+            version on that input (its output's deviation equal to the
+            sweep's; the differing fraction over the spectrum's elements
+            at or above SPARSE_SIGNAL of its scale), and the C2C round trip
+            at C2C_ROUNDTRIP's lengths;
+       any: ``fft_split_any`` then ``ifft_split_any`` (Bluestein) at
+            N=1000 x 4096 (M=2048, kernel A), 10,000 x 256 (M=32768, B and
+            C), 1,000,000 x 4 (M=2^21, B and C) in float32 and 1000 x 4096
+            in bf16, each call launching exactly two of each of its
+            kernels; against ``np.fft.fft(x)/N`` (2e-4 of the largest |X|
+            in float32, the reference gate in bf16), the round trip, the
+            M-point kernels against their plain versions on the padded
+            rows (forward on the chirped input, inverse on its product
+            with the kernel spectrum), and
+            each timed against ``torch.fft.fft``; at 4096 x 4096 it
+            delegates to ``fft_split`` (kernel A once, the same bits);
+     then runs the reference accuracy gate against the numpy fp64 oracle
+     for the R2C path against ``np.fft.rfft(x)/N`` at real N = 512 ... 2^21
      (bf16) and N = 8192, 32768, 2^21 (float32), for the 2D path against
      ``np.fft.fft2(x)/(H*W)`` at 4096 x 4096, 8 x 16384 and 16384 x 8 (both
      policies), for the 3-D path against ``np.fft.fftn(x)/x.size`` at
@@ -173,8 +200,48 @@ ND_IMAGE = (4096, 4096)
 ND_VOLUME = (512, 512, 512)
 ND_GATE_2D = [(4096, 4096), (8, 16384), (16384, 8)]
 ND_GATE_3D = (256, 256, 256)
-GATE_BF16 = [256, 1024, 4096, 16384, 1 << 17, 1 << 20]
-GATE_F32 = [4096, 16384, 1 << 20]
+# The conformance path: testing.conformance.REFERENCE_SWEEP (N = 256 ... 2^20,
+# 10 seeds), then its tail up to this length, under both policies; each
+# (N, seed) launches kernel A (N <= 16384) or kernels B and C once.
+CONFORMANCE_TAIL = 1 << 28
+CONFORMANCE_KERNELS = ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]")
+# The card's datagen and oracle against numpy's at 2^20, relative to scale.
+CARD_HOLD_REL = 1e-12
+# Past N ~ 2^16 the reference gate alone passes an all-zero output (its 76
+# nonzero bins of at most 0.5 in 2N move avg and sigma below their limits),
+# so every run's largest deviation is also held to the spectrum's scale S,
+# max |w_h| / 2 over the 2 x 19 harmonics: under bf16 within this many bf16
+# ulps of S, under float32 within this fraction of S.  An all-zero output
+# sits at S itself (128 bf16 ulps of it or more).
+CONFORMANCE_MAX_BF16_ULPS = 4.0
+CONFORMANCE_MAX_F32_REL = 2e-4
+# The conformance path holds each kernel against its plain version on one
+# seed's sine superposition, a sparse spectrum: 2N - 76 of its bins are
+# rounding noise far below the scale, whose last bits follow the summation
+# order, so far more of them differ than the fraction bounds allow (each
+# hold's log line gives the fraction over all elements too).  The differing
+# fraction is counted over the elements at or above this share of the
+# scale; every element stays within the ulp bound.
+SPARSE_SIGNAL = 2.0 ** -8
+# The C2C round trip, fft_split then ifft_split on one seed, at the lengths
+# of the earlier C2C gate.
+C2C_ROUNDTRIP = {"bfloat16": [256, 1024, 4096, 16384, 1 << 17, 1 << 20],
+                 "float32": [4096, 16384, 1 << 20]}
+# The any path: (label, N, batch, policy, the M-point transform's kernels,
+# each launched exactly twice per fft_split_any / ifft_split_any call).
+ANY_CALLS = [
+    ("N=1000 x 4096 float32", 1000, 4096, "float32", ("fused_fft[mma]",)),
+    ("N=10000 x 256 float32", 10_000, 256, "float32",
+     ("four_step_col[mma]", "four_step_row[mma]")),
+    ("N=1000000 x 4 float32", 1_000_000, 4, "float32",
+     ("four_step_col[mma]", "four_step_row[mma]")),
+    ("N=1000 x 4096 bfloat16", 1000, 4096, "bfloat16", ("fused_fft[mma]",)),
+]
+ANY_POW2 = (4096, 4096)
+# fft_split_any against np.fft.fft / N: the JAX package's float32 bound
+# (tests/test_bluestein.py) relative to the largest |X|; bf16 takes the
+# reference gate.  Round trips relative to max |x|.
+ANY_F32_REL = 2e-4
 R2C_GATE_BF16 = [512, 8192, 32768, 1 << 18, 1 << 21]
 R2C_GATE_F32 = [8192, 32768, 1 << 21]
 # Round trip: max |inverse(forward(x)) - x| relative to max |x|.  bf16
@@ -182,6 +249,7 @@ R2C_GATE_F32 = [8192, 32768, 1 << 21]
 # ~2^-7; bf16x3 keeps 16 bits per operand, ~1.5e-5 per stage over up to 6
 # stages; bf16x6 keeps 24 bits, inside bf16x3's bound.
 ROUNDTRIP_TOL = {"bfloat16": 2e-2, "float32": 3e-4, "float32_x6": 3e-4}
+ANY_ROUNDTRIP_TOL = {"bfloat16": ROUNDTRIP_TOL["bfloat16"], "float32": 1e-3}
 # fft_convolve_real (float32 policy) against the fp64 convolution, relative
 # to the output's largest magnitude: three bf16x3 transforms at ~1e-5 each.
 CONVOLVE_TOL = 1e-3
@@ -594,17 +662,22 @@ def main() -> int:
         return 2
 
     import tensorfft_tpu_torch as tt
+    from tensorfft_tpu_torch import bluestein
     from tensorfft_tpu_torch.fft import four_step_call_kwargs, stage_scales
     from tensorfft_tpu_torch.ops import (_build, four_step_cuda, fused_cuda,
                                          rfft_cuda)
     from tensorfft_tpu_torch.rfft import _inverse_pre_scale, _output_scale
     from tensorfft_tpu_torch.testing import (agreement, deviation, fft_oracle,
                                              get_random_weights,
-                                             make_test_signal, measure)
+                                             make_test_signal, measure,
+                                             sine_superposition,
+                                             sine_superposition_torch)
+    from tensorfft_tpu_torch.testing.conformance import (
+        REFERENCE_SWEEP as CONFORMANCE_SWEEP, run_unit_sweep)
     from tensorfft_tpu_torch.plan import effective_state_dtype
     from tensorfft_tpu_torch.testing.metrics import (
         BF16_MAX_SCALE_ULPS, BF16_STATE_MAX_FRAC, BF16_STATE_MAX_SCALE_ULPS,
-        FOUR_STEP_MAX_FRAC, FUSED_MAX_FRAC)
+        FOUR_STEP_MAX_FRAC, FUSED_MAX_FRAC, bf16_ulp)
     from tensorfft_tpu_torch.tuning import TunerCache
     from tensorfft_tpu_torch.utils.device import H100
 
@@ -785,9 +858,19 @@ def main() -> int:
     errs = {name: 0.0 for name in KERNELS}
 
     def hold(name, label, got, want, max_frac=FUSED_MAX_FRAC, bf16=True,
-             max_ulps=BF16_MAX_SCALE_ULPS):
-        a = agreement([g.float().cpu() for g in got],
-                      [w.float().cpu() for w in want], bf16=bf16)
+             max_ulps=BF16_MAX_SCALE_ULPS, frac_above=0.0):
+        """``got`` against ``want`` within ``agreement``'s bounds; with
+        ``frac_above`` the differing fraction counts only the elements at
+        or above that share of max |want| (the ulp bound still holds every
+        element)."""
+        g = [x.float().cpu() for x in got]
+        w = [x.float().cpu() for x in want]
+        a = agreement(g, w, bf16=bf16)
+        if frac_above:
+            g, w = torch.cat([x.reshape(-1) for x in g]), torch.cat([x.reshape(-1) for x in w])
+            big = w.abs() >= frac_above * w.abs().max()
+            label = f"{label}: all elements {a}; the {int(big.sum())} >= {frac_above:g} of the scale"
+            a = dataclasses.replace(a, frac_differ=float((g[big] != w[big]).double().mean()))
         log(f"[kernel vs plain] {name} {label}: {a}")
         if not a.within(max_frac, max_ulps):
             raise RuntimeError(f"{name} disagrees with its plain version at {label}: {a}")
@@ -798,6 +881,28 @@ def main() -> int:
             if g.dtype != w.dtype or not torch.equal(g, w):
                 raise RuntimeError(f"{name} is not bit-identical to its plain version at {label}")
         log(f"[kernel vs plain] {name} {label}: bit-identical")
+
+    def named(call):
+        """(the one kernel variant ``call`` launched, its output)."""
+        before = launch_counts()
+        out = call()
+        (name,) = [k for k, c in launch_counts().items() if c != before.get(k, 0)]
+        return name, out
+
+    def tol(precision, state_dtype, four_step):
+        """hold() bounds: a bf16 state two bf16 ulps on at most 2 %; else
+        the policy's fused or four-step bound (the latter also for a fused
+        transform past N = 16384, testing/metrics.py)."""
+        if state_dtype == "bfloat16":
+            return dict(max_frac=BF16_STATE_MAX_FRAC, bf16=True,
+                        max_ulps=BF16_STATE_MAX_SCALE_ULPS)
+        return dict(max_frac=FOUR_STEP_MAX_FRAC if four_step else FUSED_MAX_FRAC,
+                    bf16=precision == "bfloat16")
+
+    def roundtrip(back, x, storage):
+        x_s = torch.stack([t.to(storage) for t in x]).double()
+        return float((torch.stack(list(back)).double() - x_s).abs().max()
+                     / x_s.abs().max())
 
     def pass_kwargs(plan, forward):
         """(four_step_fft kwargs, common, column pass kwargs, row pass
@@ -814,6 +919,54 @@ def main() -> int:
                    lane_tile=kw["lane_tile"], **common)
         row = dict(radices2=kw["radices2"], scales2=kw["scales2"], **common)
         return kw, common, col, row
+
+    def hold_c2c(label, plan, x, forward=True, sparse=False):
+        """``fft_split`` (or ``ifft_split``) of the storage-dtype (B, N)
+        planes ``x``, each of its kernels held against its plain version on
+        the input it was given: kernel A, or kernel B on ``x`` and kernel C
+        on the plain column pass's output, then the whole output against
+        the plain pair's.  Past BIGN_SLICE_ABOVE elements the holds read the
+        first BIGN_HOLD_ELEMS of each plane.  ``sparse`` (a sine
+        superposition's spectrum) counts the differing fraction over the
+        elements at or above SPARSE_SIGNAL of the scale only and skips the
+        whole-output hold (see SPARSE_SIGNAL).  Returns the whole output."""
+        precision = plan.precision.value
+        above = SPARSE_SIGNAL if sparse else 0.0
+        call = tt.fft_split if forward else tt.ifft_split
+        elems = x[0].numel()
+        keep = BIGN_HOLD_ELEMS if elems > BIGN_SLICE_ABOVE else elems
+        cut = lambda ts: [t.reshape(-1)[:keep] for t in ts]
+        where = f"{label}, first {keep} elements" if keep < elems else label
+        if plan.resolve_strategy() is tt.Strategy.FUSED:
+            name, got = named(lambda: call(*x, plan))
+            want = fused_cuda.fused_fft_reference(
+                *x, radices=plan.radices,
+                scales=stage_scales(plan.radices, plan.scaling, forward),
+                sign=-1 if forward else 1, algorithm=plan.precision.dot_algorithm,
+                first_dot=plan.first_dot, engine=plan.engine, grouped=plan.grouped,
+                complex_mult=plan.complex_mult, state_dtype=plan.state_dtype)
+            hold(name, where, cut(got), cut(want), frac_above=above,
+                 **tol(precision, plan.state_dtype, x[0].shape[-1] > 16384))
+            return got
+        got = call(*x, plan)
+        _, common, col, row = pass_kwargs(plan, forward)
+        t = tol(precision, common["state_dtype"], True)
+        name_c, mid = named(lambda: four_step_cuda.column_pass(*x, **col))
+        mid_plain = four_step_cuda.column_pass_reference(*x, **col)
+        hold(name_c, where, cut(mid), cut(mid_plain), frac_above=above, **t)
+        del mid
+        name_r, out = named(lambda: four_step_cuda.row_pass(*mid_plain, **row))
+        want = four_step_cuda.row_pass_reference(*mid_plain, **row)
+        hold(name_r, where, cut(out), cut(want), frac_above=above, **t)
+        del out, mid_plain
+        if sparse:
+            return got
+        a = agreement([g.float().cpu() for g in cut(got)],
+                      [w.float().cpu() for w in cut(want)], bf16=t["bf16"])
+        log(f"[kernel vs plain] four-step end to end {where}: {a}")
+        if not a.within(t["max_frac"], t.get("max_ulps", BF16_MAX_SCALE_ULPS)):
+            raise RuntimeError(f"four-step disagrees with its plain version at {where}: {a}")
+        return got
 
     for label, (plan, re_, im_) in data.items():
         if plan.resolve_strategy() is tt.Strategy.FUSED:
@@ -997,28 +1150,206 @@ def main() -> int:
 
     # -- 4. reference gates and round trips --------------------------------
     log(f"[phase] gates from {time.perf_counter() - t_start:.1f} s")
-    for precision, lengths in (("bfloat16", GATE_BF16), ("float32", GATE_F32)):
-        for n in lengths:
-            seeds = range(1, 5 if n <= 16384 else 3)
-            sig = [make_test_signal(n, 42 * s, 42 * 42 * s) for s in seeds]
-            re64 = np.stack([s[0] for s in sig])
-            im64 = np.stack([s[1] for s in sig])
-            plan = tt.create_plan(n, precision=precision)
-            x_re = torch.from_numpy(re64).to(dev)
-            x_im = torch.from_numpy(im64).to(dev)
-            f_re, f_im = tt.fft_split(x_re, x_im, plan)
-            d = deviation((f_re.double().cpu().numpy(), f_im.double().cpu().numpy()),
-                          fft_oracle(re64, im64))
-            r_re, r_im = tt.ifft_split(f_re, f_im, plan)
-            x_s = torch.stack([x_re, x_im]).to(plan.precision.storage_dtype).double()
-            rt = float((torch.stack([r_re, r_im]).double() - x_s).abs().max()
-                       / x_s.abs().max())
-            ok = d.passes_reference_gate() and rt <= ROUNDTRIP_TOL[precision]
-            log(f"[gate] {precision} N={n} rows={len(seeds)} "
-                f"{plan.resolve_strategy().value}: {d} roundtrip_rel={rt:.3e} "
-                f"{'PASS' if ok else 'FAIL'}")
+    # The two paths run in functions of their own, so their names do not
+    # replace the main paths' (h, w, b, ...), which later phases read.
+    def conformance_path():
+        # -- conformance: the reference sweep through the ported harness --------
+        # It replaces the C2C part of this step's gate: every length 256 ... 2^28
+        # at 10 seeds under both policies, signal, oracle and deviation made on
+        # the card (testing.conformance with device="cuda").
+        t_phase = time.perf_counter()
+        log(f"[phase] conformance path from {t_phase - t_start:.1f} s")
+        n_hold = 1 << 20
+        w_re, w_im = get_random_weights(20, 42), get_random_weights(20, 42 * 42)
+        for w in (w_re, w_im):
+            want = sine_superposition(n_hold, w)
+            got = sine_superposition_torch(n_hold, w, dev)
+            err = float(np.abs(got.cpu().numpy() - want).max() / np.abs(want).max())
+            log(f"[conformance] card datagen N={n_hold} vs numpy: max_rel={err:.3e}")
+            if err > CARD_HOLD_REL:
+                raise RuntimeError(f"card datagen off by {err:.3e} of its scale")
+        sig64 = [sine_superposition(n_hold, w) for w in (w_re, w_im)]
+        want = fft_oracle(*sig64)
+        got = fft_oracle(*sig64, device=dev)
+        err = max(float(np.abs(g.cpu().numpy() - w).max()) for g, w in zip(got, want))
+        err /= max(float(np.abs(w).max()) for w in want)
+        log(f"[conformance] card oracle N={n_hold} vs numpy: max_rel={err:.3e}")
+        if err > CARD_HOLD_REL:
+            raise RuntimeError(f"card oracle off by {err:.3e} of its scale")
+        del sig64, want, got
+
+        sweep = {}
+
+        def drive_conformance():
+            for lo, hi in ((CONFORMANCE_SWEEP["start_fft_length"],
+                            CONFORMANCE_SWEEP["end_fft_length"]),
+                           (CONFORMANCE_SWEEP["end_fft_length"] * 2, CONFORMANCE_TAIL)):
+                for precision in ("bfloat16", "float32"):
+                    n = lo
+                    while n <= hi:
+                        works, why = tt.plan_works_on_device(
+                            tt.create_plan(n, precision=precision), dev)
+                        if not works:
+                            log(f"[conformance] {precision} N={n}: REFUSED ({why})")
+                            raise RuntimeError(f"the port refuses N={n} {precision}: {why}")
+                        t0 = time.perf_counter()
+                        record = []
+                        ok = run_unit_sweep(
+                            n, n, CONFORMANCE_SWEEP["runs_per_fft_length"],
+                            CONFORMANCE_SWEEP["highest_harmonic"], precision=precision,
+                            verbose=False, device=dev, record=record)
+                        torch.cuda.synchronize()
+                        devs = [d for _, _, d in record]
+                        sweep[precision, n] = devs
+                        log(f"[conformance] {precision} N={n} seeds={len(devs)} "
+                            f"{tt.create_plan(n, precision=precision).resolve_strategy().value}: "
+                            f"worst avg={max(d.average for d in devs):.3e} "
+                            f"sigma={max(d.sigma for d in devs):.3e} "
+                            f"max={max(d.maximum for d in devs):.3e} "
+                            f"{'PASS' if ok else 'FAIL'} ({time.perf_counter() - t0:.2f} s)")
+                        if not ok:
+                            raise RuntimeError(f"reference gate failed at {precision} N={n}: "
+                                               f"{devs[-1]}")
+                        n *= 2
+                    torch.cuda.empty_cache()
+
+        counted("conformance", CONFORMANCE_KERNELS, drive_conformance)
+        want_launches = collections.Counter()
+        for (precision, n), devs in sweep.items():
+            names = (("fused_fft[mma]",) if n <= 16384
+                     else ("four_step_col[mma]", "four_step_row[mma]"))
+            for name in names:
+                want_launches[name] += len(devs)
+        got_launches = {k: c for k, c in launches_by_path["conformance"].items() if c}
+        if got_launches != dict(want_launches):
+            raise RuntimeError(f"conformance path launched {got_launches}, "
+                               f"expected {dict(want_launches)}")
+        # Every run's largest deviation against the spectrum's scale S (the
+        # gate alone cannot fail a wrong output at large N).
+        weights = [(get_random_weights(20, 42 * i), get_random_weights(20, 42 * 42 * i))
+                   for i in range(CONFORMANCE_SWEEP["runs_per_fft_length"])]
+        scales = [max(np.abs(w_r[1:]).max(), np.abs(w_i[1:]).max()) / 2
+                  for w_r, w_i in weights]
+        for (precision, n), devs in sweep.items():
+            if precision == "bfloat16":
+                worst = max(d.maximum / bf16_ulp(scales[i]) for i, d in enumerate(devs))
+                ok, unit = worst <= CONFORMANCE_MAX_BF16_ULPS, "bf16 ulps of S"
+            else:
+                worst = max(d.maximum / scales[i] for i, d in enumerate(devs))
+                ok, unit = worst <= CONFORMANCE_MAX_F32_REL, "of S"
             if not ok:
-                raise RuntimeError(f"accuracy gate failed at {precision} N={n}")
+                raise RuntimeError(f"conformance {precision} N={n}: largest deviation "
+                                   f"{worst:.3e} {unit}")
+            log(f"[conformance bound] {precision} N={n}: worst max {worst:.3e} {unit} PASS")
+
+        # One seed per length and policy again, outside the count: each kernel
+        # against its plain version on the input the sweep gave it (its
+        # output tied to the sweep's by its deviation), and the round trip
+        # through ifft_split at the lengths of C2C_ROUNDTRIP.
+        seed = 1
+        for (precision, n), devs in sweep.items():
+            plan = tt.create_plan(n, precision=precision)
+            storage = plan.precision.storage_dtype
+            sig64 = [sine_superposition_torch(n, w, dev) for w in weights[seed]]
+            x = tuple(p.to(storage).reshape(1, n) for p in sig64)
+            label = f"conformance {precision} N={n} seed {seed}"
+            got = hold_c2c(label, plan, x, sparse=True)
+            d = deviation(tuple(g.reshape(-1).double() for g in got),
+                          fft_oracle(*sig64, device=dev))
+            if d != devs[seed]:
+                raise RuntimeError(f"{label}: held output {d} is not the sweep's {devs[seed]}")
+            if n in C2C_ROUNDTRIP[precision]:
+                rt = roundtrip(tt.ifft_split(*got, plan), x, storage)
+                ok = rt <= ROUNDTRIP_TOL[precision]
+                log(f"[conformance] {precision} N={n} roundtrip_rel={rt:.3e} "
+                    f"(tol {ROUNDTRIP_TOL[precision]:g}) {'PASS' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"C2C round trip failed at {precision} N={n}")
+            del sig64, x, got
+            torch.cuda.empty_cache()
+        log(f"[conformance] {len(sweep)} lengths x policies, "
+            f"{sum(len(d) for d in sweep.values())} runs, all PASS, launches "
+            f"{got_launches}, every length's kernels held against their plain "
+            f"versions ({time.perf_counter() - t_phase:.1f} s) | {smi}")
+
+    def any_path():
+        # -- any: Bluestein, fft_split_any then ifft_split_any, counted ---------
+        t_phase = time.perf_counter()
+        log(f"[phase] any path from {t_phase - t_start:.1f} s")
+        for label, n, b, precision, kernels in ANY_CALLS:
+            x32 = np.random.default_rng(SEED + n + b).standard_normal(
+                (2, b, n), dtype=np.float32)
+            x_re, x_im = (torch.from_numpy(p).to(dev) for p in x32)
+            storage = tt.create_plan(8, precision=precision).precision.storage_dtype
+            kw = dict(precision=precision, tuning=None)
+            fwd = counted(f"any fwd {label}", kernels,
+                          lambda: tt.fft_split_any(x_re, x_im, **kw))
+            back = counted(f"any inv {label}", kernels,
+                           lambda: tt.ifft_split_any(*fwd, **kw))
+            for path in (f"any fwd {label}", f"any inv {label}"):
+                got_launches = {k: c for k, c in launches_by_path[path].items() if c}
+                if got_launches != dict.fromkeys(kernels, 2):
+                    raise RuntimeError(f"{path} launched {got_launches}, expected "
+                                       f"2 of each of {kernels}")
+            finite(f"fft_split_any {label}", (*fwd, *back), (b, n), storage)
+            want = np.fft.fft(x32[0].astype(np.float64) + 1j * x32[1], axis=-1) / n
+            got = fwd[0].double().cpu().numpy() + 1j * fwd[1].double().cpu().numpy()
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            d = deviation((got.real, got.imag), (want.real, want.imag))
+            x_s = torch.stack([x_re, x_im]).double()
+            rt = float((torch.stack(list(back)).double() - x_s).abs().max()
+                       / x_s.abs().max())
+            rt_tol = ANY_ROUNDTRIP_TOL[precision]
+            ok = (rel <= ANY_F32_REL if precision == "float32"
+                  else d.passes_reference_gate()) and rt <= rt_tol
+            log(f"[any gate] {label}: max_rel={rel:.3e} {d} roundtrip_rel={rt:.3e} "
+                f"(tol {rt_tol:g}) {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"fft_split_any gate failed at {label}")
+            del want, got
+            # The M-point kernels against their plain versions on the padded
+            # rows fft_split_any gives them: the chirped input forward, its
+            # spectrum times the kernel's inverse (bluestein.py's steps).
+            a_re, a_im, bh_re, bh_im, m = bluestein._tables(n, dev)
+            mplan = tt.create_plan(m, precision=precision, scaling="none", tuning=None)
+            y = tuple(torch.nn.functional.pad(p, (0, m - n)).to(storage)
+                      for p in bluestein._cmul(x_re, x_im, a_re, a_im))
+            f = hold_c2c(f"any {label} M={m} padded rows", mplan, y)
+            g = tuple(p.to(storage) for p in bluestein._cmul(
+                f[0].float(), f[1].float(), bh_re, bh_im))
+            hold_c2c(f"any {label} M={m} padded rows inverse", mplan, g, forward=False)
+            del f, g
+            t_any = measure(lambda r, i: tt.fft_split_any(r, i, **kw), (x_re, x_im),
+                            iters=10).average_time_ms
+            # Of that, the two M-point transforms alone on the padded rows.
+            t_m = measure(lambda r, i: tt.ifft_split(*tt.fft_split(r, i, mplan), mplan),
+                          y, iters=10).average_time_ms
+            x_c = torch.complex(x_re, x_im)
+            t_lib = measure(lambda v: torch.fft.fft(v, dim=-1), (x_c,),
+                            iters=10).average_time_ms
+            log(f"[time] fft_split_any {label}: {t_any:.4f} ms, of which the two "
+                f"M={m} transforms {t_m:.4f} ms | torch.fft.fft c64 {t_lib:.4f} ms | {smi}")
+            del x_c, fwd, back, x_re, x_im, x_s, x32, y
+
+        # A power of two delegates to fft_split: kernel A, the same bits.
+        n, b = ANY_POW2
+        x_re, x_im = inputs(n, b, torch.float32, SEED + 11)
+        got = counted("any pow2", ("fused_fft[mma]",),
+                      lambda: tt.fft_split_any(x_re, x_im, tuning=None))
+        if {k: c for k, c in launches_by_path["any pow2"].items() if c} != {"fused_fft[mma]": 1}:
+            raise RuntimeError(f"fft_split_any at N={n} launched "
+                               f"{launches_by_path['any pow2']}")
+        want = tt.fft_split(x_re, x_im, precision="float32", tuning=None)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError(f"fft_split_any at N={n} differs from fft_split")
+        log(f"[any] pow2 N={n} x B={b} float32: kernel A once, bit-identical to fft_split")
+        del x_re, x_im, got, want
+        log(f"[any] {len(ANY_CALLS)} shapes and the pow2 delegation PASS "
+            f"({time.perf_counter() - t_phase:.1f} s)")
+
+    conformance_path()
+    any_path()
+    log(f"[phase] R2C, N-D and convolution gates from {time.perf_counter() - t_start:.1f} s")
 
     for precision, lengths in (("bfloat16", R2C_GATE_BF16),
                                ("float32", R2C_GATE_F32)):
@@ -1041,11 +1372,6 @@ def main() -> int:
                 f"{'PASS' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"R2C accuracy gate failed at {precision} N={n}")
-
-    def roundtrip(back, x, storage):
-        x_s = torch.stack([t.to(storage) for t in x]).double()
-        return float((torch.stack(list(back)).double() - x_s).abs().max()
-                     / x_s.abs().max())
 
     def nd_gate(what, shape, precision, got, want, rt):
         d = deviation((got[0].double().cpu().numpy(), got[1].double().cpu().numpy()),
@@ -1282,23 +1608,6 @@ def main() -> int:
         tpu_jobs.setdefault(key, dict(name=name, shape=shape, call=call,
                                       plain=plain, args=args, io_bytes=io_bytes,
                                       tables=tables, ops=ops, library=library))
-
-    def named(call):
-        """(the one kernel variant ``call`` launched, its output)."""
-        before = launch_counts()
-        out = call()
-        (name,) = [k for k, c in launch_counts().items() if c != before.get(k, 0)]
-        return name, out
-
-    def tol(precision, state_dtype, four_step):
-        """hold() bounds: a bf16 state two bf16 ulps on at most 2 %; else
-        the policy's fused or four-step bound (the latter also for a fused
-        transform past N = 16384, testing/metrics.py)."""
-        if state_dtype == "bfloat16":
-            return dict(max_frac=BF16_STATE_MAX_FRAC, bf16=True,
-                        max_ulps=BF16_STATE_MAX_SCALE_ULPS)
-        return dict(max_frac=FOUR_STEP_MAX_FRAC if four_step else FUSED_MAX_FRAC,
-                    bf16=precision == "bfloat16")
 
     def axis_fft(x, dim=-1):
         """The one call for ``tpu_job``: torch.fft.fft along ``dim`` of the

@@ -18,6 +18,9 @@ Public API:
     rfftn_split, irfftn_split, rfftn, irfftn    — N-D R2C / C2R
     fft_convolve_2d                             — circular 2D convolution
     fft_convolve_real                           — circular convolution via R2C
+    fft_split_any, ifft_split_any, fft_any, ifft_any — any length (Bluestein)
+    fftshift, ifftshift, fftshift_split, ifftshift_split, fftfreq, rfftfreq,
+    window                                      — spectral utilities
     plan_works_on_device                        — device check
 """
 
@@ -51,6 +54,21 @@ from tensorfft_tpu_torch.rfft import (
     rfftn_split,
 )
 from tensorfft_tpu_torch.models.fft_conv import fft_convolve_2d, fft_convolve_real
+from tensorfft_tpu_torch.bluestein import (
+    fft_any,
+    fft_split_any,
+    ifft_any,
+    ifft_split_any,
+)
+from tensorfft_tpu_torch.spectral import (
+    fftfreq,
+    fftshift,
+    fftshift_split,
+    ifftshift,
+    ifftshift_split,
+    rfftfreq,
+    window,
+)
 
 __version__ = "0.1.0"
 
@@ -80,5 +98,16 @@ __all__ = [
     "irfftn",
     "fft_convolve_2d",
     "fft_convolve_real",
+    "fft_any",
+    "ifft_any",
+    "fft_split_any",
+    "ifft_split_any",
+    "fftshift",
+    "ifftshift",
+    "fftshift_split",
+    "ifftshift_split",
+    "fftfreq",
+    "rfftfreq",
+    "window",
     "__version__",
 ]

@@ -8,15 +8,24 @@ the unit tests use) or power-of-two harmonics
 (CreateSineSquareSuperpostionKernel, :29-56).  The reference materializes the
 same waveform in __half/float2/double2 so its FFT and cuFFT consume identical
 signals; here one float64 NumPy array feeds both our FFT (rounded to the plan's
-storage dtype at the boundary) and the fp64 oracle.
+storage dtype at the boundary) and the fp64 oracle.  ``sine_superposition_torch``
+builds the same signal in float64 on a device (the card's conformance sweep,
+where numpy's would cost seconds per plane at N = 2^28).
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["get_random_weights", "sine_superposition", "make_test_signal"]
+__all__ = ["get_random_weights", "sine_superposition",
+           "sine_superposition_torch", "make_test_signal"]
+
+# Past this many sine evaluations (cutoff * N) the linear-harmonic signal is
+# built from its exact spectrum with one inverse FFT instead.
+DIRECT_SUM_LIMIT = 1 << 28
 
 
 def get_random_weights(max_frequencies: int, seed: int) -> np.ndarray:
@@ -28,6 +37,15 @@ def get_random_weights(max_frequencies: int, seed: int) -> np.ndarray:
     """
     rng = np.random.Generator(np.random.PCG64(seed))
     return rng.uniform(-1.0, 1.0, size=max_frequencies)
+
+
+def _weights_and_freqs(weights, harmonics: str):
+    """The weights as float64 and the frequency f(h) of each."""
+    weights = np.asarray(weights, dtype=np.float64)
+    if harmonics not in ("linear", "pow2"):
+        raise ValueError(f"bad harmonics {harmonics!r}")
+    h = np.arange(len(weights), dtype=np.float64)
+    return weights, (h if harmonics == "linear" else 2.0 ** h)
 
 
 def sine_superposition(
@@ -42,15 +60,8 @@ def sine_superposition(
     TestingDataCreation.h:100-104).
     harmonics='pow2':   f(h) = 2^h (CreateSineSquareSuperpostionKernel, :40-43).
     """
-    weights = np.asarray(weights, dtype=np.float64)
-    if harmonics not in ("linear", "pow2"):
-        raise ValueError(f"bad harmonics {harmonics!r}")
-    freqs = (
-        np.arange(len(weights), dtype=np.float64)
-        if harmonics == "linear"
-        else 2.0 ** np.arange(len(weights), dtype=np.float64)
-    )
-    if harmonics == "linear" and len(weights) * fft_length > (1 << 28):
+    weights, freqs = _weights_and_freqs(weights, harmonics)
+    if harmonics == "linear" and len(weights) * fft_length > DIRECT_SUM_LIMIT:
         # Spectral construction: sum_h w_h sin(2 pi h j / N) has the exact
         # spectrum X[h] = -i w_h/2, X[N-h] = +i w_h/2 (h >= 1, h < N), so one
         # N log N inverse FFT replaces O(N * cutoff) sine evaluations (the
@@ -70,6 +81,40 @@ def sine_superposition(
         phase = (2.0 * np.pi / fft_length) * np.outer(freqs, n[lo:hi])
         out[lo:hi] = weights @ np.sin(phase)
     return out.astype(dtype)
+
+
+def sine_superposition_torch(
+    fft_length: int,
+    weights: np.ndarray,
+    device,
+    harmonics: str = "linear",
+) -> torch.Tensor:
+    """:func:`sine_superposition` as a float64 tensor built on ``device``,
+    with the same direct-sum / spectral threshold (DIRECT_SUM_LIMIT).  It
+    differs from the numpy signal by the last bits of the device's ``sin``
+    and FFT, ~1e-15 of the signal's scale."""
+    weights, freqs = _weights_and_freqs(weights, harmonics)
+    if harmonics == "linear" and len(weights) * fft_length > DIRECT_SUM_LIMIT:
+        # The spectral construction of sine_superposition; its few nonzero
+        # bins are summed on the host (aliased harmonics share a bin).
+        h = freqs.astype(np.int64) % fft_length
+        bins, where = np.unique(np.concatenate([h, (-h) % fft_length]),
+                                return_inverse=True)
+        vals = np.zeros(len(bins), np.complex128)
+        np.add.at(vals, where, np.concatenate([-0.5j * weights, 0.5j * weights]))
+        spec = torch.zeros(fft_length, dtype=torch.complex128, device=device)
+        spec[torch.from_numpy(bins).to(device)] = torch.from_numpy(vals).to(device)
+        return torch.fft.ifft(spec).real * fft_length
+    f = torch.from_numpy(freqs).to(device)
+    w = torch.from_numpy(weights).to(device)
+    n = torch.arange(fft_length, dtype=torch.float64, device=device)
+    out = torch.empty(fft_length, dtype=torch.float64, device=device)
+    chunk = max(1, (1 << 26) // max(len(weights), 1))
+    for lo in range(0, fft_length, chunk):
+        hi = min(lo + chunk, fft_length)
+        phase = (2.0 * math.pi / fft_length) * torch.outer(f, n[lo:hi])
+        out[lo:hi] = w @ torch.sin(phase)
+    return out
 
 
 def make_test_signal(

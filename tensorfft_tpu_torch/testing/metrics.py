@@ -15,6 +15,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "Agreement",
@@ -60,7 +61,16 @@ def deviation(
     got: Tuple[np.ndarray, np.ndarray],
     want: Tuple[np.ndarray, np.ndarray],
 ) -> Deviation:
-    """Average/sigma/max absolute deviation over the split RE+IM planes."""
+    """Average/sigma/max absolute deviation over the split RE+IM planes.
+
+    Host arrays (and CPU tensors) are compared in numpy.  When any plane is
+    a tensor on a CUDA device, every plane is compared there in float64,
+    so a 2^28-point result never leaves the card.
+    """
+    on_card = [x.device for x in (*got, *want)
+               if isinstance(x, torch.Tensor) and x.device.type != "cpu"]
+    if on_card:
+        return _deviation_on_device(got, want, on_card[0])
     g = np.concatenate(
         [np.asarray(got[0], np.float64).ravel(), np.asarray(got[1], np.float64).ravel()]
     )
@@ -73,6 +83,20 @@ def deviation(
     avg = float(dev.mean())
     sigma = float(np.sqrt(np.mean((dev - avg) ** 2)))
     return Deviation(average=avg, sigma=sigma, maximum=float(dev.max()))
+
+
+def _deviation_on_device(got, want, device) -> Deviation:
+    """:func:`deviation` in float64 torch on ``device``, the numpy branch's
+    mirror (at N = 2^28 its temporaries are a few 4 GiB planes)."""
+    g = torch.cat([torch.as_tensor(x).to(device, torch.float64).reshape(-1) for x in got])
+    w = torch.cat([torch.as_tensor(x).to(device, torch.float64).reshape(-1) for x in want])
+    if g.shape != w.shape:
+        raise ValueError(f"shape mismatch {tuple(g.shape)} vs {tuple(w.shape)}")
+    dev = (g - w).abs_()
+    del g, w
+    avg = dev.mean()
+    sigma = (dev - avg).square_().mean().sqrt()
+    return Deviation(average=float(avg), sigma=float(sigma), maximum=float(dev.max()))
 
 
 # Tolerances of one implementation against another on the same inputs (the

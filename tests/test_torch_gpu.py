@@ -1080,3 +1080,65 @@ def test_batch_major_bitwise_kernel_a_every_tile(cuda, n, precision):
         _bitwise(four_step_cuda.fused_fft_batch_major(re, im, **kw),
                  fused_cuda.fused_fft(re, im, **kw))
     assert tiles == ({1, 2, 4, 8, 16, 32} if n == 512 else {1, 2, 4})
+
+
+@pytest.mark.parametrize("n", [1000, 10_000])
+def test_bluestein_card_vs_cpu(cuda, n):
+    # The M-point transforms run kernel A (M = 2048) or kernels B and C
+    # (M = 32768) on the card and their plain versions on the CPU; the
+    # chirp products are the same elementwise torch ops.  float32: within
+    # 1e-5 of the largest |X|.
+    rng = np.random.default_rng(n)
+    re, im = (torch.from_numpy(p) for p in
+              rng.standard_normal((2, 4, n), dtype=np.float32))
+    for forward in (True, False):
+        kw = dict(forward=forward, precision="float32", tuning=None)
+        got = tt.fft_split_any(re.to(cuda), im.to(cuda), **kw)
+        want = tt.fft_split_any(re, im, **kw)
+        assert all(g.device.type == "cuda" for g in got)
+        a = agreement([g.cpu() for g in got], list(want), bf16=False)
+        assert a.within(), a
+
+
+def test_unit_sweep_card_vs_cpu(cuda):
+    # The ported harness on the card (signal, oracle and deviation made
+    # there) and on the CPU (numpy signal and oracle, the kernels' plain
+    # versions): both pass the reference gate at every (N, seed), and the
+    # average deviations agree within 5 % (they differ by the kernels'
+    # summation order only).
+    from tensorfft_tpu_torch.testing.conformance import run_unit_sweep
+
+    card, cpu = [], []
+    assert run_unit_sweep(256, 1 << 17, 2, verbose=False, device="cuda", record=card)
+    assert run_unit_sweep(256, 1 << 17, 2, verbose=False, device="cpu", record=cpu)
+    assert [(n, i) for n, i, _ in card] == [(n, i) for n, i, _ in cpu]
+    for (n, i, d_card), (_, _, d_cpu) in zip(card, cpu):
+        assert d_card.average == pytest.approx(d_cpu.average, rel=5e-2), (n, i)
+
+
+def test_card_oracle_and_datagen_vs_numpy(cuda):
+    # N = 2^20: the card's signal within 1e-12 of its scale, the card's
+    # complex128 oracle within 1e-12 of the largest |X|, and the card's
+    # deviation equal to numpy's on the same planes.
+    from tensorfft_tpu_torch.testing import (get_random_weights, sine_superposition,
+                                             sine_superposition_torch)
+
+    n = 1 << 20
+    sig, sig_card = [], []
+    for seed in (42, 42 * 42):
+        w = get_random_weights(20, seed)
+        sig.append(sine_superposition(n, w))
+        sig_card.append(sine_superposition_torch(n, w, cuda))
+        scale = np.abs(sig[-1]).max()
+        assert np.abs(sig_card[-1].cpu().numpy() - sig[-1]).max() <= 1e-12 * scale
+    want = fft_oracle(*sig)
+    got = fft_oracle(*(torch.from_numpy(s).to(cuda) for s in sig))
+    assert all(g.device.type == "cuda" and g.dtype == torch.float64 for g in got)
+    scale = max(np.abs(w).max() for w in want)
+    assert max(np.abs(g.cpu().numpy() - w).max() for g, w in zip(got, want)) <= 1e-12 * scale
+    noisy = [g + 1e-3 * torch.sin(g * 7.0) for g in got]
+    d_card = deviation(noisy, got)
+    d_host = deviation([x.cpu().numpy() for x in noisy], [g.cpu().numpy() for g in got])
+    assert d_card.maximum == d_host.maximum
+    assert d_card.average == pytest.approx(d_host.average, rel=1e-12)
+    assert d_card.sigma == pytest.approx(d_host.sigma, rel=1e-9)
