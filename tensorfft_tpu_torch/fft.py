@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tensorfft_tpu_torch import dft
+from tensorfft_tpu_torch import dft, tracing
 from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, stages_torch
 from tensorfft_tpu_torch.plan import FFTPlan, Strategy, create_plan, is_power_of_2
 
@@ -79,6 +79,7 @@ def four_step_call_kwargs(plan: FFTPlan, forward: bool) -> dict:
     )
 
 
+@tracing.spanned("tfft.dispatch")
 def _fft_split_core(re, im, plan: FFTPlan, forward: bool):
     """Transform (B, N) planes already in the storage dtype."""
     strategy = plan.resolve_strategy()
@@ -151,6 +152,7 @@ def _as_planes(re, im):
     return re, im
 
 
+@tracing.spanned("tfft.entry")
 def _run(re, im, plan, forward, plan_kwargs):
     re, im = _as_planes(re, im)
     plan = _ensure_plan(re.shape[-1], plan, **plan_kwargs)

@@ -54,7 +54,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from tensorfft_tpu_torch import dft
+from tensorfft_tpu_torch import dft, tracing
 from tensorfft_tpu_torch.ops import _build, dots
 from tensorfft_tpu_torch.plan import (
     COMPLEX_MULTS,
@@ -573,9 +573,10 @@ def column_cluster(n: int, lanes: int, other: int, algorithm: str, stages,
 
 def launch(symbol: str, tensors, dtype_codes, *args) -> None:
     """Call C launcher ``symbol`` on the current stream of the tensors'
-    device: (*tensor pointers, *dtype_codes, *args, stream)."""
+    device: (*tensor pointers, *dtype_codes, *args, stream), inside the
+    profiler span ``tfft.launch.<symbol>`` (``tracing.launch_span``)."""
     device = tensors[0].device
-    with torch.cuda.device(device):
+    with tracing.launch_span(symbol), torch.cuda.device(device):
         err = getattr(_build.library(), symbol)(
             *(t.data_ptr() for t in tensors), *dtype_codes, *args,
             torch.cuda.current_stream(device).cuda_stream,
