@@ -140,10 +140,14 @@ four-step passes moved there kernels B and C, K4's column pass, K5 and K6
 (``csrc/four_step_tc.cuh``).  Their launch counters name it (``mma``:
 ``fused_fft[mma]``, ``four_step_col[mma]``, ``fft2_col[grouped,mma]``,
 ``four_step_row_interleave[planar,mma]``, ...), and each call of a path
-must launch exactly those variants.  Past one CTA, the cluster twins
-(``fused_fft[cluster2]``, K3, kernel C, K4's row pass, K6; kernel B, K4's
-column pass and K5 with 4 adjacent columns per cluster,
-``four_step_col[cluster8]``) run the same engine on a thread-block cluster,
+must launch exactly those variants.  Kernel A's bf16 calls on the knob-free
+stacked engine with N >= 512 and more rows than SMs run its pipelined
+persistent kernel (``fused_fft[pipelined,mma]``, ``csrc/fused_fft_pipe.cu``),
+the same bits; step 5 times kernel A at N=16384 x 4096 on both paths, in
+turns.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
+adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
+engine on a thread-block cluster,
 each CTA owning a block of every stage's columns
 (``csrc/fft_mma_cluster.cuh``), so each equals its one-CTA kernel bit for
 bit.
@@ -235,7 +239,7 @@ ANY_CALLS = [
      ("four_step_col[mma]", "four_step_row[mma]")),
     ("N=1000000 x 4 float32", 1_000_000, 4, "float32",
      ("four_step_col[mma]", "four_step_row[mma]")),
-    ("N=1000 x 4096 bfloat16", 1000, 4096, "bfloat16", ("fused_fft[mma]",)),
+    ("N=1000 x 4096 bfloat16", 1000, 4096, "bfloat16", ("fused_fft[pipelined,mma]",)),
 ]
 ANY_POW2 = (4096, 4096)
 # fft_split_any against np.fft.fft / N: the JAX package's float32 bound
@@ -267,6 +271,8 @@ FLUSH_BYTES = 256 << 20
 KERNELS = {
     "fused_fft[mma]": ("tensorfft_tpu_torch/csrc/fused_fft.cu",
                   "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "fused_fft[pipelined,mma]": ("tensorfft_tpu_torch/csrc/fused_fft_pipe.cu",
+                             "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col[mma]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:465"),
     "four_step_row[mma]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
@@ -312,6 +318,7 @@ KERNELS = {
 # the planar engines under K5 and K6.  A variant is named by its kernel and
 # the engine and knobs in effect (fused_cuda.variant).
 _FUSED = ("tensorfft_tpu_torch/csrc/fused_fft.cu", "tensorfft_tpu/ops/fused_pallas.py:971")
+_PIPE = ("tensorfft_tpu_torch/csrc/fused_fft_pipe.cu", _FUSED[1])
 _COL = ("tensorfft_tpu_torch/csrc/four_step_fft.cu", "tensorfft_tpu/ops/four_step_pallas.py:465")
 _ROW = ("tensorfft_tpu_torch/csrc/four_step_row.cu", "tensorfft_tpu/ops/four_step_pallas.py:551")
 _PACKED = ("tensorfft_tpu_torch/csrc/four_step_real.cu", "tensorfft_tpu/ops/four_step_pallas.py:943")
@@ -321,8 +328,8 @@ TPU_KERNELS = {
     "fused_fft[grouped,mma]": _FUSED,
     "fused_fft[grouped,mult3,mma]": _FUSED,
     "fused_fft[bf16_state,mma]": _FUSED,
-    "fused_fft[pretwiddle,mma]": _FUSED,
-    "fused_fft[gridslice,mma]": (_FUSED[0], "tensorfft_tpu/ops/fused_pallas.py:923"),
+    "fused_fft[pretwiddle,pipelined,mma]": _PIPE,
+    "fused_fft[gridslice,pipelined,mma]": (_PIPE[0], "tensorfft_tpu/ops/fused_pallas.py:923"),
     "four_step_col[grouped,bf16_state,mma]": _COL,
     "four_step_row[grouped,bf16_state,mma]": _ROW,
     "four_step_col[mult3,bf16_state,mma]": _COL,
@@ -438,13 +445,14 @@ TPU_CALLS = [
     ("K2 mult3 N=2^24", "c2c", 1 << 24, 1, "bfloat16", TPU_ENTRIES[1 << 24],
      {"four_step_col[mma]": 2, "four_step_row[mult3,mma]": 2}),
     ("pretwiddle N=16384", "c2c", 16384, 4096, "bfloat16",
-     dict(TPU_ENTRIES[16384], engine="pretwiddle"), {"fused_fft[pretwiddle,mma]": 2}),
+     dict(TPU_ENTRIES[16384], engine="pretwiddle"),
+     {"fused_fft[pretwiddle,pipelined,mma]": 2}),
     ("pretwiddle N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      dict(TPU_ENTRIES[1 << 20], engine="pretwiddle", state_dtype="float32"),
      {"four_step_col[pretwiddle,mma]": 2, "four_step_row[pretwiddle,mma]": 2}),
     ("K1a gridslice N=16384", "c2c", 16384, 4096, "bfloat16",
      {"strategy": "fused", "radices": [128, 128], "engine": "gridslice"},
-     {"fused_fft[gridslice,mma]": 2}),
+     {"fused_fft[gridslice,pipelined,mma]": 2}),
     ("K2cg K2rg gridslice16 N=2^20", "c2c", 1 << 20, 16, "bfloat16",
      {"strategy": "four_step", "four_step_split": [1024, 1024], "engine": "gridslice16"},
      {"four_step_col[gridslice16,mma]": 2, "four_step_row[gridslice16,mma]": 2}),
@@ -554,7 +562,7 @@ TPU_BITWISE = ("pretwiddle N=16384", "pretwiddle N=2^20", "K1a gridslice N=16384
                "K2cg K2rg gridslice16 N=2^20", "K6g gridslice real N=2^21")
 # Rows held against the plain versions where a call's input is larger.
 TPU_HOLD_ROWS = 256
-R2C_KERNELS = ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]", "pack_split",
+R2C_KERNELS = ("fused_fft[pipelined,mma]", "four_step_col[mma]", "four_step_row[mma]", "pack_split",
                "interleave_split", "untangle_fwd", "retangle_inv",
                "four_step_col_packed[mma]", "four_step_row_interleave[mma]")
 
@@ -804,7 +812,7 @@ def main() -> int:
         data[label] = (tt.create_plan(n), *inputs(n, b, torch.bfloat16,
                                                   SEED + n + b))
     outputs = counted(
-        "c2c", ("fused_fft[mma]", "four_step_col[mma]", "four_step_row[mma]"),
+        "c2c", ("fused_fft[pipelined,mma]", "four_step_col[mma]", "four_step_row[mma]"),
         lambda: {label: tt.fft_split(re_, im_, plan)
                  for label, (plan, re_, im_) in data.items()})
     for label, (o_re, o_im) in outputs.items():
@@ -847,7 +855,7 @@ def main() -> int:
         return conv, spec, back, tt.fftn_split(*volume)
 
     conv2d, spec2d, back2d, vol_spec = counted(
-        "nd", ("fft2_col[mma]", "fft2_row[mma]", "fused_fft[mma]"), drive_nd)
+        "nd", ("fft2_col[mma]", "fft2_row[mma]", "fused_fft[pipelined,mma]"), drive_nd)
     finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
     finite("fftn_split 3-D", vol_spec, ND_VOLUME, torch.bfloat16)
@@ -975,7 +983,7 @@ def main() -> int:
                 scales=stage_scales(plan.radices, plan.scaling, True),
                 algorithm=plan.precision.dot_algorithm,
                 first_dot=plan.first_dot)
-            hold("fused_fft[mma]", label, outputs[label], want, FUSED_MAX_FRAC)
+            hold("fused_fft[pipelined,mma]", label, outputs[label], want, FUSED_MAX_FRAC)
             continue
         kw, common, col, row = pass_kwargs(plan, True)
         mid_plain = four_step_cuda.column_pass_reference(re_, im_, **col)
@@ -1137,7 +1145,7 @@ def main() -> int:
     plan_v = tt.create_plan(n_v)
     rows = [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous()
             for t in tt.fftn_split(*volume, axes=(1, 2))]
-    hold("fused_fft[mma]", f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
+    hold("fused_fft[pipelined,mma]", f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
          f"x B={rows[0].shape[0]} first_dot={plan_v.first_dot}",
          tt.fft_split(*rows, plan_v),
          fused_cuda.fused_fft_reference(
@@ -1813,6 +1821,8 @@ def main() -> int:
         precision = plan.precision.value
         storage = plan.precision.storage_dtype
         rt_tol = ROUNDTRIP_TOL["bfloat16" if state_of(plan) == "bfloat16" else precision]
+        # The gate's few rows (at most SMs) run kernel A one CTA a row.
+        want = {k.replace("pipelined,", ""): c for k, c in want.items()}
         before = launch_counts()
         if route == "fftn":
             re64, im64, x_re, x_im = nd_signal((n_t, n_t))
@@ -2090,9 +2100,24 @@ def main() -> int:
                     plan, plan.radices, kwargs["scales"], -1, mma=True)
                 b_ms, b_by = bound(nbytes, pass_flops(plan, plan.radices, elems),
                                    H100.bf16_flops)
-                timing["fused_fft[mma]"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=c_ms,
-                                           bound_ms=b_ms, bound_by=b_by,
-                                           shape=f"N={n} x B={b} bf16")
+                # Kernel A on both paths, in turns: one CTA a row, pipelined,
+                # pipelined, one CTA a row.
+                a_kw = dict(kwargs, sign=-1, engine="stacked", grouped=False,
+                            complex_mult="block", state_dtype="float32")
+                paths = {"fused_fft[mma]": False, "fused_fft[pipelined,mma]": None}
+                runs = {name: [] for name in paths}
+                for name in (*paths, *reversed(paths)):
+                    runs[name].append(measure(
+                        lambda r, i, p=paths[name]: fused_cuda._launch_fused(
+                            r, i, pipelined=p, **a_kw),
+                        (re_, im_), iters=10).average_time_ms)
+                for name, ms in runs.items():
+                    timing[name] = dict(ms=min(ms), plain_ms=p_ms, library_ms=c_ms,
+                                        bound_ms=b_ms, bound_by=b_by,
+                                        shape=f"N={n} x B={b} bf16")
+                    log(f"[time] kernel A {name} N={n} B={b} bf16: {min(ms):.4f} ms "
+                        f"(runs {', '.join(f'{t:.4f}' for t in ms)}) | bound "
+                        f"{b_ms:.4f} ms ({b_by}) | {b_ms / min(ms):.1%} of bound | {smi}")
             continue
         # Each four-step pass alone, on the same inputs.
         col = {k: kwargs[k] for k in ("n1", "n2", "radices1", "scales1", "sign",

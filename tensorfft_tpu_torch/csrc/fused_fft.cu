@@ -35,6 +35,15 @@
 
 namespace tfft {
 
+// The pipelined kernel on a persistent grid of `sms` CTAs
+// (fused_fft_pipe.cu): bf16 storage, one data term, the knob-free stacked
+// engine, one CTA a row, n % 8 == 0, 16-byte aligned planes and batch >
+// sms; anything else returns cudaErrorInvalidValue.
+int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
+                      void* out_im, long long batch, int n, int sms,
+                      const StagePlan& plan, const float* tables,
+                      const __nv_bfloat16* mats, cudaStream_t stream);
+
 // One CTA per row (launch_fused_tc, compiled in fused_fft_tc{1,2,3}.cu), or
 // a cluster of `cluster` CTAs per row (launch_fused_cluster_tc, compiled in
 // cluster_tc{1,2,3}.cu), both on the tensor-core engine.
@@ -65,11 +74,13 @@ extern "C" const char* tfft_error_string(int err) {
 // stage modes).  cluster: CTAs per row (1, 2, 4 or 8; cluster_ok).  The
 // matrices come from the bf16 `mats` (meta's matrix offsets in bf16 units,
 // each stage in its route's layout), the twiddles from the fp32 `tables`,
-// on one CTA and on a cluster alike.
+// on one CTA and on a cluster alike.  sms: 0 for one CTA (or cluster) per
+// row, else the card's SMs, over which the pipelined kernel
+// (launch_fused_pipe) walks the rows.
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
-                              int cluster, const void* tables,
+                              int cluster, int sms, const void* tables,
                               const void* mats, const long long* meta,
                               void* stream) {
   using namespace tfft;
@@ -79,6 +90,12 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
   const float* t = static_cast<const float*>(tables);
   const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(mats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (sms != 0) {
+    if (dtype != 0 || data_terms != 1 || cluster != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_fused_pipe(in_re, in_im, out_re, out_im, batch, n, sms, plan,
+                             t, m, s);
+  }
 #define TFFT_FUSED(S, BT)                                              \
   return launch_fused<S, BT>(in_re, in_im, out_re, out_im, batch, n,   \
                              cluster, plan, t, m, s)

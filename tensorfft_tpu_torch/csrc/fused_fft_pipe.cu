@@ -1,0 +1,341 @@
+// Kernel A, pipelined: the whole-transform FFT of batch-major (B, N) bf16
+// rows on a persistent grid, each CTA walking the rows blockIdx.x + i *
+// gridDim.x while the next row's input and the last row's output move by
+// bulk async copies.
+//
+// Replaces the TPU kernel K1, tensorfft_tpu/ops/fused_pallas.py:fused_fft
+// (pallas_call at :971), for the calls whose rows it can feed: bf16 storage
+// with one data term on the knob-free stacked engine (kEngStacked), one CTA
+// a row, n % 8 == 0 and n >= 512 (a CTA of 512 threads, one to an SM),
+// 16-byte aligned planes and more rows than SMs (the rule is
+// ops/fused_cuda.py:takes_pipeline; the launcher itself takes any n % 8 ==
+// 0).  Every other call runs fused_fft_tc_kernel (fused_fft_tc.cuh).  Both
+// run the same stage functions of fft_mma.cuh (stage_products, the warp
+// blocking, the fp32 twiddles, the swizzles, the roundings, in the same
+// order), so their outputs are equal bit for bit.  The loop over the stages
+// is pipe_stages below, run_fft_tc's loop for this one case: run_fft_tc
+// keeps its text, since the one-CTA kernels sit at the 128-register cap and
+// ptxas moves their spills with rewrites that compute the same values.
+//
+// What bounds it on the H100: at 16384 x 4096 the transform's one read and
+// one write of HBM take 0.16 ms and its bf16 products 0.14 ms at the peaks,
+// but fused_fft_tc_kernel takes 1.43 ms: one 512-thread CTA fills an SM (128
+// registers a thread), and inside it the phases of a row run back to back
+// between barriers, with nothing else on the SM to hide them: the load waits
+// on HBM before the first stage, the last stage stages its outputs in 2-byte
+// stores 8-way bank-conflicted, the store drains, and the next CTA starts on
+// an empty SM.
+//
+// What the design does about it (1.47 -> 1.29 ms at 16384 x 4096 on the
+// H100; a row per SM 45.8 -> 39.1 us, PERF.md):
+//   * the grid is persistent (one CTA an SM, each walking rows), so a CTA
+//     starts once, not once a row.  Shorter rows take fewer threads, and
+//     one-CTA-a-row kernels then share an SM (two at n = 256), overlapping
+//     one CTA's load with another's stages already: the pipelined kernel
+//     measured slower there, so it is not taken below 512;
+//   * three shared buffers of 4n bytes: a landing buffer, the operand and a
+//     staging buffer.  Once a row has been scattered from the landing buffer
+//     into the swizzled operand (16-byte shared-memory copies: the swizzle
+//     permutes 16-byte chunks within 128 bytes), one thread arms an mbarrier
+//     and starts cp.async.bulk copies of the next row's re and im planes
+//     into it, which land while this row's stages run;
+//   * the last stage writes its outputs into the staging buffer as the
+//     natural [re | im][k] row: under a warp blocking each quad's lanes hold
+//     a row's outputs of 4 (or 2) column tiles, so four shuffles transpose
+//     them into whole 16-byte chunks, stored at most 2-way conflicted (the
+//     im plane sits kImPad elements after the re plane so that the 2-column
+//     blocking's two planes fall on other banks); other stage shapes store
+//     each output as fused_fft_tc_kernel does;
+//   * one thread stores the staged row with cp.async.bulk and commits the
+//     group; the CTA waits for its reads (wait_group.read) only before the
+//     next row's last stage writes the staging buffer, and for the writes
+//     once, before it exits.
+#include "fft_mma.cuh"
+
+namespace tfft {
+
+// Elements between the staged re and im planes (see the note above).
+constexpr int kImPad = 16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Order this thread's generic-proxy shared-memory accesses before later
+// bulk (async-proxy) copies.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(1)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arm `bar` for two planes of `bytes` each and copy them from global memory
+// into shared memory at dst_re and dst_im.
+__device__ __forceinline__ void bulk_load(void* dst_re, void* dst_im,
+                                          const void* re, const void* im,
+                                          uint32_t bytes, uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+               "r"(2 * bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst_re)),
+      "l"(re), "r"(bytes), "r"(b)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst_im)),
+      "l"(im), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Wait for the phase of `bar` with the given parity to complete.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy two planes of `bytes` each from shared memory to global memory, as
+// one bulk async-group.
+__device__ __forceinline__ void bulk_store(void* re, void* im,
+                                           const void* src_re,
+                                           const void* src_im, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(re),
+               "r"(smem_u32(src_re)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(im),
+               "r"(smem_u32(src_im)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The 4 x 4 matrix of words whose row p is x on lane p of a quad (lane % 4):
+// afterwards lane p holds its column p, x[j] from lane j.
+__device__ __forceinline__ void quad_transpose(uint32_t (&x)[4]) {
+  const int lane = threadIdx.x & 31;
+  const bool b1 = (lane & 2) != 0, b0 = (lane & 1) != 0;
+  uint32_t r0 = __shfl_xor_sync(0xffffffffu, b1 ? x[0] : x[2], 2);
+  uint32_t r1 = __shfl_xor_sync(0xffffffffu, b1 ? x[1] : x[3], 2);
+  // Rows lane & 1 and (lane & 1) + 2, columns 2 * b1 and 2 * b1 + 1.
+  const uint32_t z00 = b1 ? r0 : x[0], z01 = b1 ? r1 : x[1];
+  const uint32_t z10 = b1 ? x[2] : r0, z11 = b1 ? x[3] : r1;
+  r0 = __shfl_xor_sync(0xffffffffu, b0 ? z00 : z01, 1);
+  r1 = __shfl_xor_sync(0xffffffffu, b0 ? z10 : z11, 1);
+  const uint32_t k0 = b0 ? z01 : z00, k1 = b0 ? z11 : z10;
+  x[0] = b0 ? r0 : k0;
+  x[1] = b0 ? k0 : r0;
+  x[2] = b0 ? r1 : k1;
+  x[3] = b0 ? k1 : r1;
+}
+
+__device__ __forceinline__ uint32_t pack_out(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// The last stage's outputs under a warp blocking of QW x JW tiles (slot t =
+// qi * JW + ji, stage_mma_blocked) into the staging buffer: bin k = r_out *
+// K + g of re at st[k], of im at im[k].  The quad of lanes sharing r_out
+// holds its JW * 8 columns g as two per lane per tile; quad_transpose gives
+// each lane one 16-byte chunk, JW = 4: of re and then of im, JW = 2: of re
+// (lanes 0, 1) or im (lanes 2, 3).
+template <int QW, int JW>
+__device__ __forceinline__ void stage_out_blocked(const float (&o_re)[kMaxEpt],
+                                                  const float (&o_im)[kMaxEpt],
+                                                  __nv_bfloat16* st,
+                                                  __nv_bfloat16* im, int R,
+                                                  int K) {
+  const int lane = threadIdx.x & 31, p = lane & 3;
+  int qw, jw, q0, j0;
+  block_origin(QW * JW, R >> 3, qw, jw, q0, j0);
+#pragma unroll
+  for (int qi = 0; qi < QW; ++qi) {
+    const int row = (8 * (q0 + qi) + (lane >> 2)) * K;
+    if constexpr (JW == 4) {
+      uint32_t x[4], y[4];
+#pragma unroll
+      for (int ji = 0; ji < 4; ++ji) {
+        const int t = qi * 4 + ji;
+        x[ji] = pack_out(o_re[2 * t], o_re[2 * t + 1]);
+        y[ji] = pack_out(o_im[2 * t], o_im[2 * t + 1]);
+      }
+      quad_transpose(x);
+      quad_transpose(y);
+      const int at = row + 8 * (j0 + p);
+      *reinterpret_cast<uint4*>(st + at) = make_uint4(x[0], x[1], x[2], x[3]);
+      *reinterpret_cast<uint4*>(im + at) = make_uint4(y[0], y[1], y[2], y[3]);
+    } else {
+      const int t = qi * 2;
+      uint32_t x[4] = {pack_out(o_re[2 * t], o_re[2 * t + 1]),
+                       pack_out(o_re[2 * t + 2], o_re[2 * t + 3]),
+                       pack_out(o_im[2 * t], o_im[2 * t + 1]),
+                       pack_out(o_im[2 * t + 2], o_im[2 * t + 3])};
+      quad_transpose(x);
+      *reinterpret_cast<uint4*>((p & 2 ? im : st) + row + 8 * (j0 + (p & 1))) =
+          make_uint4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
+// run_fft_tc's stages for one row (T = 1, bf16 storage, one data term, the
+// knob-free stacked engine) on the operand `op`, with the last stage's
+// outputs in the staging buffer (re at st, im at im), natural order.  Thread
+// 0 first waits until the staging buffer's previous bulk store has read it.
+__device__ __forceinline__ void pipe_stages(__nv_bfloat16* op,
+                                            __nv_bfloat16* st,
+                                            __nv_bfloat16* im, int n,
+                                            const StagePlan& plan,
+                                            const __nv_bfloat16* __restrict__ mats,
+                                            const float* __restrict__ tw) {
+  Swizzle sw = stage_swizzle(n / plan.radix[0]);
+  int K = 1, M = n;
+  for (int s = 0; s < plan.n_stages; ++s) {
+    const int R = plan.radix[s];
+    const int lg_r = __ffs(R) - 1;
+    M /= R;
+    const int nt = n / R;
+    const __nv_bfloat16* d = mats + plan.d_off[s];
+    const bool mma = mma_route(plan.mode[s], R);
+    const int blk = (mma && plan.a_terms[s] == 1) ? mma_block(R >> 3, nt) : 0;
+    const int slice_stride = R * R * 2;
+    float o_re[kMaxEpt], o_im[kMaxEpt];
+    int vv;
+    if (plan.a_terms[s] == 2)
+      vv = stage_products<2, 1, kEngStacked>(op, n, nt, R, lg_r, sw, mma, blk,
+                                             false, d, slice_stride, 0,
+                                             slice_stride, o_re, o_im);
+    else
+      vv = stage_products<1, 1, kEngStacked>(op, n, nt, R, lg_r, sw, mma, blk,
+                                             false, d, slice_stride, 0,
+                                             slice_stride, o_re, o_im);
+    if (s + 1 == plan.n_stages) {
+      if (threadIdx.x == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncthreads();  // the staging buffer is free
+      // M == 1 here: g = kk, natural bin k = r_out * K + g.
+      if (blk == 16) {
+        stage_out_blocked<4, 4>(o_re, o_im, st, im, R, K);
+      } else if (blk == 8) {
+        stage_out_blocked<2, 4>(o_re, o_im, st, im, R, K);
+      } else if (blk == 4) {
+        stage_out_blocked<2, 2>(o_re, o_im, st, im, R, K);
+      } else {
+        for_outputs(mma, blk, vv, n, nt, R, lg_r, [&](int e, int r_out, int g) {
+          st[r_out * K + g] = __float2bfloat16_rn(o_re[e]);
+          im[r_out * K + g] = __float2bfloat16_rn(o_im[e]);
+        });
+      }
+      return;
+    }
+    __syncthreads();  // every operand read before it is overwritten
+    const int R2 = plan.radix[s + 1], K2 = K * R, M2 = M / R2;
+    const float* w = tw + plan.w_off[s + 1];
+    const int flags2 = plan.flags[s + 1];
+    const Swizzle sw2 = stage_swizzle(n / R2);
+    for_outputs(mma, blk, vv, n, nt, R, lg_r, [&](int e, int r_out, int g) {
+      const int kk = g / M, mm = g - kk * M;
+      const int kk2 = r_out * K + kk;
+      const int r2 = mm / M2, mm2 = mm - r2 * M2;
+      float z_re, z_im;
+      cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
+           __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
+      put_stage_operand<1, kEngStacked>(
+          op, n, swz((r2 * K2 + kk2) * M2 + mm2, sw2), z_re, z_im, flags2);
+    });
+    sw = sw2;
+    __syncthreads();
+    K *= R;
+  }
+}
+
+// Dynamic shared memory: landing, operand and staging buffers of 4n bytes
+// (the staging buffer kImPad elements more), then the mbarrier.
+inline size_t pipe_smem_bytes(int n) {
+  return (6 * static_cast<size_t>(n) + kImPad) * sizeof(__nv_bfloat16) +
+         sizeof(uint64_t);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
+                          const __nv_bfloat16* __restrict__ in_im,
+                          __nv_bfloat16* __restrict__ out_re,
+                          __nv_bfloat16* __restrict__ out_im, long long batch,
+                          int n, StagePlan plan,
+                          const __nv_bfloat16* __restrict__ mats,
+                          const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* land = reinterpret_cast<__nv_bfloat16*>(smem);  // [re | im]
+  __nv_bfloat16* op = land + 2 * n;
+  __nv_bfloat16* st = op + 2 * n;  // [re | kImPad | im]
+  __nv_bfloat16* st_im = st + n + kImPad;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(st_im + n);
+  const uint32_t bytes = 2u * static_cast<uint32_t>(n);  // one plane of a row
+  const long long step = gridDim.x;
+  const Swizzle sw0 = stage_swizzle(n / plan.radix[0]);
+  if (threadIdx.x == 0) {
+    bar_init(bar);
+    const long long at = static_cast<long long>(blockIdx.x) * n;
+    bulk_load(land, land + n, in_re + at, in_im + at, bytes, bar);
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  for (long long row = blockIdx.x; row < batch; row += step, parity ^= 1) {
+    bar_wait(bar, parity);
+    // Element q of the row to operand index swz(q): whole 16-byte chunks.
+    for (int q = threadIdx.x * 8; q < n; q += blockDim.x * 8) {
+      const int at = swz(q, sw0);
+      *reinterpret_cast<uint4*>(op + at) =
+          *reinterpret_cast<const uint4*>(land + q);
+      *reinterpret_cast<uint4*>(op + n + at) =
+          *reinterpret_cast<const uint4*>(land + n + q);
+    }
+    __syncthreads();  // the landing buffer is free
+    if (threadIdx.x == 0 && row + step < batch) {
+      fence_async_shared();
+      const long long at = (row + step) * n;
+      bulk_load(land, land + n, in_re + at, in_im + at, bytes, bar);
+    }
+    pipe_stages(op, st, st_im, n, plan, mats, tables);
+    fence_async_shared();
+    __syncthreads();  // the row is staged
+    if (threadIdx.x == 0)
+      bulk_store(out_re + row * n, out_im + row * n, st, st_im, bytes);
+  }
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
+                      void* out_im, long long batch, int n, int sms,
+                      const StagePlan& plan, const float* tables,
+                      const __nv_bfloat16* mats, cudaStream_t stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(in_re) |
+                       reinterpret_cast<uintptr_t>(in_im) |
+                       reinterpret_cast<uintptr_t>(out_re) |
+                       reinterpret_cast<uintptr_t>(out_im);
+  if (mats == nullptr || plan.engine != kEngStacked || n % 8 != 0 ||
+      n > kMaxCtaElems || (at & 15) != 0 || sms < 1 || batch <= sms)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stage_kernel(
+      &fused_fft_pipe_kernel, sms, tc_threads(n), pipe_smem_bytes(n), 1, stream,
+      static_cast<const __nv_bfloat16*>(in_re),
+      static_cast<const __nv_bfloat16*>(in_im),
+      static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
+      batch, n, plan, mats, tables);
+}
+
+}  // namespace tfft

@@ -86,6 +86,9 @@ __all__ = [
     "mma_table_index",
     "mma_tables",
     "variant",
+    "knob_free",
+    "takes_pipeline",
+    "multiprocessors",
     "cta_smem_bytes",
     "fit_cta",
     "column_cluster",
@@ -103,6 +106,9 @@ __all__ = [
 # Complex elements one CTA holds (csrc/fft_stages.cuh kMaxCtaElems): 512
 # threads keeping 32 fp32 outputs each in registers.
 MAX_CTA_ELEMS = 16384
+# Threads of a CTA holding a row of at least as many elements (kThreads); at
+# 128 registers a thread it fills an SM's register file.
+CTA_THREADS = 512
 # CTAs of the largest thread-block cluster a pass may take (kMaxCluster).
 MAX_CLUSTER = H100.max_cluster
 
@@ -206,12 +212,13 @@ def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
 
 
 def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
-            cluster: int = 1) -> str:
+            cluster: int = 1, pipelined: bool = False) -> str:
     """The launch counters' name for a pass: the engine (none for stacked),
-    the numeric knobs in effect, then ``mma`` for a pass on one CTA (every
-    kernel runs those on the tensor-core engine) or the CTAs of its
-    cluster, e.g. ``mma``, ``grouped,mult3,mma``, ``pretwiddle,mma`` or
-    ``bf16_state,cluster2``."""
+    the numeric knobs in effect, ``pipelined`` for kernel A's persistent
+    kernel (:func:`takes_pipeline`), then ``mma`` for a pass on one CTA
+    (every kernel runs those on the tensor-core engine) or the CTAs of its
+    cluster, e.g. ``mma``, ``pipelined,mma``, ``grouped,mult3,mma``,
+    ``pretwiddle,mma`` or ``bf16_state,cluster2``."""
     tags = [] if engine == "stacked" else [engine]
     if any(st.kind == "grouped" for st in stages):
         tags.append("grouped")
@@ -219,8 +226,44 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
         tags.append("mult3")
     if state_dtype == "bfloat16":
         tags.append("bf16_state")
+    if pipelined:
+        tags.append("pipelined")
     tags.append(f"cluster{cluster}" if cluster > 1 else "mma")
     return ",".join(tags)
+
+
+def knob_free(engine: str, stages: Sequence[Stage], state_dtype: str) -> bool:
+    """Whether a pass runs the knob-free stacked engine (``kEngStacked`` in
+    ``csrc/fft_stages.cuh:read_plan``): no planar engine, no folded or mult3
+    stage, no rounding to a bf16 state."""
+    return (engine not in PLANAR_ENGINES and state_dtype != "bfloat16"
+            and not any(st.fold or st.mult3 or st.round_tw or st.round_sum
+                        for st in stages))
+
+
+def takes_pipeline(*, dtype, algorithm: str, engine: str, stages,
+                   state_dtype: str, cluster: int, batch: int, n: int,
+                   pointers, sms: int) -> bool:
+    """Whether a kernel A call runs the pipelined persistent kernel
+    (``csrc/fused_fft_pipe.cu``) rather than one CTA a row
+    (``fused_fft_tc_kernel``): bf16 storage with one data term, the
+    knob-free stacked engine, one CTA a row, ``n % 8 == 0`` (a row's planes
+    are whole 16-byte bulk copies), ``n >= CTA_THREADS`` (one CTA fills an
+    SM; shorter rows share an SM among one-CTA-a-row kernels, which already
+    overlap one's load with another's stages, and the pipelined kernel ran
+    slower there: 10 % at n = 256, 6.5 % at n = 128 on the H100), every
+    plane's pointer 16-byte aligned, and more rows than the card's ``sms``,
+    so that a CTA has a next row to fetch while it computes one.  Both
+    kernels give the same bits."""
+    return (dtype is torch.bfloat16 and DATA_TERMS.get(algorithm) == 1
+            and knob_free(engine, stages, state_dtype) and cluster == 1
+            and n % 8 == 0 and n >= CTA_THREADS
+            and all(p % 16 == 0 for p in pointers) and batch > sms)
+
+
+def multiprocessors(device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _stage_dtype(j: int, algorithm: str, first_dot: str):
@@ -767,11 +810,17 @@ def mma_tables(radices: Tuple[int, ...], scales: Tuple[float, ...],
 
 
 def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
-                  engine, grouped, complex_mult, state_dtype, cluster=None):
+                  engine, grouped, complex_mult, state_dtype, cluster=None,
+                  pipelined=None):
     """Launch kernel A on CUDA planes, counted in ``fused_fft``'s counters:
     one CTA per row, or a cluster of ``cluster`` CTAs per row (default: the
     smallest that holds a row, :func:`fit_cta`; any valid one computes the
-    same output bit for bit), both on the tensor-core engine."""
+    same output bit for bit), both on the tensor-core engine; where
+    :func:`takes_pipeline` holds, the pipelined persistent kernel, which
+    computes the same bits.  ``pipelined`` True or False overrides the rule
+    (the card tests and ``chip_smoke.py``: one CTA a row as the reference,
+    the pipelined kernel at a length the rule keeps off it); the C launcher
+    refuses a pipelined call its kernel cannot take."""
     b, n = re.shape
     stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
     _, fit = fit_cta(n, 1, algorithm, stages, "fused_fft")
@@ -783,10 +832,18 @@ def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
             first_dot, re.device, engine, grouped, complex_mult, state_dtype,
             engine not in PLANAR_ENGINES)
     tables, meta, mats = mma_tables(*args)
-    launch("tfft_fused_fft", (re, im, out_re, out_im),
-           policy_codes(re, algorithm), b, n, cluster, tables.data_ptr(),
+    planes = (re, im, out_re, out_im)
+    sms = multiprocessors(re.device)
+    if pipelined is None:
+        pipelined = takes_pipeline(
+            dtype=re.dtype, algorithm=algorithm, engine=engine, stages=stages,
+            state_dtype=state_dtype, cluster=cluster, batch=b, n=n,
+            pointers=[t.data_ptr() for t in planes], sms=sms)
+    launch("tfft_fused_fft", planes, policy_codes(re, algorithm), b, n,
+           cluster, sms if pipelined else 0, tables.data_ptr(),
            mats.data_ptr(), meta.ctypes.data)
-    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster))
+    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster,
+                                    pipelined))
     return out_re, out_im
 
 
@@ -827,7 +884,8 @@ def fused_fft(
     Output dtype matches the input (storage rounding at the HBM boundary);
     compute is fp32 with ``algorithm`` matmul operands.  CPU tensors run
     :func:`fused_fft_reference`; CUDA tensors launch kernel A (a row longer
-    than one CTA holds on a thread-block cluster, :func:`fit_cta`), counted
+    than one CTA holds on a thread-block cluster, :func:`fit_cta`; where
+    :func:`takes_pipeline` holds, the pipelined persistent kernel), counted
     in ``fused_fft.launches`` and, per :func:`variant`,
     ``fused_fft.variant_launches``.  A gridslice engine whose layout the JAX
     kernel refuses raises ``ValueError`` on every device.
