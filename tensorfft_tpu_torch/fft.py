@@ -24,10 +24,15 @@ The N-D transforms (``fftn_split``, ``ifftn_split``, ``fftn``, ``ifftn``,
 ``fft2``, ``ifft2``) are row-column decompositions over the 1D engine.  A
 transform over the last two axes with both lengths on the FUSED route runs
 as K4, the 2D row-column kernels (``four_step_cuda.fft2_fused``); any other
-axis runs ``fft_split`` along it, one axis at a time in the order given.
+axis runs ``fft_split`` along it, one axis at a time in the order given,
+after an explicit relayout that moves the axis last (``_relayout``).
+``nd_counts`` counts the 2D branch's calls, the per-axis passes and the
+bytes the relayout copied (``tracing.counters()["nd"]``).
 """
 from __future__ import annotations
 
+import functools
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 from tensorfft_tpu_torch import dft, tracing
 from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, stages_torch
 from tensorfft_tpu_torch.plan import FFTPlan, Strategy, create_plan, is_power_of_2
+from tensorfft_tpu_torch.tuning import cache as tuner_cache
 
 __all__ = ["fft", "ifft", "fft_split", "ifft_split", "stage_scales",
            "four_step_call_kwargs", "fftn_split", "ifftn_split", "fftn",
@@ -219,17 +225,94 @@ def ifft(x, plan: Optional[FFTPlan] = None, *, device="cuda", **plan_kwargs):
 # Multi-dimensional transforms (port of tensorfft_tpu/fft.py:303-431).
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
+def _cached_plan(n, items, context):
+    return create_plan(n, **dict(items))
+
+
+def _nd_plan(n, plan_kwargs):
+    """``create_plan(n, **plan_kwargs)`` for the N-D dispatch, which plans
+    its axes on every call.  A plan with ``tuning="auto"`` reads the tuner
+    cache file, and the forward's plans come before its first launch, so
+    the card waits on the file system: on an H100 machine whose checkout is
+    on a network file system that wait swung the step's tail by several
+    percent.  So a plan is kept per arguments and, under ``tuning="auto"``,
+    per ``TENSORFFT_TUNER_CACHE`` and per file this process's ``TunerCache``
+    has saved since; a file rewritten by another process is not read again.
+    Arguments that do not hash are planned afresh."""
+    items = tuple(sorted(plan_kwargs.items()))
+    try:
+        hash(items)
+    except TypeError:
+        return create_plan(n, **plan_kwargs)
+    context = None
+    if plan_kwargs.get("tuning") == "auto":
+        context = (os.environ.get("TENSORFFT_TUNER_CACHE"), tuner_cache.writes)
+    return _cached_plan(n, items, context)
+
+
 def _fft2_plans(h, w, plan_kwargs):
     """The (plan_h, plan_w) of the fused 2D branch, or None when the
     transform takes the per-axis loop."""
     if h < 8 or not (is_power_of_2(h) and is_power_of_2(w)):
         return None
-    plan_h = create_plan(h, **plan_kwargs)
-    plan_w = create_plan(w, **plan_kwargs)
+    plan_h = _nd_plan(h, plan_kwargs)
+    plan_w = _nd_plan(w, plan_kwargs)
     if (plan_h.resolve_strategy() is Strategy.FUSED
             and plan_w.resolve_strategy() is Strategy.FUSED):
         return plan_h, plan_w
     return None
+
+
+# What the N-D dispatch has done since import (``tracing.counters()["nd"]``).
+nd_counts = {"fft2_branch": 0, "axis_passes": 0, "relayout_bytes": 0}
+
+
+@tracing.spanned("tfft.nd.fft2")
+def _fft2_branch(re, im, plan_h, plan_w, forward):
+    """The trailing two axes as K4; returns planes of ``re``'s shape."""
+    nd_counts["fft2_branch"] += 1
+    h, w = re.shape[-2], re.shape[-1]
+    batch_shape = re.shape[:-2]
+    b = int(np.prod(batch_shape)) if batch_shape else 1
+    storage = plan_h.precision.storage_dtype
+    # No first_dot: K4 runs the plain first stage, as fft2_fused does in the
+    # JAX package.
+    o_re, o_im = four_step_cuda.fft2_fused(
+        re.to(storage).reshape(b, h, w).contiguous(),
+        im.to(storage).reshape(b, h, w).contiguous(),
+        radices1=plan_h.radices, radices2=plan_w.radices,
+        scales1=stage_scales(plan_h.radices, plan_h.scaling, forward),
+        scales2=stage_scales(plan_w.radices, plan_w.scaling, forward),
+        sign=dft.FORWARD if forward else dft.INVERSE,
+        algorithm=plan_h.precision.dot_algorithm,
+        grouped=(plan_h.grouped, plan_w.grouped),
+        state_dtype=(plan_h.state_dtype
+                     if plan_h.state_dtype == plan_w.state_dtype
+                     else "float32"),
+        complex_mult=(plan_h.complex_mult
+                      if plan_h.complex_mult == plan_w.complex_mult
+                      else "block"),
+        engine=(plan_h.engine if plan_h.engine == plan_w.engine
+                else "stacked"),
+    )
+    return (o_re.reshape(*batch_shape, h, w),
+            o_im.reshape(*batch_shape, h, w))
+
+
+@tracing.spanned("tfft.nd.relayout")
+def _relayout(re, im, ax, storage):
+    """Both planes with axis ``ax`` moved last, cast to ``storage`` and made
+    contiguous, in that order: ``_run`` then finds (B, N) rows to view and
+    copies nothing."""
+    out = []
+    for x in (re, im):
+        moved = torch.movedim(x, ax, -1).to(storage)
+        dense = moved.contiguous()
+        if dense is not moved:
+            nd_counts["relayout_bytes"] += dense.numel() * dense.element_size()
+        out.append(dense)
+    return out
 
 
 def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
@@ -246,51 +329,30 @@ def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
     kw = dict(plan_kwargs)
     kw.setdefault("tuning", "auto")
     if len(axes_norm) == 2 and re.ndim >= 2 and set(axes_norm) == last_two and not plans:
-        h, w = re.shape[-2], re.shape[-1]
-        fused = _fft2_plans(h, w, kw)
+        fused = _fft2_plans(re.shape[-2], re.shape[-1], kw)
         if fused is not None:
-            plan_h, plan_w = fused
-            batch_shape = re.shape[:-2]
-            b = int(np.prod(batch_shape)) if batch_shape else 1
-            storage = plan_h.precision.storage_dtype
-            # No first_dot: K4 runs the plain first stage, as fft2_fused does
-            # in the JAX package.
-            o_re, o_im = four_step_cuda.fft2_fused(
-                re.to(storage).reshape(b, h, w).contiguous(),
-                im.to(storage).reshape(b, h, w).contiguous(),
-                radices1=plan_h.radices, radices2=plan_w.radices,
-                scales1=stage_scales(plan_h.radices, plan_h.scaling, forward),
-                scales2=stage_scales(plan_w.radices, plan_w.scaling, forward),
-                sign=dft.FORWARD if forward else dft.INVERSE,
-                algorithm=plan_h.precision.dot_algorithm,
-                grouped=(plan_h.grouped, plan_w.grouped),
-                state_dtype=(plan_h.state_dtype
-                             if plan_h.state_dtype == plan_w.state_dtype
-                             else "float32"),
-                complex_mult=(plan_h.complex_mult
-                              if plan_h.complex_mult == plan_w.complex_mult
-                              else "block"),
-                engine=(plan_h.engine if plan_h.engine == plan_w.engine
-                        else "stacked"),
-            )
-            return (o_re.reshape(*batch_shape, h, w),
-                    o_im.reshape(*batch_shape, h, w))
+            return _fft2_branch(re, im, *fused, forward)
 
     # Every pass rounds to the storage dtype, so the order of ``axes`` counts.
     for ax in axes:
-        re_m = torch.movedim(re, ax, -1)
-        im_m = torch.movedim(im, ax, -1)
-        n = re_m.shape[-1]
+        n = re.shape[ax]
         plan = plans.get(n) if isinstance(plans, dict) else None
-        plan = _ensure_plan(n, plan, **kw)
+        plan = _nd_plan(n, kw) if plan is None else _ensure_plan(n, plan)
+        nd_counts["axis_passes"] += 1
+        re_m, im_m = _relayout(re, im, ax, plan.precision.storage_dtype)
         re_m, im_m = _run(re_m, im_m, plan, forward, {})
         re = torch.movedim(re_m, -1, ax)
         im = torch.movedim(im_m, -1, ax)
     return re, im
 
 
-def _all_axes(re, axes):
-    return tuple(range(re.ndim)) if axes is None else tuple(axes)
+@tracing.spanned("tfft.nd")
+def _fftn_call(re, im, axes, plans, forward, plan_kwargs):
+    """One ``fftn_split`` / ``ifftn_split`` call: one ``tfft.nd`` span
+    around the whole dispatch, however deep it recurses."""
+    re, im = _as_planes(re, im)
+    axes = tuple(range(re.ndim)) if axes is None else tuple(axes)
+    return _fftn_split(re, im, axes, plans or {}, forward, plan_kwargs)
 
 
 def fftn_split(re, im, axes=None, plans=None, **plan_kwargs):
@@ -298,16 +360,12 @@ def fftn_split(re, im, axes=None, plans=None, **plan_kwargs):
     by default), on their device.  ``plans`` maps a length to its plan for
     the per-axis loop; the default scaling is 1/N per axis.  The result is
     in the plans' storage dtype."""
-    re, im = _as_planes(re, im)
-    return _fftn_split(re, im, _all_axes(re, axes), plans or {}, True,
-                       plan_kwargs)
+    return _fftn_call(re, im, axes, plans, True, plan_kwargs)
 
 
 def ifftn_split(re, im, axes=None, plans=None, **plan_kwargs):
     """Inverse of :func:`fftn_split` under the plans' scaling convention."""
-    re, im = _as_planes(re, im)
-    return _fftn_split(re, im, _all_axes(re, axes), plans or {}, False,
-                       plan_kwargs)
+    return _fftn_call(re, im, axes, plans, False, plan_kwargs)
 
 
 def fftn(x, axes=None, plans=None, *, device="cuda", **plan_kwargs):

@@ -30,6 +30,18 @@ torch's ``cpu_op`` events and the CUDA runtime's launch events:
     are one symbol, ``four_step_tc_kernel``, launched by ``four_step_col``
     and ``four_step_row``.
 
+``tfft.nd``
+    one ``fftn_split`` / ``ifftn_split`` call (also under ``fftn``,
+    ``rfftn_split`` and ``fft_convolve_2d``), however deep its dispatch
+    recurses.  Inside it:
+``tfft.nd.fft2``
+    the 2D branch: the trailing two axes as K4 (``fft2_col`` then
+    ``fft2_row``), with its casts and reshapes;
+``tfft.nd.relayout``
+    each pass of the per-axis loop: the move of its axis last, the cast and
+    the copy that makes the planes contiguous.  The pass's ``tfft.entry``
+    follows it and copies nothing.
+
 A call's spans nest on one thread; the ``tfft.entry`` span that holds a
 span is the call it belongs to.  The spans are made only while a profiler
 records (``torch.autograd._profiler_enabled()``); otherwise each site costs
@@ -116,8 +128,14 @@ def counters() -> dict:
         the first call of each plan this stays put; a count that keeps
         rising means the calls cycle through more plans, lengths or devices
         than a builder's cache holds (64 keys), so calls rebuild tables on
-        the host and copy them to the device again.
+        the host and copy them to the device again;
+    ``nd``
+        the N-D dispatch (``fft.nd_counts``): ``fft2_branch``, calls of the
+        2D branch; ``axis_passes``, passes of the per-axis loop;
+        ``relayout_bytes``, bytes the relayout wrote, both planes (it reads
+        as many).
     """
+    from tensorfft_tpu_torch.fft import nd_counts
     from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, rfft_cuda
 
     modules = {"fused_cuda": fused_cuda, "four_step_cuda": four_step_cuda,
@@ -127,4 +145,5 @@ def counters() -> dict:
                      for symbol, (m, f) in _LAUNCHERS.items()},
         "table_builds": {name: getattr(modules[m], f).cache_info().misses
                          for name, (m, f) in _TABLE_BUILDERS.items()},
+        "nd": dict(nd_counts),
     }

@@ -61,6 +61,11 @@ def _incumbent(entries: dict, key: str) -> Optional[dict]:
     return entry
 
 
+# Tuner cache files this process has written (``TunerCache.save``): plans
+# kept by the N-D dispatch (``fft._nd_plan``) are keyed on it.
+writes = 0
+
+
 def default_cache_path() -> Path:
     env = os.environ.get("TENSORFFT_TUNER_CACHE")
     if env:
@@ -234,6 +239,8 @@ class TunerCache:
         except BaseException:
             os.unlink(tmp)
             raise
+        global writes
+        writes += 1
 
     def __len__(self):
         return len(self._entries)
