@@ -143,8 +143,12 @@ four-step passes moved there kernels B and C, K4's column pass, K5 and K6
 must launch exactly those variants.  Kernel A's bf16 calls on the knob-free
 stacked engine with N >= 512 and more rows than SMs run its pipelined
 persistent kernel (``fused_fft[pipelined,mma]``, ``csrc/fused_fft_pipe.cu``),
-the same bits; step 5 times kernel A at N=16384 x 4096 on both paths, in
-turns.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+the same bits, and at a power of two N from 128 to 8192 its tile kernel, T
+consecutive rows a step (``fused_fft[pipelined,tile<T>,mma]``,
+``fused_cuda.pipeline_tile``: the c2c path's 4096 x 4096 and 4096 x 256, the
+512^3 grid's axis 0, the any path's 2048-point rows); step 5 times kernel A
+at N=16384 x 4096 on both paths, in turns, and the tile kernel at
+TILE_SHAPES against one CTA a row, a row a step and (at the grid's rows) K3.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
 kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
 adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
 engine on a thread-block cluster,
@@ -204,6 +208,12 @@ ND_IMAGE = (4096, 4096)
 ND_VOLUME = (512, 512, 512)
 ND_GATE_2D = [(4096, 4096), (8, 16384), (16384, 8)]
 ND_GATE_3D = (256, 256, 256)
+# Kernel A's tile kernel on tiles of 16384 and of 8192 elements and the
+# rule's tile, timed in turns with one CTA a row, a row a step (and K3 at the
+# 512^3 grid's axis-0 rows), every output equal to one CTA a row's: (N, rows).
+TILE_SHAPES = [(512, 262144), (512, 4096), (1024, 4096), (2048, 4096),
+               (4096, 4096), (8192, 4096), (256, 4096), (128, 4096),
+               (4096, 256)]
 # The conformance path: testing.conformance.REFERENCE_SWEEP (N = 256 ... 2^20,
 # 10 seeds), then its tail up to this length, under both policies; each
 # (N, seed) launches kernel A (N <= 16384) or kernels B and C once.
@@ -239,7 +249,8 @@ ANY_CALLS = [
      ("four_step_col[mma]", "four_step_row[mma]")),
     ("N=1000000 x 4 float32", 1_000_000, 4, "float32",
      ("four_step_col[mma]", "four_step_row[mma]")),
-    ("N=1000 x 4096 bfloat16", 1000, 4096, "bfloat16", ("fused_fft[pipelined,mma]",)),
+    ("N=1000 x 4096 bfloat16", 1000, 4096, "bfloat16",
+     ("fused_fft[pipelined,tile8,mma]",)),
 ]
 ANY_POW2 = (4096, 4096)
 # fft_split_any against np.fft.fft / N: the JAX package's float32 bound
@@ -273,6 +284,10 @@ KERNELS = {
                   "tensorfft_tpu/ops/fused_pallas.py:971"),
     "fused_fft[pipelined,mma]": ("tensorfft_tpu_torch/csrc/fused_fft_pipe.cu",
                              "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "fused_fft[pipelined,tile4,mma]": ("tensorfft_tpu_torch/csrc/fused_fft_pipe.cu",
+                                   "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "fused_fft[pipelined,tile16,mma]": ("tensorfft_tpu_torch/csrc/fused_fft_pipe.cu",
+                                    "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col[mma]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:465"),
     "four_step_row[mma]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
@@ -811,8 +826,18 @@ def main() -> int:
     for label, n, b in FLAGSHIP:
         data[label] = (tt.create_plan(n), *inputs(n, b, torch.bfloat16,
                                                   SEED + n + b))
+    sms = fused_cuda.multiprocessors(dev)
+
+    def kernel_a(n, b):
+        """Kernel A's counted variant for a knob-free bf16 call of b rows of n
+        on aligned planes (b > SMs; n >= 512, or a power of two >= 128): the
+        pipelined kernel, a row or a tile a step."""
+        t = fused_cuda.pipeline_tile(n, b, sms)
+        return f"fused_fft[pipelined{f',tile{t}' if t > 1 else ''},mma]"
+
     outputs = counted(
-        "c2c", ("fused_fft[pipelined,mma]", "four_step_col[mma]", "four_step_row[mma]"),
+        "c2c", ("fused_fft[pipelined,mma]", "fused_fft[pipelined,tile4,mma]",
+                "four_step_col[mma]", "four_step_row[mma]"),
         lambda: {label: tt.fft_split(re_, im_, plan)
                  for label, (plan, re_, im_) in data.items()})
     for label, (o_re, o_im) in outputs.items():
@@ -855,7 +880,8 @@ def main() -> int:
         return conv, spec, back, tt.fftn_split(*volume)
 
     conv2d, spec2d, back2d, vol_spec = counted(
-        "nd", ("fft2_col[mma]", "fft2_row[mma]", "fused_fft[pipelined,mma]"), drive_nd)
+        "nd", ("fft2_col[mma]", "fft2_row[mma]", "fused_fft[pipelined,tile16,mma]"),
+        drive_nd)
     finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
     finite("fftn_split 3-D", vol_spec, ND_VOLUME, torch.bfloat16)
@@ -983,7 +1009,8 @@ def main() -> int:
                 scales=stage_scales(plan.radices, plan.scaling, True),
                 algorithm=plan.precision.dot_algorithm,
                 first_dot=plan.first_dot)
-            hold("fused_fft[pipelined,mma]", label, outputs[label], want, FUSED_MAX_FRAC)
+            hold(kernel_a(plan.fft_length, re_.shape[0]), label, outputs[label], want,
+                 FUSED_MAX_FRAC)
             continue
         kw, common, col, row = pass_kwargs(plan, True)
         mid_plain = four_step_cuda.column_pass_reference(re_, im_, **col)
@@ -1145,7 +1172,8 @@ def main() -> int:
     plan_v = tt.create_plan(n_v)
     rows = [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous()
             for t in tt.fftn_split(*volume, axes=(1, 2))]
-    hold("fused_fft[pipelined,mma]", f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
+    hold(kernel_a(n_v, rows[0].shape[0]),
+         f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
          f"x B={rows[0].shape[0]} first_dot={plan_v.first_dot}",
          tt.fft_split(*rows, plan_v),
          fused_cuda.fused_fft_reference(
@@ -2147,6 +2175,61 @@ def main() -> int:
             log(f"[time] {name} N={n} B={b}: kernel {tk.average_time_ms:.4f} ms "
                 f"| plain {tp.average_time_ms:.4f} ms | bound {b_ms:.4f} ms "
                 f"({b_by}) | {smi}")
+
+    # Kernel A's tile kernel on short rows, in turns with one CTA a row, a
+    # row a step, the half tile and (at the grid's rows) K3; every output
+    # equal to one CTA a row's bit for bit.
+    log(f"[phase] kernel A tiles from {time.perf_counter() - t_start:.1f} s")
+    for n, b in TILE_SHAPES:
+        plan = tt.create_plan(n)
+        a_kw = dict(radices=plan.radices, sign=-1,
+                    scales=stage_scales(plan.radices, plan.scaling, True),
+                    algorithm=plan.precision.dot_algorithm, first_dot=plan.first_dot,
+                    engine="stacked", grouped=False, complex_mult="block",
+                    state_dtype="float32")
+        x = device_inputs(n, b, torch.bfloat16, SEED + n + b)
+        rule = kernel_a(n, b)
+        paths = {"fused_fft[mma]": dict(pipelined=False),
+                 "fused_fft[pipelined,mma]": dict(pipelined=True, tile=1)}
+        tiles = {fused_cuda.MAX_CTA_ELEMS // n, fused_cuda.MAX_CTA_ELEMS // 2 // n,
+                 fused_cuda.pipeline_tile(n, b, sms)}
+        for tile in sorted(tiles - {0, 1}, reverse=True):
+            paths[f"fused_fft[pipelined,tile{tile},mma]"] = dict(pipelined=True,
+                                                                tile=tile)
+        fns = {name: (lambda r, i, o=o: fused_cuda._launch_fused(r, i, **o, **a_kw))
+               for name, o in paths.items()}
+        if (n, b) == (ND_VOLUME[0], math.prod(ND_VOLUME[1:])):
+            fns["K3 fused_fft_batch_major[mma]"] = (
+                lambda r, i: four_step_cuda.fused_fft_batch_major(r, i, **a_kw))
+        want = fns["fused_fft[mma]"](*x)
+        for name, fn in fns.items():
+            bitwise(name, f"N={n} x B={b} (against one CTA a row)", fn(*x), want)
+        del want
+        runs = {name: [] for name in fns}
+        for name in (*fns, *reversed(fns)):
+            runs[name].append(measure(fns[name], x, iters=10).average_time_ms)
+        plain_kw = {k: a_kw[k] for k in ("radices", "scales", "sign", "algorithm",
+                                         "first_dot")}
+        p_ms = measure(lambda r, i: fused_cuda.fused_fft_reference(r, i, **plain_kw),
+                       x, iters=3).average_time_ms
+        x_c = torch.complex(x[0].float(), x[1].float())
+        c_ms = measure(lambda v: torch.fft.fft(v, dim=-1), (x_c,), iters=10).average_time_ms
+        del x_c
+        b_ms, b_by = bound(4 * 2 * n * b + table_bytes(plan, plan.radices,
+                                                       a_kw["scales"], -1, mma=True),
+                           pass_flops(plan, plan.radices, n * b), H100.bf16_flops)
+        for name, ms in runs.items():
+            log(f"[time] kernel A tiles N={n} x B={b} first_dot={plan.first_dot} {name}: "
+                f"{min(ms):.4f} ms (runs {', '.join(f'{v:.4f}' for v in ms)}) | bound "
+                f"{b_ms:.4f} ms ({b_by}) | {b_ms / min(ms):.1%} of bound | plain "
+                f"{p_ms:.4f} ms | torch.fft c64 {c_ms:.4f} ms"
+                f"{' | the rule' if name == rule else ''} | {smi}")
+            if name in KERNELS and name not in timing and name == rule:
+                timing[name] = dict(ms=min(ms), plain_ms=p_ms, library_ms=c_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    shape=f"N={n} x B={b} bf16 first_dot={plan.first_dot}")
+        del x
+        torch.cuda.empty_cache()
 
     # The float32 policy at the headline shape (kernel A, bf16x3).
     plan32 = tt.create_plan(16384, precision="float32")

@@ -44,6 +44,15 @@ int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
                       const StagePlan& plan, const float* tables,
                       const __nv_bfloat16* mats, cudaStream_t stream);
 
+// The pipelined kernel on tiles of T consecutive rows (fused_fft_pipe.cu):
+// the same calls as launch_fused_pipe with n a power of two of at least
+// 32, T a power of two of at least 2 and n * T <= kMaxCtaElems, on a grid
+// of at most `sms` CTAs.
+int launch_fused_pipe_tile(const void* in_re, const void* in_im, void* out_re,
+                           void* out_im, long long batch, int n, int T, int sms,
+                           const StagePlan& plan, const float* tables,
+                           const __nv_bfloat16* mats, cudaStream_t stream);
+
 // One CTA per row (launch_fused_tc, compiled in fused_fft_tc{1,2,3}.cu), or
 // a cluster of `cluster` CTAs per row (launch_fused_cluster_tc, compiled in
 // cluster_tc{1,2,3}.cu), both on the tensor-core engine.
@@ -76,13 +85,14 @@ extern "C" const char* tfft_error_string(int err) {
 // each stage in its route's layout), the twiddles from the fp32 `tables`,
 // on one CTA and on a cluster alike.  sms: 0 for one CTA (or cluster) per
 // row, else the card's SMs, over which the pipelined kernel
-// (launch_fused_pipe) walks the rows.
+// (launch_fused_pipe) walks the rows, or with tile > 1 the tiles of `tile`
+// consecutive rows (launch_fused_pipe_tile).
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
-                              int cluster, int sms, const void* tables,
-                              const void* mats, const long long* meta,
-                              void* stream) {
+                              int cluster, int sms, int tile,
+                              const void* tables, const void* mats,
+                              const long long* meta, void* stream) {
   using namespace tfft;
   StagePlan plan;
   if (!read_plan(meta, &plan) || !cluster_ok(n, 1, cluster) || batch < 1)
@@ -91,8 +101,11 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
   const __nv_bfloat16* m = static_cast<const __nv_bfloat16*>(mats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (sms != 0) {
-    if (dtype != 0 || data_terms != 1 || cluster != 1)
+    if (dtype != 0 || data_terms != 1 || cluster != 1 || tile < 1)
       return static_cast<int>(cudaErrorInvalidValue);
+    if (tile > 1)
+      return launch_fused_pipe_tile(in_re, in_im, out_re, out_im, batch, n,
+                                    tile, sms, plan, t, m, s);
     return launch_fused_pipe(in_re, in_im, out_re, out_im, batch, n, sms, plan,
                              t, m, s);
   }

@@ -1,7 +1,8 @@
 // Kernel A, pipelined: the whole-transform FFT of batch-major (B, N) bf16
 // rows on a persistent grid, each CTA walking the rows blockIdx.x + i *
 // gridDim.x while the next row's input and the last row's output move by
-// bulk async copies.
+// bulk async copies; below N = 16384, on tiles of T consecutive rows
+// (fused_fft_pipe_tile_kernel, the second half of this file).
 //
 // Replaces the TPU kernel K1, tensorfft_tpu/ops/fused_pallas.py:fused_fft
 // (pallas_call at :971), for the calls whose rows it can feed: bf16 storage
@@ -31,8 +32,8 @@
 //   * the grid is persistent (one CTA an SM, each walking rows), so a CTA
 //     starts once, not once a row.  Shorter rows take fewer threads, and
 //     one-CTA-a-row kernels then share an SM (two at n = 256), overlapping
-//     one CTA's load with another's stages already: the pipelined kernel
-//     measured slower there, so it is not taken below 512;
+//     one CTA's load with another's stages already: this kernel measured
+//     slower there, so it is not taken below 512 (the tile kernel is);
 //   * three shared buffers of 4n bytes: a landing buffer, the operand and a
 //     staging buffer.  Once a row has been scattered from the landing buffer
 //     into the swizzled operand (16-byte shared-memory copies: the swizzle
@@ -336,6 +337,238 @@ int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
       static_cast<const __nv_bfloat16*>(in_im),
       static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
       batch, n, plan, mats, tables);
+}
+
+// -- The tile kernel -----------------------------------------------------------
+//
+// Replaces K1 (tensorfft_tpu/ops/fused_pallas.py:fused_fft, pallas_call at
+// :971) on the same calls as the row kernel above, at a power-of-two n from
+// 128 to 8192: ops/fused_cuda.py:pipeline_tile picks T (a tile of 16384
+// elements from n = 2048 on, of 8192 below, where it ran faster on the
+// H100; halved while the batch still gives at most one tile an SM).
+//
+// What bounds the row kernel at n = 512 on the H100: a pipeline step is one
+// 512-point row, one point a thread over two small stages (16, 32), and
+// each row still pays the mbarrier wait, four __syncthreads and a 1 KiB
+// bulk copy per plane in and out: 13.5 ms at 512 x 262,144 (the 512^3
+// grid's axis 0), 6.8 us a row an SM, 42x the pass's 0.32 ms HBM bound.
+//
+// What the tile does about it (13.5 -> 1.93 ms there at T = 16; PERF.md):
+//   * T consecutive rows are one contiguous run of n*T elements a plane, so
+//     a tile lands by one cp.async.bulk per plane, and every per-step cost
+//     above is paid once per T rows;
+//   * the landed rows are scattered into K3's operand layout (element i of
+//     row lane at i*T + lane, run_fft_tc's T-row tile): each thread gathers
+//     8 landed elements into one 16-byte operand chunk, a warp reading 32
+//     consecutive i of each row;
+//   * tile_stages is run_fft_tc's stage loop for T rows (the same stage
+//     functions, twiddles and roundings in the same order, shifts for the
+//     power-of-two index arithmetic), so each output equals one CTA a row's
+//     and K3's bit for bit;
+//   * the last stage writes natural rows into a staging buffer whose rows
+//     lie kRowPad elements apart, and each row leaves by its own two bulk
+//     copies, issued by thread `lane`.  No warp of the last stage holds
+//     consecutive bins of a row, so its outputs are staged in 2-byte
+//     stores; the pad spreads adjacent rows' stores over more banks.
+
+// Elements between the staged rows of a tile: each row starts on a 16-byte
+// boundary (a bulk copy's), and the last stage's 2-byte stores of adjacent
+// rows fall on other banks.
+constexpr int kRowPad = 8;
+
+// The landed tile (row `lane` at land[lane * n], re then im `elems` on) into
+// the operand, element i of row lane at operand index swz(i * T + lane):
+// one 16-byte operand chunk c (indices 8c .. 8c + 7) per thread and plane,
+// gathered from 8 landed elements.  With T >= 8 a chunk is 8 lanes of one
+// i; a warp takes 32 consecutive i of one block of 8 lanes, so each gather
+// reads 64 contiguous bytes.
+__device__ __forceinline__ void tile_scatter(const __nv_bfloat16* land,
+                                             __nv_bfloat16* op, int n, int lg_t,
+                                             Swizzle sw) {
+  const int elems = n << lg_t, tm = (1 << lg_t) - 1;
+  const int lg_g = lg_t > 3 ? lg_t - 3 : 0;
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(land);
+  for (int u = threadIdx.x; u < (elems >> 3); u += blockDim.x) {
+    const int rest = u >> 5;
+    const int c = lg_g ? (((((rest >> lg_g) << 5) | (u & 31)) << lg_g) |
+                          (rest & ((1 << lg_g) - 1)))
+                       : u;
+    uint32_t w_re[4], w_im[4];
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const int a = 8 * c + e, b = a + 1;
+      const int sa = (a & tm) * n + (a >> lg_t), sb = (b & tm) * n + (b >> lg_t);
+      w_re[e / 2] = src[sa] | (static_cast<uint32_t>(src[sb]) << 16);
+      w_im[e / 2] = src[elems + sa] | (static_cast<uint32_t>(src[elems + sb]) << 16);
+    }
+    const int at = swz(8 * c, sw);
+    *reinterpret_cast<uint4*>(op + at) = make_uint4(w_re[0], w_re[1], w_re[2], w_re[3]);
+    *reinterpret_cast<uint4*>(op + elems + at) =
+        make_uint4(w_im[0], w_im[1], w_im[2], w_im[3]);
+  }
+}
+
+// run_fft_tc's stages for a tile of T = 2^lg_t consecutive rows (bf16
+// storage, one data term, the knob-free stacked engine; every radix a power
+// of two) on the operand `op`, with the last stage's outputs in the staging
+// buffer as natural rows `pitch` elements apart (re at st, im at im).  The
+// same stage functions, twiddles and roundings in the same order as
+// run_fft_tc with T rows (K3) and as pipe_stages, so each output equals
+// theirs bit for bit; the index arithmetic uses shifts.  Threads below T
+// first wait until the staging buffer's previous bulk stores have read it.
+__device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
+                                            __nv_bfloat16* st,
+                                            __nv_bfloat16* im, int pitch,
+                                            int n, int lg_t,
+                                            const StagePlan& plan,
+                                            const __nv_bfloat16* __restrict__ mats,
+                                            const float* __restrict__ tw) {
+  const int elems = n << lg_t, tm = (1 << lg_t) - 1;
+  Swizzle sw = stage_swizzle(elems / plan.radix[0]);
+  int K = 1, lg_m = __ffs(n) - 1;
+  for (int s = 0; s < plan.n_stages; ++s) {
+    const int R = plan.radix[s];
+    const int lg_r = __ffs(R) - 1;
+    lg_m -= lg_r;
+    const int nt = elems >> lg_r;
+    const __nv_bfloat16* d = mats + plan.d_off[s];
+    const bool mma = mma_route(plan.mode[s], R);
+    const int blk = (mma && plan.a_terms[s] == 1) ? mma_block(R >> 3, nt) : 0;
+    const int slice_stride = R * R * 2;
+    float o_re[kMaxEpt], o_im[kMaxEpt];
+    int vv;
+    if (plan.a_terms[s] == 2)
+      vv = stage_products<2, 1, kEngStacked>(op, elems, nt, R, lg_r, sw, mma,
+                                             blk, false, d, slice_stride, 0,
+                                             slice_stride, o_re, o_im);
+    else
+      vv = stage_products<1, 1, kEngStacked>(op, elems, nt, R, lg_r, sw, mma,
+                                             blk, false, d, slice_stride, 0,
+                                             slice_stride, o_re, o_im);
+    if (s + 1 == plan.n_stages) {
+      if (threadIdx.x <= tm)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncthreads();  // the staging buffer is free
+      // g = kk * T + lane, natural bin k = r_out * K + kk of row lane.
+      for_outputs(mma, blk, vv, elems, nt, R, lg_r, [&](int e, int r_out, int g) {
+        const int at = (g & tm) * pitch + r_out * K + (g >> lg_t);
+        st[at] = __float2bfloat16_rn(o_re[e]);
+        im[at] = __float2bfloat16_rn(o_im[e]);
+      });
+      return;
+    }
+    __syncthreads();  // every operand read before it is overwritten
+    const int R2 = plan.radix[s + 1], K2 = K * R;
+    const int lg_m2 = lg_m - (__ffs(R2) - 1);
+    const float* w = tw + plan.w_off[s + 1];
+    const int flags2 = plan.flags[s + 1];
+    const Swizzle sw2 = stage_swizzle(elems / R2);
+    for_outputs(mma, blk, vv, elems, nt, R, lg_r, [&](int e, int r_out, int g) {
+      const int gm = g >> lg_t, lane = g & tm;
+      const int kk = gm >> lg_m, mm = gm & ((1 << lg_m) - 1);
+      const int kk2 = r_out * K + kk;
+      const int r2 = mm >> lg_m2, mm2 = mm & ((1 << lg_m2) - 1);
+      float z_re, z_im;
+      cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
+           __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
+      put_stage_operand<1, kEngStacked>(
+          op, elems, swz((((r2 * K2 + kk2) << lg_m2) + mm2) << lg_t | lane, sw2),
+          z_re, z_im, flags2);
+    });
+    sw = sw2;
+    __syncthreads();
+    K *= R;
+  }
+}
+
+// Dynamic shared memory of the tile kernel: landing and operand buffers of
+// 4nT bytes, the staging buffer of T rows of n + kRowPad elements per plane,
+// then the mbarrier.
+inline size_t pipe_tile_smem_bytes(int n, int T) {
+  return (4 * static_cast<size_t>(n) * T +
+          2 * static_cast<size_t>(n + kRowPad) * T) * sizeof(__nv_bfloat16) +
+         sizeof(uint64_t);
+}
+
+// The pipelined kernel on tiles of T = 2^lg_t consecutive rows of n (a
+// power of two): tile t holds rows tT .. tT + T - 1 (the last tile may be
+// short), one contiguous run of each plane, which lands by one bulk copy
+// per plane; each row leaves by its own bulk copies, issued by thread
+// `lane`.  Each CTA walks the tiles blockIdx.x + i * gridDim.x (gridDim.x at
+// most the tile count).
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_tile_kernel(const __nv_bfloat16* __restrict__ in_re,
+                               const __nv_bfloat16* __restrict__ in_im,
+                               __nv_bfloat16* __restrict__ out_re,
+                               __nv_bfloat16* __restrict__ out_im,
+                               long long batch, int n, int lg_t,
+                               StagePlan plan,
+                               const __nv_bfloat16* __restrict__ mats,
+                               const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = 1 << lg_t, elems = n << lg_t, pitch = n + kRowPad;
+  __nv_bfloat16* land = reinterpret_cast<__nv_bfloat16*>(smem);  // [re | im]
+  __nv_bfloat16* op = land + 2 * elems;
+  __nv_bfloat16* st = op + 2 * elems;  // [re | im], T rows of pitch each
+  __nv_bfloat16* st_im = st + T * pitch;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(st_im + T * pitch);
+  const long long tiles = (batch + T - 1) >> lg_t, step = gridDim.x;
+  const Swizzle sw0 = stage_swizzle(elems / plan.radix[0]);
+  // Thread 0: the rows of tile t into the landing buffer.
+  auto fetch = [&](long long t) {
+    const long long r0 = t << lg_t;
+    const long long rows = batch - r0 < T ? batch - r0 : T;
+    const long long at = r0 * n;
+    bulk_load(land, land + elems, in_re + at, in_im + at,
+              static_cast<uint32_t>(2 * rows * n), bar);
+  };
+  if (threadIdx.x == 0) {
+    bar_init(bar);
+    fetch(blockIdx.x);
+  }
+  __syncthreads();
+  uint32_t parity = 0;
+  for (long long t = blockIdx.x; t < tiles; t += step, parity ^= 1) {
+    bar_wait(bar, parity);
+    tile_scatter(land, op, n, lg_t, sw0);
+    __syncthreads();  // the landing buffer is free
+    if (threadIdx.x == 0 && t + step < tiles) {
+      fence_async_shared();
+      fetch(t + step);
+    }
+    tile_stages(op, st, st_im, pitch, n, lg_t, plan, mats, tables);
+    fence_async_shared();
+    __syncthreads();  // the tile is staged
+    const long long row = (t << lg_t) + threadIdx.x;
+    if (threadIdx.x < T && row < batch)
+      bulk_store(out_re + row * n, out_im + row * n, st + threadIdx.x * pitch,
+                 st_im + threadIdx.x * pitch, 2u * static_cast<uint32_t>(n));
+  }
+  if (threadIdx.x < T)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+int launch_fused_pipe_tile(const void* in_re, const void* in_im, void* out_re,
+                           void* out_im, long long batch, int n, int T, int sms,
+                           const StagePlan& plan, const float* tables,
+                           const __nv_bfloat16* mats, cudaStream_t stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(in_re) |
+                       reinterpret_cast<uintptr_t>(in_im) |
+                       reinterpret_cast<uintptr_t>(out_re) |
+                       reinterpret_cast<uintptr_t>(out_im);
+  if (mats == nullptr || plan.engine != kEngStacked || n < 32 ||
+      (n & (n - 1)) != 0 || T < 2 || (T & (T - 1)) != 0 ||
+      static_cast<long long>(n) * T > kMaxCtaElems || (at & 15) != 0 ||
+      sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (batch + T - 1) / T;
+  return launch_stage_kernel(
+      &fused_fft_pipe_tile_kernel, tiles < sms ? tiles : sms,
+      tc_threads(n * T), pipe_tile_smem_bytes(n, T), 1, stream,
+      static_cast<const __nv_bfloat16*>(in_re),
+      static_cast<const __nv_bfloat16*>(in_im),
+      static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
+      batch, n, __builtin_ctz(T), plan, mats, tables);
 }
 
 }  // namespace tfft

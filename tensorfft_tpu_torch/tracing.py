@@ -123,6 +123,11 @@ def counters() -> dict:
     ``launches``
         kernel launches per C launcher (the names of the launch spans), the
         counted wrappers' ``launches``;
+    ``variants``
+        the same launches per variant, for the launchers whose wrapper
+        counts them (``variant_launches``: the engine, knobs and kernel in
+        effect, e.g. ``fused_fft``'s ``pipelined,tile16,mma`` for kernel A's
+        tile kernel, ``ops/fused_cuda.py:variant``);
     ``table_builds``
         builds per cached table builder (``cache_info().misses``).  After
         the first call of each plan this stays put; a count that keeps
@@ -143,6 +148,9 @@ def counters() -> dict:
     return {
         "launches": {symbol: getattr(modules[m], f).launches
                      for symbol, (m, f) in _LAUNCHERS.items()},
+        "variants": {symbol: dict(getattr(modules[m], f).variant_launches)
+                     for symbol, (m, f) in _LAUNCHERS.items()
+                     if hasattr(getattr(modules[m], f), "variant_launches")},
         "table_builds": {name: getattr(modules[m], f).cache_info().misses
                          for name, (m, f) in _TABLE_BUILDERS.items()},
         "nd": dict(nd_counts),

@@ -1,14 +1,18 @@
-"""Kernel A's pipelined persistent kernel (``csrc/fused_fft_pipe.cu``).
+"""Kernel A's pipelined persistent kernels (``csrc/fused_fft_pipe.cu``):
+a row a step (``fused_fft_pipe_kernel``) and tiles of T consecutive rows a
+step (``fused_fft_pipe_tile_kernel``).
 
-On the CPU: the rule that picks it (``fused_cuda.takes_pipeline``), its
-counter name, and what ``_launch_fused`` hands the C launcher, with the
-launch recorded and the card's SM count passed in.
+On the CPU: the rules that pick them (``fused_cuda.takes_pipeline``,
+``fused_cuda.pipeline_tile``), their counter names, and what
+``_launch_fused`` hands the C launcher, with the launch recorded and the
+card's SM count passed in.
 
 On the card (``-m gpu``; every such test skips without a CUDA device, decided
-in the ``cuda`` fixture): its outputs equal ``fused_fft_tc_kernel``'s bit for
-bit, the reference running the same rows in chunks of at most SMs rows, each
-of which takes one CTA a row; a view off a 16-byte boundary takes one CTA a
-row; the counter names the pipelined launch exactly when the rule holds.
+in the ``cuda`` fixture): their outputs equal ``fused_fft_tc_kernel``'s bit
+for bit, the reference running the same rows in chunks of at most SMs rows,
+each of which takes one CTA a row, or one CTA a row forced; a view off a
+16-byte boundary takes one CTA a row; the counter names the pipelined launch
+and its tile exactly when the rules hold.
 
     python -m pytest -m gpu tests/test_torch_fused_pipe.py
 """
@@ -81,14 +85,81 @@ def test_selection_rule_and_variant(batch, dtype, algorithm, name, knobs,
 
 
 @pytest.mark.parametrize("n,want", [(16384, True), (512, True), (1000, True),
-                                    (1004, False), (256, False), (8, False)])
+                                    (768, True), (1004, False), (256, True),
+                                    (128, True), (384, False), (64, False),
+                                    (8, False)])
 def test_selection_rule_needs_whole_16_byte_rows_of_512(n, want):
     # A row's planes are cp.async.bulk copies: whole 16-byte runs; below 512
-    # elements one-CTA-a-row kernels share an SM and keep the old kernel.
+    # elements one-CTA-a-row kernels share an SM, and only tiles of rows (a
+    # power of two from 128 on) take the pipelined kernel.
     assert fused_cuda.takes_pipeline(
         dtype=torch.bfloat16, algorithm="bf16ax2", engine="stacked",
         stages=_stages({}), state_dtype="float32", cluster=1, batch=SMS + 1,
         n=n, pointers=[0, 16, 32, 48], sms=SMS) == want
+
+
+# The tile kernel's T by length at a large batch: a tile of 16384 elements
+# from n = 2048 on, 8192 below; 1 where no tile is taken.
+TILE = {128: 64, 256: 32, 512: 16, 1024: 8, 2048: 8, 4096: 4, 8192: 2,
+        16384: 1}
+
+
+def _want_tile(n, batch, sms):
+    """T at n and batch: TILE's, halved while the batch still gives at most
+    ``sms`` tiles; 1 off the table and at batch <= sms."""
+    t = TILE.get(n, 1)
+    while t > 1 and -(-batch // (t // 2)) <= sms:
+        t //= 2
+    return t
+
+
+@pytest.mark.parametrize("sms", [SMS, 114], ids=["sms132", "sms114"])
+@pytest.mark.parametrize("rows", ["sms", "sms_plus_1", "sms_tiles",
+                                  "sms_tiles_plus_1", "undivided", "4096",
+                                  "262144"])
+@pytest.mark.parametrize("n", sorted(TILE) + [64, 1000, 2056])
+def test_tile_rule(n, rows, sms):
+    t = TILE.get(n, 1)
+    batch = {"sms": sms, "sms_plus_1": sms + 1, "sms_tiles": sms * t,
+             "sms_tiles_plus_1": sms * t + 1,
+             "undivided": (sms + 7) * t + t // 2 + 1, "4096": 4096,
+             "262144": 262144}[rows]
+    got = fused_cuda.pipeline_tile(n, batch, sms)
+    assert got == _want_tile(n, batch, sms)
+    if n not in TILE or n == 16384 or batch <= sms:
+        assert got == 1
+    elif -(-batch // t) > sms:
+        # More tiles than SMs: the tile of the length.
+        assert got == t
+        assert rows not in ("sms", "sms_tiles")
+    else:
+        # At most SMs tiles: halved to the most tiles that still fit, never
+        # to a row a step.
+        assert 2 <= got <= t and -(-batch // got) <= sms
+        assert got == 2 or -(-batch // (got // 2)) > sms
+
+
+@pytest.mark.parametrize("n,batch,want", [
+    (512, 262144, 16),   # the 512^3 grid's axis 0
+    (512, 4096, 16), (1024, 4096, 8), (2048, 4096, 8), (4096, 4096, 4),
+    (8192, 4096, 2), (256, 4096, 32), (128, 4096, 32),
+    (4096, 256, 2),      # the entry flagship: 128 tiles of 2 rows
+    (512, 1024, 8), (512, SMS + 1, 2), (16384, 4096, 1), (1000, 4096, 1),
+    (512, SMS, 1)])
+def test_tile_rule_at_named_shapes(n, batch, want):
+    assert fused_cuda.pipeline_tile(n, batch, SMS) == want
+
+
+def test_tile_variant_names():
+    stages = _stages({})
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 16) == \
+        "pipelined,tile16,mma"
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 1) == \
+        "pipelined,mma"
+    assert fused_cuda.variant("pretwiddle", stages, "float32", 1, True, 4) == \
+        "pretwiddle,pipelined,tile4,mma"
+    # A tile names only a pipelined launch.
+    assert fused_cuda.variant("stacked", stages, "float32", 1, False, 32) == "mma"
 
 
 @pytest.fixture
@@ -115,10 +186,60 @@ def test_launch_passes_the_choice(recorded, batch, pipelined):
     (symbol, codes, args), = recorded
     assert symbol == "tfft_fused_fft" and codes == (0, 1)
     on = pipelined is None and batch > SMS
-    # batch, n, cluster, then the SMs the pipelined kernel walks (0: off).
-    assert args[:4] == (batch, 1024, 1, SMS if on else 0)
+    # batch, n, cluster, the SMs the pipelined kernel walks (0: off), then
+    # its rows a step (SMS + 1 rows of 1024: tiles of 2, 67 of them).
+    assert args[:5] == (batch, 1024, 1, SMS if on else 0, 2 if on else 1)
     launched = collections.Counter(fused_cuda.fused_fft.variant_launches) - before
-    assert launched == {"pipelined,mma" if on else "mma": 1}
+    assert launched == {"pipelined,tile2,mma" if on else "mma": 1}
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+@pytest.mark.parametrize("rows", ["sms", "sms_plus_1", "sms_tiles",
+                                  "sms_tiles_plus_1", "undivided"])
+@pytest.mark.parametrize("n", sorted(TILE))
+def test_launch_passes_the_tile(recorded, n, rows, aligned):
+    t = TILE[n]
+    batch = {"sms": SMS, "sms_plus_1": SMS + 1, "sms_tiles": SMS * t,
+             "sms_tiles_plus_1": SMS * t + 1,
+             "undivided": (SMS + 3) * t + max(t // 2, 1) + 1}[rows]
+    offset = 0 if aligned else 1
+    flat = torch.zeros(2, batch * n + offset, dtype=torch.bfloat16)
+    re, im = (p[offset:].view(batch, n) for p in flat)
+    plan = tt.create_plan(n)
+    kw = dict(radices=plan.radices, sign=-1,
+              scales=stage_scales(plan.radices, "forward", True),
+              algorithm="bf16", first_dot=plan.first_dot, engine="stacked",
+              grouped=False, complex_mult="block", state_dtype="float32")
+    before = collections.Counter(fused_cuda.fused_fft.variant_launches)
+    fused_cuda._launch_fused(re, im, **kw)
+    (symbol, codes, args), = recorded
+    assert symbol == "tfft_fused_fft" and codes == (0, 1)
+    on = aligned and batch > SMS
+    tile = _want_tile(n, batch, SMS) if on else 1
+    assert args[:5] == (batch, n, 1, SMS if on else 0, tile)
+    launched = collections.Counter(fused_cuda.fused_fft.variant_launches) - before
+    want = "mma" if not on else (
+        f"pipelined,tile{tile},mma" if tile > 1 else "pipelined,mma")
+    assert launched == {want: 1}
+    if on and rows in ("sms_tiles_plus_1", "undivided"):
+        assert tile == t
+    if on and n < 16384:
+        assert tile >= 2
+
+
+@pytest.mark.parametrize("tile", [None, 1, 32])
+def test_launch_passes_a_forced_tile(recorded, tile):
+    # tile overrides the rule on a pipelined call; one CTA a row ignores it.
+    batch, n = SMS * 16 + 1, 512
+    re = torch.zeros(batch, n, dtype=torch.bfloat16)
+    kw = dict(radices=(16, 32), scales=(1 / 16, 1 / 32), sign=-1,
+              algorithm="bf16", first_dot="bf16ax2", engine="stacked",
+              grouped=False, complex_mult="block", state_dtype="float32")
+    fused_cuda._launch_fused(re, re.clone(), tile=tile, **kw)
+    fused_cuda._launch_fused(re, re.clone(), pipelined=False, tile=tile, **kw)
+    (_, _, on), (_, _, off) = recorded
+    assert on[:5] == (batch, n, 1, SMS, 16 if tile is None else tile)
+    assert off[:5] == (batch, n, 1, 0, 1)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -143,6 +264,14 @@ def _kwargs(n, forward):
                 scales=stage_scales(radices, "forward", forward))
 
 
+def _plan_kwargs(n, forward):
+    """_kwargs with the plan's own dot algorithm and first stage (bf16ax2 at
+    n <= 1024)."""
+    plan = tt.create_plan(n)
+    return dict(_kwargs(n, forward), algorithm=plan.precision.dot_algorithm,
+                first_dot=plan.first_dot)
+
+
 def _launched(call):
     before = collections.Counter(fused_cuda.fused_fft.variant_launches)
     out = call()
@@ -161,21 +290,18 @@ def _bitwise(got, want):
 @pytest.mark.parametrize("extra", [1, 4096, 4099], ids=lambda e: f"b{e}")
 @pytest.mark.parametrize("n", [256, 4096, 16384])
 def test_pipelined_equals_one_cta_a_row(cuda, n, extra, forward):
-    # b = SMs + 1, 4096, 4099: 4099 leaves the CTAs unequal row counts.  At
-    # n = 256 the rule keeps one CTA a row; the pipelined kernel is forced.
+    # b = SMs + 1, 4096, 4099: 4099 leaves the CTAs unequal row counts.  Below
+    # n = 16384 the rule takes tiles of rows; at n = 256 the row-a-step
+    # kernel, which the rule keeps off it, is forced too.
     sms = fused_cuda.multiprocessors(cuda)
     b = sms + 1 if extra == 1 else extra
     re, im = _planes(b, n, cuda, seed=n + b + forward)
     kw = _kwargs(n, forward)
-    on = n >= fused_cuda.CTA_THREADS
+    tile = _want_tile(n, b, sms)
+    assert (tile > 1) == (n < 16384)
     got, launched = _launched(lambda: fused_cuda.fused_fft(re, im, **kw))
-    assert launched == {"pipelined,mma" if on else "mma": 1}
-    if not on:
-        full = dict(kw, algorithm="bf16", first_dot="default", engine="stacked",
-                    grouped=False, complex_mult="block", state_dtype="float32")
-        got, launched = _launched(
-            lambda: fused_cuda._launch_fused(re, im, pipelined=True, **full))
-        assert launched == {"pipelined,mma": 1}
+    assert launched == {(f"pipelined,tile{tile},mma" if tile > 1
+                         else "pipelined,mma"): 1}
     chunks = [range(s, min(s + sms, b)) for s in range(0, b, sms)]
     want, launched = _launched(lambda: [
         torch.cat(parts) for parts in zip(*(
@@ -183,6 +309,13 @@ def test_pipelined_equals_one_cta_a_row(cuda, n, extra, forward):
             for c in chunks))])
     assert launched == {"mma": len(chunks)}
     _bitwise(got, want)
+    if n < fused_cuda.CTA_THREADS:
+        full = dict(kw, algorithm="bf16", first_dot="default", engine="stacked",
+                    grouped=False, complex_mult="block", state_dtype="float32")
+        row, launched = _launched(lambda: fused_cuda._launch_fused(
+            re, im, pipelined=True, tile=1, **full))
+        assert launched == {"pipelined,mma": 1}
+        _bitwise(row, want)
 
 
 @pytest.mark.gpu
@@ -196,7 +329,7 @@ def test_offset_rows_take_one_cta_a_row(cuda):
     assert launched == {"mma": 1}
     want, launched = _launched(
         lambda: fused_cuda.fused_fft(re.clone(), im.clone(), **kw))
-    assert launched == {"pipelined,mma": 1}
+    assert launched == {f"pipelined,tile{_want_tile(n, b, sms)},mma": 1}
     _bitwise(got, want)
 
 
@@ -213,3 +346,73 @@ def test_counter_names_the_pipelined_launch(cuda, more, name, knobs, knob_free):
     _, launched = _launched(lambda: fused_cuda.fused_fft(re, im, **kw))
     on = knob_free and b > sms
     assert launched == {_want_variant(name, knobs, on, 1): 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("rows", ["sms_plus_1", "sms_tiles_plus_1", "undivided",
+                                  "4096"])
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096, 8192])
+def test_tile_equals_one_cta_a_row(cuda, n, rows, forward):
+    # SMs + 1 rows: tiles of 2, the last of one row; SMs * T + 1: one tile
+    # more than SMs, the last of one row; the undivided batch ends in a tile
+    # of T / 2 + 1 rows.  The plan's own first stage (bf16ax2 at n <= 1024).
+    sms = fused_cuda.multiprocessors(cuda)
+    t = TILE[n]
+    b = {"sms_plus_1": sms + 1, "sms_tiles_plus_1": sms * t + 1,
+         "undivided": (sms + 3) * t + t // 2 + 1, "4096": 4096}[rows]
+    re, im = _planes(b, n, cuda, seed=n + b + forward)
+    kw = _plan_kwargs(n, forward)
+    got, launched = _launched(lambda: fused_cuda.fused_fft(re, im, **kw))
+    tile = _want_tile(n, b, sms)
+    if rows == "sms_plus_1":
+        assert tile == 2
+    elif rows != "4096":
+        assert tile == t
+    assert launched == {f"pipelined,tile{tile},mma": 1}
+    full = dict(kw, engine="stacked", grouped=False, complex_mult="block",
+                state_dtype="float32")
+    want, launched = _launched(
+        lambda: fused_cuda._launch_fused(re, im, pipelined=False, **full))
+    assert launched == {"mma": 1}
+    _bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+def test_tile_equals_one_cta_a_row_at_the_grid_rows(cuda, forward):
+    # The 512^3 grid's axis-0 call: 262,144 rows of 512, bf16ax2 first stage;
+    # also the whole-CTA tile (T = 32) forced, and the row-a-step kernel.
+    n, b = 512, 262144
+    re, im = _planes(b, n, cuda, seed=7 + forward)
+    kw = _plan_kwargs(n, forward)
+    assert kw["first_dot"] == "bf16ax2"
+    got, launched = _launched(lambda: fused_cuda.fused_fft(re, im, **kw))
+    assert launched == {"pipelined,tile16,mma": 1}
+    full = dict(kw, engine="stacked", grouped=False, complex_mult="block",
+                state_dtype="float32")
+    want, launched = _launched(
+        lambda: fused_cuda._launch_fused(re, im, pipelined=False, **full))
+    assert launched == {"mma": 1}
+    _bitwise(got, want)
+    for tile, name in ((32, "pipelined,tile32,mma"), (1, "pipelined,mma")):
+        out, launched = _launched(lambda: fused_cuda._launch_fused(
+            re, im, pipelined=True, tile=tile, **full))
+        assert launched == {name: 1}
+        _bitwise(out, want)
+
+
+@pytest.mark.gpu
+def test_offset_rows_take_one_cta_a_row_not_a_tile(cuda):
+    sms = fused_cuda.multiprocessors(cuda)
+    n = 512
+    b = sms * TILE[n] + 5
+    re, im = _planes(b, n, cuda, seed=11, offset=1)
+    assert re.data_ptr() % 16 and im.data_ptr() % 16
+    kw = _plan_kwargs(n, True)
+    got, launched = _launched(lambda: fused_cuda.fused_fft(re, im, **kw))
+    assert launched == {"mma": 1}
+    want, launched = _launched(
+        lambda: fused_cuda.fused_fft(re.clone(), im.clone(), **kw))
+    assert launched == {"pipelined,tile16,mma": 1}
+    _bitwise(got, want)

@@ -120,3 +120,26 @@ def test_counted_launchers_are_the_library_s():
     assert {f"tfft_{s}" for s in launches} <= set(_build._SIGNATURES)
     assert launches["fused_fft"] == fused_cuda.fused_fft.launches
     assert set(_build._SIGNATURES) - {f"tfft_{s}" for s in launches} == {"tfft_fft2_col_scalar"}
+
+
+def test_counters_report_variants(monkeypatch):
+    """``variants`` holds each counted wrapper's launches per variant; a
+    launch of kernel A's tile kernel (the rule at 512 x (132 * 16 + 1) on a
+    card of 132 SMs, the C launch recorded) counts under
+    ``pipelined,tile16,mma``."""
+    counted = tracing.counters()
+    assert counted["variants"]["fused_fft"] == dict(fused_cuda.fused_fft.variant_launches)
+    assert set(counted["variants"]) <= set(counted["launches"])
+    for symbol, per_variant in counted["variants"].items():
+        assert sum(per_variant.values()) <= counted["launches"][symbol]
+    monkeypatch.setattr(fused_cuda, "launch", lambda *args: None)
+    monkeypatch.setattr(fused_cuda, "multiprocessors", lambda device: 132)
+    re = torch.zeros(132 * 16 + 1, 512, dtype=torch.bfloat16)
+    before = tracing.counters()["variants"]["fused_fft"]
+    fused_cuda._launch_fused(
+        re, re, radices=(16, 32), scales=(1 / 16, 1 / 32), sign=-1,
+        algorithm="bf16", first_dot="bf16ax2", engine="stacked", grouped=False,
+        complex_mult="block", state_dtype="float32")
+    after = tracing.counters()["variants"]["fused_fft"]
+    assert {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)} == {"pipelined,tile16,mma": 1}
