@@ -8,8 +8,8 @@ first use, one process per source), then:
 
   1. prints nvcc's ``-Xptxas -v`` summary per kernel (registers, spills)
      and fails unless every line of ``csrc/ptxas_reference.txt`` (each
-     kernel outside the tensor-core engine, as built before it: the scalar
-     one-CTA column pass, pack and interleave) is in it unchanged, and
+     kernel outside the tensor-core engine, as built before it: pack and
+     interleave) is in it unchanged, and
      prints the untangle pair's lines again on their own;
   2. drives the six main paths, each with every launch counter reset
      just before and read just after, and fails unless each kernel of the
@@ -74,7 +74,7 @@ first use, one process per source), then:
             the private launchers, kernel A on 2 and 4 CTAs, K3 and kernel C
             on 2, and kernel B, K4's column pass and K5 on every (lanes,
             cluster) that holds them must equal their one-CTA kernels bit
-            for bit (and kernel A the one-CTA scalar engine at the fused
+            for bit (and kernel A its plain-torch version at the fused
             bound); a plan past 8 CTAs must be refused;
   3. holds each kernel's output against its plain-torch version on the same
      card and inputs, first on the inputs the main paths gave it (K4 on
@@ -141,14 +141,15 @@ four-step passes moved there kernels B and C, K4's column pass, K5 and K6
 ``fused_fft[mma]``, ``four_step_col[mma]``, ``fft2_col[grouped,mma]``,
 ``four_step_row_interleave[planar,mma]``, ...), and each call of a path
 must launch exactly those variants.  Kernel A's bf16 calls on the knob-free
-stacked engine with N >= 512 and more rows than SMs run its pipelined
-persistent kernel (``fused_fft[pipelined,mma]``, ``csrc/fused_fft_pipe.cu``),
-the same bits, and at a power of two N from 128 to 8192 its tile kernel, T
-consecutive rows a step (``fused_fft[pipelined,tile<T>,mma]``,
-``fused_cuda.pipeline_tile``: the c2c path's 4096 x 4096 and 4096 x 256, the
-512^3 grid's axis 0, the any path's 2048-point rows); step 5 times kernel A
-at N=16384 x 4096 on both paths, in turns, and the tile kernel at
-TILE_SHAPES against one CTA a row, a row a step and (at the grid's rows) K3.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+stacked engine with a power of two N from 128 to 16384 and more rows than
+SMs run its pipelined persistent kernel (``csrc/fused_fft_pipe.cu``), the
+same bits, on tiles of T consecutive rows a step: T = 1 at N = 16384
+(``fused_fft[pipelined,mma]``), T > 1 below
+(``fused_fft[pipelined,tile<T>,mma]``, ``fused_cuda.pipeline_tile``: the c2c
+path's 4096 x 4096 and 4096 x 256, the 512^3 grid's axis 0, the any path's
+2048-point rows); step 5 times kernel A at N=16384 x 4096 on both paths, in
+turns, and the pipelined kernel's tiles at TILE_SHAPES against one CTA a
+row, a row a step and (at the grid's rows) K3.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
 kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
 adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
 engine on a thread-block cluster,
@@ -208,7 +209,7 @@ ND_IMAGE = (4096, 4096)
 ND_VOLUME = (512, 512, 512)
 ND_GATE_2D = [(4096, 4096), (8, 16384), (16384, 8)]
 ND_GATE_3D = (256, 256, 256)
-# Kernel A's tile kernel on tiles of 16384 and of 8192 elements and the
+# Kernel A's pipelined kernel on tiles of 16384 and of 8192 elements and the
 # rule's tile, timed in turns with one CTA a row, a row a step (and K3 at the
 # 512^3 grid's axis-0 rows), every output equal to one CTA a row's: (N, rows).
 TILE_SHAPES = [(512, 262144), (512, 4096), (1024, 4096), (2048, 4096),
@@ -565,9 +566,10 @@ BIGN_VS_FOUR_STEP = ("K1 cluster N=32768", "K1 cluster bf16 state N=65536")
 BIGN_SLICE_ABOVE = 1 << 24
 BIGN_HOLD_ELEMS = 1 << 22
 
-# The kernels of the tensor-core engine: one CTA (..._tc_kernel) and the
-# cluster twins (kernel A's, the row passes', kernel B's col_cluster_tc_kernel).
-TC_KERNEL = re.compile(r"_tc_kernel<|fused_fft_cluster_kernel<|row_cluster_kernel<")
+# The kernels of the tensor-core engine: one CTA (..._tc_kernel), kernel A's
+# pipelined kernel and the cluster twins (kernel A's and the row passes'
+# row_cluster_kernel, kernel B's col_cluster_tc_kernel).
+TC_KERNEL = re.compile(r"_tc_kernel<|fused_fft_pipe_kernel<|row_cluster_kernel<")
 # The -Xptxas -v lines every kernel but the tensor-core engine's must keep.
 PTXAS_REFERENCE = "tensorfft_tpu_torch/csrc/ptxas_reference.txt"
 
@@ -1967,9 +1969,9 @@ def main() -> int:
     # The cluster mode alone: a row one CTA holds, forced onto a cluster
     # through the private launchers, equals the one-CTA tensor-core kernel
     # bit for bit (kernel A on 2 and 4 CTAs, K3 and kernel C on 2).  The
-    # one-CTA scalar engine (K4's column pass over the rows viewed as
-    # (B, N, 1), private launcher; another summation order) is held at the
-    # fused bound, one-CTA K4c (tensor cores, columns) at the four-step one.
+    # plain-torch kernel A (another summation order) is held at the fused
+    # bound, one-CTA K4c (tensor cores, columns over the rows viewed as
+    # (B, N, 1)) at the four-step one.
     def same_bits(label, got, want):
         for g, w in zip(got, want):
             if g.dtype != w.dtype or not torch.equal(g, w):
@@ -2019,14 +2021,12 @@ def main() -> int:
         del one
     cols16 = tuple(t.reshape(256, 16384, 1) for t in x16)
     k4c16 = dict(radices1=r16, scales1=s16, sign=-1, algorithm="bf16")
-    col16 = four_step_cuda._fft2_column_pass_scalar(*cols16, **k4c16)
+    plain16 = fused_cuda.fused_fft_reference(*x16, **kw16)
     a16 = agreement([c.float().cpu() for c in cl16],
-                    [t.reshape(256, 16384).float().cpu() for t in col16],
-                    bf16=True)
-    log(f"[bign] N=16384 x B=256 on 2 CTAs vs the one-CTA scalar engine (K4 "
-        f"column pass over (B, N, 1), private launcher): {a16}")
+                    [t.float().cpu() for t in plain16], bf16=True)
+    log(f"[bign] N=16384 x B=256 on 2 CTAs vs the plain-torch kernel A: {a16}")
     if not a16.within(FUSED_MAX_FRAC):
-        raise RuntimeError(f"kernel A on 2 CTAs and the scalar engine disagree: {a16}")
+        raise RuntimeError(f"kernel A on 2 CTAs and its plain version disagree: {a16}")
     c16 = agreement([c.float().cpu() for c in cl16],
                     [t.reshape(256, 16384).float().cpu()
                      for t in four_step_cuda.fft2_column_pass(*cols16, **k4c16)],
@@ -2035,7 +2035,7 @@ def main() -> int:
         f"(tensor cores): {c16}")
     if not c16.within(FOUR_STEP_MAX_FRAC):
         raise RuntimeError(f"kernel A on 2 CTAs and one-CTA K4c disagree: {c16}")
-    del x16, one16, cl16, mid16, col16, b16
+    del x16, one16, cl16, mid16, plain16, b16
     # Past a cluster of 8 CTAs a plan is refused, before any launch.
     big = tt.create_plan(1 << 18, max_fused_length=1 << 18)
     ok, why = tt.plan_works_on_device(big, "cuda")
@@ -2176,9 +2176,9 @@ def main() -> int:
                 f"| plain {tp.average_time_ms:.4f} ms | bound {b_ms:.4f} ms "
                 f"({b_by}) | {smi}")
 
-    # Kernel A's tile kernel on short rows, in turns with one CTA a row, a
-    # row a step, the half tile and (at the grid's rows) K3; every output
-    # equal to one CTA a row's bit for bit.
+    # Kernel A's pipelined kernel on tiles of short rows, in turns with one
+    # CTA a row, a row a step, the half tile and (at the grid's rows) K3;
+    # every output equal to one CTA a row's bit for bit.
     log(f"[phase] kernel A tiles from {time.perf_counter() - t_start:.1f} s")
     for n, b in TILE_SHAPES:
         plan = tt.create_plan(n)

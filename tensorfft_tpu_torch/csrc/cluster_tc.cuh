@@ -1,14 +1,12 @@
-// The cluster twins of kernel A and of the row passes on the tensor-core
+// The cluster twin of kernel A and of the row passes on the tensor-core
 // engine's cluster mode (fft_mma_cluster.cuh): a transform longer than one
 // CTA holds, one per thread-block cluster of 2, 4 or 8 CTAs.
-//   fused_fft_cluster_kernel: kernel A (fused_fft.cu), row `cluster_index`
-//     of (B, N) planes, stored in place;
-//   row_cluster_kernel: the row pass of (B, n1, n2) planes, row r0 of
-//     batch b per cluster, read from `mid` and stored in place (K3, K4's
-//     row pass; in_place_row.cuh), transposed at k2*n1 + r0 (kernel C,
-//     kRowTransposed) or as interleaved pairs of a real row (K6,
-//     kRowTransposed | kRowPairs; four_step_passes.cuh).
-// The launchers are compiled once per storage/operand pair, in
+// row_cluster_kernel runs the row pass of (B, n1, n2) planes, row r0 of
+// batch b per cluster, read from `mid` and stored in place (kernel A,
+// fused_fft.cu, on (B, 1, N) planes; K3, K4's row pass; in_place_row.cuh),
+// transposed at k2*n1 + r0 (kernel C, kRowTransposed) or as interleaved
+// pairs of a real row (K6, kRowTransposed | kRowPairs; four_step_passes.cuh).
+// The launcher is compiled once per storage/operand pair, in
 // cluster_tc{1,2,3}.cu, so nvcc builds the three in parallel.  Kernel B's
 // twin, a tile of T columns per cluster, is cluster_col_tc.cuh.
 //
@@ -27,21 +25,6 @@ enum RowClusterIo {
   kRowTransposed = 1,  // bin k2 of row r0 at k2*n1 + r0 (else r0*n2 + k2)
   kRowPairs = 2,       // the interleaved real row (K6)
 };
-
-template <typename S, int BT, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_cluster_kernel(const S* __restrict__ in_re,
-                             const S* __restrict__ in_im,
-                             S* __restrict__ out_re, S* __restrict__ out_im,
-                             int n, StagePlan plan,
-                             const __nv_bfloat16* __restrict__ mats,
-                             const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long base = static_cast<long long>(cluster_index()) * n;
-  run_fft_tc_cluster<S, BT, kEngine>(
-      reinterpret_cast<__nv_bfloat16*>(smem), n, plan, mats, tables,
-      in_re + base, in_im + base, out_re + base, out_im + base, {1, false});
-}
 
 template <typename S, int BT, int kEngine>
 __global__ void __launch_bounds__(kThreads)
@@ -66,45 +49,18 @@ __global__ void __launch_bounds__(kThreads)
       {transposed ? static_cast<long long>(n1) : 1, pairs});
 }
 
-// Whether the launchers below take a pass of n elements on `cluster` CTAs.
-inline bool cluster_tc_args_ok(const __nv_bfloat16* mats, int n, int cluster,
-                               const StagePlan& plan) {
-  return mats != nullptr && cluster > 1 && cluster_ok(n, 1, cluster) &&
-         cluster_tc_ok(n, cluster, plan);
-}
-
-// Kernel A on a cluster of `cluster` CTAs per row: the plan's engine, its
-// bf16 matrices `mats` (meta's offsets in bf16 units) and the fp32
-// twiddles in `tables`.  Returns a cudaError_t code, or
-// kErrClusterUnschedulable.
-template <typename S, int BT>
-int launch_fused_cluster_tc(const void* in_re, const void* in_im,
-                            void* out_re, void* out_im, long long batch,
-                            int n, int cluster, const StagePlan& plan,
-                            const float* tables, const __nv_bfloat16* mats,
-                            cudaStream_t stream) {
-  if (!cluster_tc_args_ok(mats, n, cluster, plan))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int elems = n / cluster;
-  auto kern = plan.engine == kEngPlanar
-                  ? &fused_fft_cluster_kernel<S, BT, kEngPlanar>
-                  : &fused_fft_cluster_kernel<S, BT, kEngKnobs>;
-  return launch_stage_kernel(
-      kern, batch, tc_threads(elems), operand_bytes(elems, BT, plan.sum_plane),
-      cluster, stream, static_cast<const S*>(in_re),
-      static_cast<const S*>(in_im), static_cast<S*>(out_re),
-      static_cast<S*>(out_im), n, plan, mats, tables);
-}
-
 // A row pass over (batch, n1, n2) planes on a cluster of `cluster` CTAs per
-// row, storing as `io` (RowClusterIo) says; operands as above.
+// row, storing as `io` (RowClusterIo) says: the plan's engine, its bf16
+// matrices `mats` (meta's offsets in bf16 units) and the fp32 twiddles in
+// `tables`.  Returns a cudaError_t code, or kErrClusterUnschedulable.
 template <typename S, int BT>
 int launch_row_cluster_tc(const void* mid_re, const void* mid_im,
                           void* out_re, void* out_im, long long batch, int n1,
                           int n2, int cluster, int io, const StagePlan& plan,
                           const float* tables, const __nv_bfloat16* mats,
                           cudaStream_t stream) {
-  if (!cluster_tc_args_ok(mats, n2, cluster, plan))
+  if (mats == nullptr || cluster < 2 || !cluster_ok(n2, 1, cluster) ||
+      !cluster_tc_ok(n2, cluster, plan))
     return static_cast<int>(cudaErrorInvalidValue);
   const int elems = n2 / cluster;
   auto kern = plan.engine == kEngPlanar
@@ -118,12 +74,9 @@ int launch_row_cluster_tc(const void* mid_re, const void* mid_im,
       mats, tables);
 }
 
-// The launchers of one storage/operand pair, declared (PREFIX = extern
+// The launcher of one storage/operand pair, declared (PREFIX = extern
 // template) or instantiated (PREFIX = template).
 #define TFFT_CLUSTER_TC_PAIR(PREFIX, S, BT)                                    \
-  PREFIX int launch_fused_cluster_tc<S, BT>(                                   \
-      const void*, const void*, void*, void*, long long, int, int,             \
-      const StagePlan&, const float*, const __nv_bfloat16*, cudaStream_t);     \
   PREFIX int launch_row_cluster_tc<S, BT>(                                     \
       const void*, const void*, void*, void*, long long, int, int, int, int,   \
       const StagePlan&, const float*, const __nv_bfloat16*, cudaStream_t)

@@ -11,46 +11,6 @@
 // the row pass reads and stores its rows contiguously.
 #include "four_step_passes.cuh"
 
-namespace tfft {
-
-// K4's column pass on the scalar engine, one CTA per tile of T columns
-// (col_pass_kernel, kTwiddle = false), reading the fp32 `tables`: each
-// output summed by fmaf in r order, not in the tensor-core engine's chunk
-// order, a reference the tests hold kernel A's cluster twin against at the
-// fused bound.  Returns a cudaError_t code.
-inline int col_pass_scalar(const void* in_re, const void* in_im, void* mid_re,
-                           void* mid_im, int dtype, int data_terms,
-                           long long batch, int n1, int n2, int T,
-                           const void* tables, const long long* meta,
-                           void* stream) {
-  StagePlan plan;
-  if (!read_plan(meta, &plan) || !lanes_ok(n1, n2, T, 1) || batch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* tab = static_cast<const float*>(tables);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int elems = n1 * T;
-#define TFFT_COL_SCALAR(S, BT, E)                                             \
-  return launch_stage_kernel(                                                 \
-      &col_pass_kernel<S, BT, false, false, E>, batch * (n2 / T),             \
-      elems < kThreads ? elems : kThreads,                                    \
-      operand_bytes(elems, BT, plan.sum_plane), 1, s,                         \
-      static_cast<const S*>(in_re), static_cast<const S*>(in_im),             \
-      static_cast<S*>(mid_re), static_cast<S*>(mid_im), n1, n2, T, plan, tab, \
-      nullptr, nullptr, 0)
-#define TFFT_COL_SCALAR_ENGINE(S, BT)                                 \
-  if (plan.engine == kEngPlanar) TFFT_COL_SCALAR(S, BT, kEngPlanar);  \
-  if (plan.engine == kEngKnobs) TFFT_COL_SCALAR(S, BT, kEngKnobs);    \
-  TFFT_COL_SCALAR(S, BT, kEngStacked)
-  if (dtype == 0 && data_terms == 1) { TFFT_COL_SCALAR_ENGINE(__nv_bfloat16, 1); }
-  if (dtype == 1 && data_terms == 2) { TFFT_COL_SCALAR_ENGINE(float, 2); }
-  if (dtype == 1 && data_terms == 3) { TFFT_COL_SCALAR_ENGINE(float, 3); }
-#undef TFFT_COL_SCALAR_ENGINE
-#undef TFFT_COL_SCALAR
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace tfft
-
 // Every entry point returns a cudaError_t code (or kErrClusterUnschedulable;
 // cluster: CTAs per tile of T columns, four_step_passes.cuh; mats: the
 // bf16 matrices, col_pass).  n1 = H, n2 = W.
@@ -67,17 +27,4 @@ extern "C" int tfft_fft2_col(const void* in_re, const void* in_im,
                                       data_terms, batch, h, w, T, cluster,
                                       tables, mats, meta, nullptr, nullptr, 0,
                                       stream);
-}
-
-// The same column pass, one CTA per tile, on the scalar engine
-// (col_pass_scalar): the scalar engine's summation order on one CTA, a
-// reference kernel A's twin is held against at the fused bound.
-extern "C" int tfft_fft2_col_scalar(const void* in_re, const void* in_im,
-                                    void* mid_re, void* mid_im, int dtype,
-                                    int data_terms, long long batch, int h,
-                                    int w, int T, const void* tables,
-                                    const long long* meta, void* stream) {
-  return tfft::col_pass_scalar(in_re, in_im, mid_re, mid_im, dtype,
-                               data_terms, batch, h, w, T, tables, meta,
-                               stream);
 }

@@ -6,8 +6,8 @@
 // one CTA runs this engine's cluster mode (fft_mma_cluster.cuh: the twins of
 // kernel A, of the row passes and, on column tiles, of kernel B).
 //
-// The same stages, twiddles, splits, roundings and knobs as run_fft
-// (fft_stages.cuh), with two product routes in place of its scalar loop:
+// The stage of fft_stages.cuh's header, with its twiddles, splits,
+// roundings and knobs (the helpers there), on two product routes:
 //
 //   * mma (a stage whose matrix every output shares, radix >= 8): the stage
 //     product runs as mma.sync.aligned.m16n8k16 with bf16 operands and fp32
@@ -39,14 +39,15 @@
 //     stages take a warp blocking (mma_block) that shares each chunk's A
 //     and B fragments across a block of tiles.
 //   * vector (a folded stage, whose per-slice tables M_kk differ by output
-//     column, and a stage of radix < 8): each output is the scalar loop of
-//     stage_dot / stage_dot_planar / stage_dot_mult3, fmaf over r in order
-//     (the same arithmetic as run_fft), but a lane takes V consecutive r_out
-//     of one column (vec_width), so a warp's lanes share a column and slice,
-//     and the tables are bf16, transposed within a slice
-//     ([term][slice][r][r_out][re, im] or [re, im, S, 0]): a warp's table
-//     read is one contiguous run in 16-byte loads, each entry read once per
-//     CTA, where run_fft's warp read 32 slices at once.
+//     column, and a stage of radix < 8): each output is a scalar loop over
+//     r, fmaf in order, with an accumulator per partial product and real
+//     product (stacked: re and im; planar: A_re.z_re, A_im.z_im, A_im.z_re,
+//     A_re.z_im; mult3: t1, t2, t3), combined as on the mma route.  A lane
+//     takes V consecutive r_out of one column (vec_width), so a warp's lanes
+//     share a column and slice, and the tables are bf16, transposed within
+//     a slice ([term][slice][r][r_out][re, im] or [re, im, S, 0]): a warp's
+//     table read is one contiguous run in 16-byte loads, each entry read
+//     once per CTA.
 // The route is a static function of the stage (mma_route; the host builds
 // each stage's table in its route's layout, ops/fused_cuda.py:mma_tables).
 //
@@ -106,8 +107,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
 // one IEEE fp32 add.  The tensor cores align and cut a chunk's sum without
 // rounding to nearest, accumulator included; kept out of it, the running
 // sum rounds as an fmaf chain does, and the kernels stay within the
-// agreement bounds of the scalar engine (fused bf16: one bf16 ulp of the
-// output scale on at most 0.1 % of elements).
+// agreement bounds of an fmaf-in-r-order engine (fused bf16: one bf16 ulp of
+// the output scale on at most 0.1 % of elements).
 __device__ __forceinline__ void mma_add(float (&acc)[4], uint32_t a0,
                                         uint32_t a1, uint32_t a2, uint32_t a3,
                                         uint32_t b0, uint32_t b1) {
@@ -382,8 +383,8 @@ __host__ __device__ constexpr int vec_width() {
 
 // The vector route of one stage: items o = tid + e * blockDim of V
 // outputs each, r_out = (o % (R/V)) * V + v and column g = o / (R/V),
-// output v of item e in slot e*V + v; each output is the scalar product of
-// run_fft in the same order (fmaf over r).  d: the stage's table,
+// output v of item e in slot e*V + v; each output is a scalar product,
+// fmaf over r in order.  d: the stage's table,
 // [term][slice][r][r_out][W] (W = 2, or 4 for mult3), ts its term stride
 // and, on a folded stage (slice_elems = M*T), slice g / slice_elems at
 // slice_stride entries per slice; a lane reads the V entries of its row r
@@ -443,17 +444,17 @@ __device__ __forceinline__ void stage_vec(const __nv_bfloat16* op, int elems,
 #pragma unroll
             for (int j = 0; j < BT; ++j) {
               if (i + j < L) {
-                if constexpr (kKind == kProdStacked) {  // stage_dot
+                if constexpr (kKind == kProdStacked) {
                   a[0][i][j] = fmaf(d_re, z_re[j], a[0][i][j]);
                   a[0][i][j] = fmaf(-d_im, z_im[j], a[0][i][j]);
                   a[1][i][j] = fmaf(d_im, z_re[j], a[1][i][j]);
                   a[1][i][j] = fmaf(d_re, z_im[j], a[1][i][j]);
-                } else if constexpr (kKind == kProdPlanar) {  // stage_dot_planar
+                } else if constexpr (kKind == kProdPlanar) {
                   a[0][i][j] = fmaf(d_re, z_re[j], a[0][i][j]);
                   a[1][i][j] = fmaf(d_im, z_im[j], a[1][i][j]);
                   a[2][i][j] = fmaf(d_im, z_re[j], a[2][i][j]);
                   a[3][i][j] = fmaf(d_re, z_im[j], a[3][i][j]);
-                } else {  // stage_dot_mult3
+                } else {  // mult3
                   a[0][i][j] = fmaf(d_re, z_re[j], a[0][i][j]);
                   a[1][i][j] = fmaf(d_im, z_im[j], a[1][i][j]);
                   a[2][i][j] = fmaf(d_s, z_s[j], a[2][i][j]);
@@ -808,10 +809,11 @@ __device__ __forceinline__ void store_tile(const S* st, S* re, S* im,
 #undef TFFT_STORE_ROWS
 }
 
-// run_fft on the tensor-core engine: the same stage sequence, knobs and
-// roundings, with the matrices from `mats` (bf16, each stage in its route's
-// layout at plan.d_off, in bf16 units) and the twiddles from `tw` (fp32, at
-// plan.w_off).  The block has at least one warp.
+// The whole stage sequence of one pass on the tensor-core engine (the stage,
+// knobs and roundings of fft_stages.cuh), with the matrices from `mats`
+// (bf16, each stage in its route's layout at plan.d_off, in bf16 units) and
+// the twiddles from `tw` (fp32, at plan.w_off).  The block has at least one
+// warp.
 //
 // kTile = false (kernel A, the in-place row pass): the CTA's T transforms
 // are T consecutive rows of n elements at in_re/in_im (row `lane` at

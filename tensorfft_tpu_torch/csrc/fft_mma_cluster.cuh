@@ -191,9 +191,9 @@ __device__ __forceinline__ void store_cluster_tile(const S* st, S* re, S* im,
 // run_fft_tc on this CTA's column blocks of a cluster (cg::this_cluster()):
 // the same stage sequence, knobs and roundings, with the matrices from
 // `mats` (bf16, at plan.d_off) and the twiddles from `tw` (fp32, at
-// plan.w_off).  The engine is kEngKnobs or kEngPlanar (cluster_engine): a
-// knob-free stacked pass takes kEngKnobs's per-stage tests with the same
-// arithmetic.
+// plan.w_off).  The engine is kEngKnobs or kEngPlanar: a knob-free stacked
+// pass takes kEngKnobs's per-stage tests with the same arithmetic, so the
+// build carries two cluster kernels per storage type and kernel, not three.
 //   kTile = false: one transform, in_re/in_im its n elements, consecutive;
 //     the output as `out` says (`map`, T and `epi` unused).
 //   kTile = true: a column tile of T transforms (a power of two) laid out
@@ -214,7 +214,7 @@ __device__ void run_fft_tc_cluster(__nv_bfloat16* op, int n,
                                    const ClusterOut& out, int T = 1,
                                    const TileMap& map = {},
                                    const Epi& epi = Epi{}) {
-  static_assert(kEngine != kEngStacked, "a cluster runs cluster_engine()");
+  static_assert(kEngine != kEngStacked, "a cluster runs kEngKnobs");
   constexpr int VEC = 16 / sizeof(S);
   cg::cluster_group cluster = cg::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());

@@ -1,9 +1,17 @@
-// Shared Stockham stage engine of the port's CUDA kernels (sm_90a).
+// The plan, operands and launch that every CUDA kernel of the port shares
+// (sm_90a): the stage plan read from the host's meta (StagePlan,
+// read_plan), the operand's split into bf16 terms (put_operand, put_sum,
+// put_stage_operand), the combination of a dot's partial products
+// (combine_levels), the unfused complex multiply (cmul), the shared-memory
+// sizes, and the launch of a stage kernel on one CTA or a thread-block
+// cluster (launch_stage_kernel, check_cluster, cluster_index).  The stage
+// engine that runs on them is the tensor-core one: fft_mma.cuh on one CTA,
+// fft_mma_cluster.cuh on a cluster.
 //
-// One CTA holds T transforms of length n ("lanes") in shared memory and runs
-// the whole stage sequence on them: the math of stage_loop's 'first' and
-// 'kloop'/'big' stages (tensorfft_tpu/ops/fused_pallas.py), which differ only
-// in TPU layout.  Per stage of radix R over K sub-transforms built so far:
+// The stage every engine computes is the math of stage_loop's 'first' and
+// 'kloop'/'big' stages (tensorfft_tpu/ops/fused_pallas.py), which differ
+// only in TPU layout.  One CTA holds T transforms of length n ("lanes") in
+// shared memory; per stage of radix R over K sub-transforms built so far:
 //
 //   z[r]  = state[(kk*R + r)*M + mm] * W[r, kk]        (fp32, unfused; stage
 //                                                       0 has no twiddle)
@@ -40,34 +48,21 @@
 // compiles every per-stage knob test away: the knobs' runtime branches cost
 // the stacked bf16x3 kernel A 21 % on the H100 (8 more registers, spills).
 //
-// Operands are rounded per the dot
-// algorithm of tensorfft_tpu_torch/ops/dots.py: the matrix D arrives from
-// the host already split into AT bf16 terms (stored as fp32), the data is
-// split here into BT bf16 terms (hi = bits & 0xFFFF0000, last term rounded
-// to nearest).  bf16 x bf16 products are exact in fp32, so an FMA
-// accumulation equals the plain-torch matmul up to summation order.
+// Operands are rounded per the dot algorithm of
+// tensorfft_tpu_torch/ops/dots.py: the matrix D arrives from the host
+// already split into AT bf16 terms, the data is split here into BT bf16
+// terms (hi = bits & 0xFFFF0000, last term rounded to nearest).  bf16 x
+// bf16 products are exact in fp32, so the engines equal the plain-torch
+// matmul up to summation order.
 //
 // Shared-memory plan.  Only the matmul OPERAND lives in shared memory, as
 // BT bf16 terms per plane: 4*BT bytes per complex element.  The fp32 stage
 // outputs are held in registers (kMaxEpt per thread) until every thread has
 // read the operand, then the next stage's twiddle is applied to them and
-// they are split back into the operand buffer.  The fp32 state therefore
-// never needs a second shared buffer: at n*T = 16384 the bf16 policy takes
-// 64 KiB, bf16x3 128 KiB and bf16x6 192 KiB of the 227 KB a block can have.
-// The last stage writes straight to global memory through the kernel's
-// store functor; stage 0 reads through its load functor.
-//
-// Clusters.  A pass larger than one CTA holds runs on a thread-block
-// cluster of 2, 4 or 8 CTAs, on the tensor-core engine's cluster mode
-// (fft_mma_cluster.cuh); this file supplies its launch (launch_stage_kernel,
-// check_cluster) and the cluster's tile index (cluster_index).
-//
-// Tables (D terms, twiddles) stay in global memory and are read through the
-// caches: a radix-128 stage's D is 64 KiB per term and cannot share the CTA's
-// shared memory with the operand.  A folded planar stage reads K slices of
-// 2*R*R entries per term, indexed by each output's kk: at N = 16384, radices
-// (128, 128), that is 16.8 MB per term, which no L1 holds, and a warp's 32
-// outputs of the last stage read 32 different slices.
+// they are split back into the operand buffer: at n*T = 16384 the bf16
+// policy takes 64 KiB, bf16x3 128 KiB and bf16x6 192 KiB of the 227 KB a
+// block can have.  A pass larger than one CTA holds runs on a thread-block
+// cluster of 2, 4 or 8 CTAs.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -170,15 +165,6 @@ inline size_t operand_bytes(int elems, int data_terms, bool sum_plane) {
   const int planes = sum_plane ? 3 : 2;
   return static_cast<size_t>(elems) * planes * data_terms *
          sizeof(__nv_bfloat16);
-}
-
-// The engine a cluster kernel is instantiated for: a knob-free stacked pass
-// runs on the kEngKnobs kernel, whose per-stage tests it passes through
-// with the same arithmetic, so the build carries two cluster kernels per
-// storage type and kernel, not three.
-template <int kEngine>
-constexpr int cluster_engine() {
-  return kEngine == kEngStacked ? kEngKnobs : kEngine;
 }
 
 // Whether `cluster` (1, 2, 4 or 8) CTAs can run one pass of T transforms
@@ -330,81 +316,10 @@ __device__ __forceinline__ void put_stage_operand(__nv_bfloat16* op, int elems,
   }
 }
 
-// One output of one stage of the stacked engine: sum over r of
-// D[r_out, r] * z[r] for every partial product (i, j) of the dot algorithm
-// (matrix term i, data term j, i + j < levels), combined level by level as
-// ops/dots.py adds them:
+// The partial products (i, j) of one real dot (matrix term i, data term j,
+// i + j < levels) combined level by level as ops/dots.py adds them:
 // bf16: S00; bf16ax2: S00 + S10; bf16x3: S00 + (S01 + S10);
 // bf16x6: (S00 + (S01 + S10)) + ((S02 + S11) + S20).
-// Kept apart from the planar product below: one template for both cost the
-// stacked bf16x3 kernel 18 % on the H100.
-// The matrix's term i holds D_re at d + i*ts and D_im R*R entries later
-// (ts: the term stride, slices * matrices * R*R).  kShared: one [D_re,
-// D_im] slice, so ts = 2*R*R, written as the knob-free engine has always
-// indexed it; its multi-term kernels (bf16ax2, bf16x3, bf16x6) ran 9-18 %
-// slower on the H100 with the stride passed in.
-template <int AT, int BT, bool kShared = false>
-__device__ __forceinline__ void stage_dot(const __nv_bfloat16* op, int elems,
-                                          int nt, int R,
-                                          const float* __restrict__ d, int ts,
-                                          int r_out, int g, float& out_re,
-                                          float& out_im) {
-  constexpr int L = AT > BT ? AT : BT;
-  float acc_re[AT][BT], acc_im[AT][BT];
-#pragma unroll
-  for (int i = 0; i < AT; ++i)
-#pragma unroll
-    for (int j = 0; j < BT; ++j) acc_re[i][j] = acc_im[i][j] = 0.0f;
-  const int rr = R * R;
-  const float* drow = d + r_out * R;
-  for (int r = 0; r < R; ++r) {
-    const int zi = r * nt + g;
-    float z_re[BT], z_im[BT];
-#pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
-      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
-    }
-#pragma unroll
-    for (int i = 0; i < AT; ++i) {
-      const float d_re =
-          __ldg(drow + (kShared ? (2 * i) * rr : i * ts) + r);
-      const float d_im =
-          __ldg(drow + (kShared ? (2 * i + 1) * rr : i * ts + rr) + r);
-#pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        if (i + j < L) {
-          acc_re[i][j] = fmaf(d_re, z_re[j], acc_re[i][j]);
-          acc_re[i][j] = fmaf(-d_im, z_im[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(d_im, z_re[j], acc_im[i][j]);
-          acc_im[i][j] = fmaf(d_re, z_im[j], acc_im[i][j]);
-        }
-      }
-    }
-  }
-  float res_re = acc_re[0][0], res_im = acc_im[0][0];
-#pragma unroll
-  for (int lvl = 1; lvl < L; ++lvl) {
-    float l_re = 0.0f, l_im = 0.0f;
-    bool first = true;
-#pragma unroll
-    for (int i = 0; i <= lvl; ++i) {
-      const int j = lvl - i;
-      if (i < AT && j < BT) {
-        l_re = first ? acc_re[i][j] : __fadd_rn(l_re, acc_re[i][j]);
-        l_im = first ? acc_im[i][j] : __fadd_rn(l_im, acc_im[i][j]);
-        first = false;
-      }
-    }
-    res_re = __fadd_rn(res_re, l_re);
-    res_im = __fadd_rn(res_im, l_im);
-  }
-  out_re = res_re;
-  out_im = res_im;
-}
-
-// The partial products of one real dot combined level by level, as in
-// stage_dot.
 template <int AT, int BT>
 __device__ __forceinline__ float combine_levels(const float (&acc)[AT][BT]) {
   constexpr int L = AT > BT ? AT : BT;
@@ -424,265 +339,6 @@ __device__ __forceinline__ float combine_levels(const float (&acc)[AT][BT]) {
     res = __fadd_rn(res, l);
   }
   return res;
-}
-
-// One output of one planar stage: four accumulators per partial product,
-// one per real product of A = [A_re; A_im] with the state, each combined
-// over its levels, then out_re = A_re.re - A_im.im and
-// out_im = A_im.re + A_re.im.  The matrix's term i holds A_re at d + i*ts
-// and A_im R*R entries later (ts: the term stride, K*2*R*R on a folded
-// stage).
-template <int AT, int BT>
-__device__ __forceinline__ void stage_dot_planar(
-    const __nv_bfloat16* op, int elems, int nt, int R,
-    const float* __restrict__ d, int ts, int r_out, int g, float& out_re,
-    float& out_im) {
-  constexpr int L = AT > BT ? AT : BT;
-  float acc[4][AT][BT];
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-#pragma unroll
-    for (int i = 0; i < AT; ++i)
-#pragma unroll
-      for (int j = 0; j < BT; ++j) acc[p][i][j] = 0.0f;
-  const int rr = R * R;
-  const float* drow = d + r_out * R;
-  for (int r = 0; r < R; ++r) {
-    const int zi = r * nt + g;
-    float z_re[BT], z_im[BT];
-#pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
-      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
-    }
-#pragma unroll
-    for (int i = 0; i < AT; ++i) {
-      const float a_re = __ldg(drow + i * ts + r);
-      const float a_im = __ldg(drow + i * ts + rr + r);
-#pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        if (i + j < L) {
-          acc[0][i][j] = fmaf(a_re, z_re[j], acc[0][i][j]);  // A_re . re
-          acc[1][i][j] = fmaf(a_im, z_im[j], acc[1][i][j]);  // A_im . im
-          acc[2][i][j] = fmaf(a_im, z_re[j], acc[2][i][j]);  // A_im . re
-          acc[3][i][j] = fmaf(a_re, z_im[j], acc[3][i][j]);  // A_re . im
-        }
-      }
-    }
-  }
-  out_re = __fsub_rn(combine_levels<AT, BT>(acc[0]),
-                     combine_levels<AT, BT>(acc[1]));
-  out_im = __fadd_rn(combine_levels<AT, BT>(acc[2]),
-                     combine_levels<AT, BT>(acc[3]));
-}
-
-// One output of one mult3 stage: t1 = M_re . z_re, t2 = M_im . z_im and
-// t3 = S . (z_re + z_im) (the third operand plane), each combined over its
-// levels, then out_re = t1 - t2, out_im = (t3 - t1) - t2, as
-// fused_pallas._mult3 and the plain version subtract them.  The matrix's
-// term i holds M_re at d + i*ts, M_im and S R*R and 2*R*R entries later.
-template <int AT, int BT>
-__device__ __forceinline__ void stage_dot_mult3(
-    const __nv_bfloat16* op, int elems, int nt, int R,
-    const float* __restrict__ d, int ts, int r_out, int g, float& out_re,
-    float& out_im) {
-  constexpr int L = AT > BT ? AT : BT;
-  float acc[3][AT][BT];
-#pragma unroll
-  for (int p = 0; p < 3; ++p)
-#pragma unroll
-    for (int i = 0; i < AT; ++i)
-#pragma unroll
-      for (int j = 0; j < BT; ++j) acc[p][i][j] = 0.0f;
-  const int rr = R * R;
-  const float* drow = d + r_out * R;
-  const __nv_bfloat16* sum = op + 2 * BT * elems;
-  for (int r = 0; r < R; ++r) {
-    const int zi = r * nt + g;
-    float z_re[BT], z_im[BT], z_s[BT];
-#pragma unroll
-    for (int j = 0; j < BT; ++j) {
-      z_re[j] = __bfloat162float(op[(2 * j) * elems + zi]);
-      z_im[j] = __bfloat162float(op[(2 * j + 1) * elems + zi]);
-      z_s[j] = __bfloat162float(sum[j * elems + zi]);
-    }
-#pragma unroll
-    for (int i = 0; i < AT; ++i) {
-      const float m_re = __ldg(drow + i * ts + r);
-      const float m_im = __ldg(drow + i * ts + rr + r);
-      const float m_s = __ldg(drow + i * ts + 2 * rr + r);
-#pragma unroll
-      for (int j = 0; j < BT; ++j) {
-        if (i + j < L) {
-          acc[0][i][j] = fmaf(m_re, z_re[j], acc[0][i][j]);
-          acc[1][i][j] = fmaf(m_im, z_im[j], acc[1][i][j]);
-          acc[2][i][j] = fmaf(m_s, z_s[j], acc[2][i][j]);
-        }
-      }
-    }
-  }
-  const float t1 = combine_levels<AT, BT>(acc[0]);
-  const float t2 = combine_levels<AT, BT>(acc[1]);
-  const float t3 = combine_levels<AT, BT>(acc[2]);
-  out_re = __fsub_rn(t1, t2);
-  out_im = __fsub_rn(__fsub_rn(t3, t1), t2);
-}
-
-// Every output this thread owns in one stage: o = tid + e * blockDim,
-// r_out = o / nt, g = o % nt with g = (kk*M + mm)*T + lane.  On a folded
-// stage (slice_elems = M*T, else 0) output g reads slice kk = g / (M*T),
-// slice_stride entries after slice 0.
-template <int AT, int BT, int kEngine>
-__device__ __forceinline__ void stage_outputs(const __nv_bfloat16* op,
-                                              int elems, int ept, int nt,
-                                              int R, const float* d, int ts,
-                                              int slice_elems,
-                                              int slice_stride, bool mult3,
-                                              float (&o_re)[kMaxEpt],
-                                              float (&o_im)[kMaxEpt]) {
-#pragma unroll
-  for (int e = 0; e < kMaxEpt; ++e) {
-    if (e < ept) {
-      const int o = threadIdx.x + e * blockDim.x;
-      const int r_out = o / nt, g = o - r_out * nt;
-      if constexpr (kEngine == kEngStacked) {
-        stage_dot<AT, BT, true>(op, elems, nt, R, d, 0, r_out, g, o_re[e],
-                                o_im[e]);
-      } else {
-        const float* dd =
-            slice_elems > 0 ? d + (g / slice_elems) * slice_stride : d;
-        if constexpr (kEngine == kEngPlanar) {
-          stage_dot_planar<AT, BT>(op, elems, nt, R, dd, ts, r_out, g,
-                                   o_re[e], o_im[e]);
-        } else if (mult3) {
-          stage_dot_mult3<AT, BT>(op, elems, nt, R, dd, ts, r_out, g,
-                                  o_re[e], o_im[e]);
-        } else {
-          stage_dot<AT, BT>(op, elems, nt, R, dd, ts, r_out, g, o_re[e],
-                            o_im[e]);
-        }
-      }
-    }
-  }
-}
-
-// Run the whole stage sequence of one pass on the CTA's T transforms.
-//   load(q, idx, re, im): the q-th input element (q in [0, n*T), in the
-//     order best for the global read) and its operand index idx = i*T + lane.
-//   store(k, lane, re, im): output bin k of transform `lane`, fp32.
-// The bf16 policy (BT == 1) may pair a bf16ax2 first stage (AT == 2) with
-// bf16 later stages (AT == 1); bf16x3 and bf16x6 use AT == BT throughout.
-// kEngine is plan.engine: the planar engines, the stacked one, or the
-// stacked one with knobs; folds, mult3 and roundings are per stage, and
-// kEngStacked compiles their tests away.
-template <int BT, int kEngine, class Load, class Store>
-__device__ void run_fft(__nv_bfloat16* op, int n, int T,
-                        const StagePlan& plan, const float* tables,
-                        const Load& load, const Store& store) {
-  const int elems = n * T;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int ept = elems / nthr;
-
-  for (int q = tid; q < elems; q += nthr) {
-    int idx;
-    float re, im;
-    load(q, idx, re, im);
-    if constexpr (kEngine != kEngStacked) {
-      if (plan.round_input) {
-        re = bf16_round(re);
-        im = bf16_round(im);
-      }
-    }
-    put_stage_operand<BT, kEngine>(op, elems, idx, re, im, plan.flags[0]);
-  }
-  __syncthreads();
-
-  int K = 1, M = n;
-  for (int s = 0; s < plan.n_stages; ++s) {
-    const int R = plan.radix[s];
-    M /= R;
-    const int nt = elems / R;
-    const float* d = tables + plan.d_off[s];
-    const bool fold = kEngine != kEngStacked && folded(plan.mode[s]);
-    const bool mult3 =
-        kEngine == kEngKnobs && (plan.flags[s] & kFlagMult3) != 0;
-    const int slice_stride = (mult3 ? 3 : 2) * R * R;
-    const int ts = (fold ? K : 1) * slice_stride;
-    const int slice_elems = fold ? M * T : 0;
-    float o_re[kMaxEpt], o_im[kMaxEpt];
-    if constexpr (BT == 1) {
-      if (plan.a_terms[s] == 2)
-        stage_outputs<2, 1, kEngine>(op, elems, ept, nt, R, d, ts, slice_elems,
-                                     slice_stride, mult3, o_re, o_im);
-      else
-        stage_outputs<1, 1, kEngine>(op, elems, ept, nt, R, d, ts, slice_elems,
-                                     slice_stride, mult3, o_re, o_im);
-    } else {
-      stage_outputs<BT, BT, kEngine>(op, elems, ept, nt, R, d, ts,
-                                     slice_elems, slice_stride, mult3, o_re,
-                                     o_im);
-    }
-    __syncthreads();  // every operand read before it is overwritten
-    if constexpr (kEngine != kEngStacked) {
-      if (plan.bf16_state) {
-#pragma unroll
-        for (int e = 0; e < kMaxEpt; ++e) {
-          if (e < ept) {
-            o_re[e] = bf16_round(o_re[e]);
-            o_im[e] = bf16_round(o_im[e]);
-          }
-        }
-      }
-    }
-
-    if (s + 1 == plan.n_stages) {
-      // M == 1 here: g = kk*T + lane, natural bin k = r_out*K + kk.
-#pragma unroll
-      for (int e = 0; e < kMaxEpt; ++e) {
-        if (e < ept) {
-          const int o = tid + e * nthr;
-          const int r_out = o / nt, g = o - r_out * nt;
-          const int kk = g / T;
-          store(r_out * K + kk, g - kk * T, o_re[e], o_im[e]);
-        }
-      }
-    } else {
-      const int R2 = plan.radix[s + 1], K2 = K * R, M2 = M / R2;
-      const float* w = tables + plan.w_off[s + 1];
-      const int flags2 = plan.flags[s + 1];
-      // A folded next stage takes the untwiddled state.
-      const bool twiddle =
-          kEngine == kEngStacked || !folded(plan.mode[s + 1]);
-      const bool round_tw =
-          kEngine != kEngStacked && (flags2 & kFlagRoundTw) != 0;
-#pragma unroll
-      for (int e = 0; e < kMaxEpt; ++e) {
-        if (e < ept) {
-          const int o = tid + e * nthr;
-          const int r_out = o / nt, g = o - r_out * nt;
-          const int gm = g / T, lane = g - gm * T;
-          const int kk = gm / M, mm = gm - kk * M;
-          const int kk2 = r_out * K + kk;
-          const int r2 = mm / M2, mm2 = mm - r2 * M2;
-          float z_re = o_re[e], z_im = o_im[e];
-          if (twiddle) {
-            cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
-                 __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
-            if (round_tw) {
-              z_re = bf16_round(z_re);
-              z_im = bf16_round(z_im);
-            }
-          }
-          put_stage_operand<BT, kEngine>(
-              op, elems, ((r2 * K2 + kk2) * M2 + mm2) * T + lane, z_re, z_im,
-              flags2);
-        }
-      }
-    }
-    __syncthreads();
-    K *= R;
-  }
 }
 
 // The index of the cluster among the launch's: every rank of a cluster

@@ -68,11 +68,7 @@
 // passes' twin one row per cluster (row_cluster_kernel, cluster_tc.cuh),
 // kernel B's a tile of T adjacent columns per cluster (col_cluster_tc_kernel,
 // cluster_col_tc.cuh), T and the cluster chosen by fused_cuda's
-// column-cluster rule.  col_pass_kernel, the scalar engine on one CTA, is
-// kept for one use: K4's column pass on it (col_pass_scalar, compiled in
-// fft2.cu alone) sums each output in another order than the tensor-core
-// engine, a reference the tests hold kernel A's twin against at the fused
-// bound.
+// column-cluster rule.
 #pragma once
 
 #include "cluster_col_tc.cuh"
@@ -80,50 +76,6 @@
 #include "four_step_tc.cuh"
 
 namespace tfft {
-
-template <typename S, int BT, bool kPacked, bool kTwiddle, int kEngine>
-__global__ void __launch_bounds__(kThreads)
-    col_pass_kernel(const S* __restrict__ in_re, const S* __restrict__ in_im,
-                    S* __restrict__ mid_re, S* __restrict__ mid_im, int n1,
-                    int n2, int T, StagePlan plan,
-                    const float* __restrict__ tables,
-                    const float* __restrict__ p, const float* __restrict__ q,
-                    int t) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int tiles = n2 / T;
-  const long long b = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x - static_cast<int>(b) * tiles) * T;
-  const long long base = b * n1 * n2 + c0;
-  auto load = [&](int qi, int& idx, float& re, float& im) {
-    const int i = qi / T, lane = qi - i * T;
-    idx = qi;
-    const long long at = base + static_cast<long long>(i) * n2 + lane;
-    if constexpr (kPacked) {
-      // in_re is the real (B, 2N) row; half-length element `at` is a pair.
-      re = to_float(in_re[2 * at]);
-      im = to_float(in_re[2 * at + 1]);
-    } else {
-      re = to_float(in_re[at]);
-      im = to_float(in_im[at]);
-    }
-  };
-  auto store = [&](int k1, int lane, float re, float im) {
-    float o_re = re, o_im = im;
-    if constexpr (kTwiddle) {
-      const int j2 = c0 + lane;
-      const int a = j2 / t, bb = j2 - a * t;
-      float w_re, w_im;
-      cmul(__ldg(p + (2 * a) * n1 + k1), __ldg(p + (2 * a + 1) * n1 + k1),
-           __ldg(q + k1 * t + bb), __ldg(q + (n1 + k1) * t + bb), w_re, w_im);
-      cmul(re, im, w_re, w_im, o_re, o_im);
-    }
-    const long long at = base + static_cast<long long>(k1) * n2 + lane;
-    mid_re[at] = from_float<S>(o_re);
-    mid_im[at] = from_float<S>(o_im);
-  };
-  run_fft<BT, kEngine>(op, n1, T, plan, tables, load, store);
-}
 
 // T transforms of length n per CTA (cluster == 1), or one per cluster of
 // `cluster` CTAs: the one-CTA kernels and the row passes' twin (kernel B's

@@ -85,8 +85,8 @@ __global__ void __launch_bounds__(kThreads)
     im = to_float(src_im[at]);
   };
   auto unused = [](int, int, float, float) {};
-  // Kernel B's twiddle of bin k1 of column j2 = x0 + lane, as
-  // col_pass_kernel's store computes it.
+  // Kernel B's twiddle of bin k1 of column j2 = x0 + lane: P[k1, j2 / t] *
+  // Q[k1, j2 % t] (four_step_passes.cuh), then the product with the output.
   auto epilogue = [&](int k1, int lane, float& re, float& im) {
     if (!twiddle) return;
     const int j2 = x0 + lane;

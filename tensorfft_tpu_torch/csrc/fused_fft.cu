@@ -14,7 +14,7 @@
 // A row longer than one CTA holds (N > 16384, or bf16x6 with mult3's third
 // operand plane at N = 16384) takes a thread-block cluster of 2, 4 or 8
 // CTAs, each holding a block of every stage's columns
-// (fused_fft_cluster_kernel, cluster_tc.cuh, on run_fft_tc_cluster in
+// (row_cluster_kernel, cluster_tc.cuh, on run_fft_tc_cluster in
 // fft_mma_cluster.cuh); the JAX package runs those lengths (its tuner's
 // single-pass challengers at N = 32768 and 65536) in one VMEM panel.
 //
@@ -35,26 +35,19 @@
 
 namespace tfft {
 
-// The pipelined kernel on a persistent grid of `sms` CTAs
-// (fused_fft_pipe.cu): bf16 storage, one data term, the knob-free stacked
-// engine, one CTA a row, n % 8 == 0, 16-byte aligned planes and batch >
-// sms; anything else returns cudaErrorInvalidValue.
+// The pipelined kernel on a persistent grid of at most `sms` CTAs walking
+// tiles of T consecutive rows (fused_fft_pipe.cu): bf16 storage, one data
+// term, the knob-free stacked engine, one CTA a tile, n a power of two of
+// at least 32, T a power of two with n * T <= kMaxCtaElems and 16-byte
+// aligned planes; anything else returns cudaErrorInvalidValue.
 int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
-                      void* out_im, long long batch, int n, int sms,
+                      void* out_im, long long batch, int n, int T, int sms,
                       const StagePlan& plan, const float* tables,
                       const __nv_bfloat16* mats, cudaStream_t stream);
 
-// The pipelined kernel on tiles of T consecutive rows (fused_fft_pipe.cu):
-// the same calls as launch_fused_pipe with n a power of two of at least
-// 32, T a power of two of at least 2 and n * T <= kMaxCtaElems, on a grid
-// of at most `sms` CTAs.
-int launch_fused_pipe_tile(const void* in_re, const void* in_im, void* out_re,
-                           void* out_im, long long batch, int n, int T, int sms,
-                           const StagePlan& plan, const float* tables,
-                           const __nv_bfloat16* mats, cudaStream_t stream);
-
 // One CTA per row (launch_fused_tc, compiled in fused_fft_tc{1,2,3}.cu), or
-// a cluster of `cluster` CTAs per row (launch_fused_cluster_tc, compiled in
+// a cluster of `cluster` CTAs per row (the row passes' twin with one row of
+// n per batch, stored in place: launch_row_cluster_tc, compiled in
 // cluster_tc{1,2,3}.cu), both on the tensor-core engine.
 template <typename S, int BT>
 int launch_fused(const void* in_re, const void* in_im, void* out_re,
@@ -64,8 +57,9 @@ int launch_fused(const void* in_re, const void* in_im, void* out_re,
   if (cluster == 1)
     return launch_fused_tc<S, BT>(in_re, in_im, out_re, out_im, batch, n,
                                   plan, tables, mats, stream);
-  return launch_fused_cluster_tc<S, BT>(in_re, in_im, out_re, out_im, batch,
-                                        n, cluster, plan, tables, mats, stream);
+  return launch_row_cluster_tc<S, BT>(in_re, in_im, out_re, out_im, batch, 1,
+                                      n, cluster, 0, plan, tables, mats,
+                                      stream);
 }
 
 }  // namespace tfft
@@ -85,8 +79,7 @@ extern "C" const char* tfft_error_string(int err) {
 // each stage in its route's layout), the twiddles from the fp32 `tables`,
 // on one CTA and on a cluster alike.  sms: 0 for one CTA (or cluster) per
 // row, else the card's SMs, over which the pipelined kernel
-// (launch_fused_pipe) walks the rows, or with tile > 1 the tiles of `tile`
-// consecutive rows (launch_fused_pipe_tile).
+// (launch_fused_pipe) walks the tiles of `tile` consecutive rows.
 extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
                               void* out_re, void* out_im, int dtype,
                               int data_terms, long long batch, int n,
@@ -103,11 +96,8 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
   if (sms != 0) {
     if (dtype != 0 || data_terms != 1 || cluster != 1 || tile < 1)
       return static_cast<int>(cudaErrorInvalidValue);
-    if (tile > 1)
-      return launch_fused_pipe_tile(in_re, in_im, out_re, out_im, batch, n,
-                                    tile, sms, plan, t, m, s);
-    return launch_fused_pipe(in_re, in_im, out_re, out_im, batch, n, sms, plan,
-                             t, m, s);
+    return launch_fused_pipe(in_re, in_im, out_re, out_im, batch, n, tile,
+                             sms, plan, t, m, s);
   }
 #define TFFT_FUSED(S, BT)                                              \
   return launch_fused<S, BT>(in_re, in_im, out_re, out_im, batch, n,   \

@@ -1,61 +1,78 @@
 // Kernel A, pipelined: the whole-transform FFT of batch-major (B, N) bf16
-// rows on a persistent grid, each CTA walking the rows blockIdx.x + i *
-// gridDim.x while the next row's input and the last row's output move by
-// bulk async copies; below N = 16384, on tiles of T consecutive rows
-// (fused_fft_pipe_tile_kernel, the second half of this file).
+// rows on a persistent grid, each CTA walking tiles of T = 2^lg_t
+// consecutive rows (T = 1 at n = 16384), tiles blockIdx.x + i * gridDim.x,
+// while the next tile's input and the last tile's output move by bulk
+// async copies.
 //
 // Replaces the TPU kernel K1, tensorfft_tpu/ops/fused_pallas.py:fused_fft
 // (pallas_call at :971), for the calls whose rows it can feed: bf16 storage
 // with one data term on the knob-free stacked engine (kEngStacked), one CTA
-// a row, n % 8 == 0 and n >= 512 (a CTA of 512 threads, one to an SM),
-// 16-byte aligned planes and more rows than SMs (the rule is
-// ops/fused_cuda.py:takes_pipeline; the launcher itself takes any n % 8 ==
-// 0).  Every other call runs fused_fft_tc_kernel (fused_fft_tc.cuh).  Both
-// run the same stage functions of fft_mma.cuh (stage_products, the warp
-// blocking, the fp32 twiddles, the swizzles, the roundings, in the same
-// order), so their outputs are equal bit for bit.  The loop over the stages
-// is pipe_stages below, run_fft_tc's loop for this one case: run_fft_tc
-// keeps its text, since the one-CTA kernels sit at the 128-register cap and
-// ptxas moves their spills with rewrites that compute the same values.
+// a row, a power-of-two n from 128 to 16384, 16-byte aligned planes and
+// more rows than SMs (the rule is ops/fused_cuda.py:takes_pipeline, T is
+// pipeline_tile's: a tile of 16384 elements from n = 2048 on, of 8192
+// below, where it ran faster on the H100; halved while the batch still
+// gives at most one tile an SM).  Every other call runs fused_fft_tc_kernel
+// (fused_fft_tc.cuh).  Both run the same stage functions of fft_mma.cuh
+// (stage_products, the warp blocking, the fp32 twiddles, the swizzles, the
+// roundings, in the same order), so their outputs are equal bit for bit.
+// The loop over the stages is tile_stages below, run_fft_tc's loop for this
+// one case (shifts for the power-of-two index arithmetic): run_fft_tc keeps
+// its text, since the one-CTA kernels sit at the 128-register cap and ptxas
+// moves their spills with rewrites that compute the same values.
 //
-// What bounds it on the H100: at 16384 x 4096 the transform's one read and
-// one write of HBM take 0.16 ms and its bf16 products 0.14 ms at the peaks,
-// but fused_fft_tc_kernel takes 1.43 ms: one 512-thread CTA fills an SM (128
-// registers a thread), and inside it the phases of a row run back to back
-// between barriers, with nothing else on the SM to hide them: the load waits
-// on HBM before the first stage, the last stage stages its outputs in 2-byte
-// stores 8-way bank-conflicted, the store drains, and the next CTA starts on
-// an empty SM.
+// What bounds one CTA a row on the H100: at 16384 x 4096 the transform's one
+// read and one write of HBM take 0.16 ms and its bf16 products 0.14 ms at
+// the peaks, but fused_fft_tc_kernel takes 1.43 ms: one 512-thread CTA fills
+// an SM (128 registers a thread), and inside it the phases of a row run back
+// to back between barriers, with nothing else on the SM to hide them: the
+// load waits on HBM before the first stage, the last stage stages its
+// outputs in 2-byte stores 8-way bank-conflicted, the store drains, and the
+// next CTA starts on an empty SM.  Short rows pay the same per-step costs
+// (the mbarrier wait, four __syncthreads, a bulk copy per plane in and out)
+// on little work: at 512 x 262,144 (the 512^3 grid's axis 0) a row a step
+// took 13.5 ms, 42x the pass's 0.32 ms HBM bound.
 //
-// What the design does about it (1.47 -> 1.29 ms at 16384 x 4096 on the
-// H100; a row per SM 45.8 -> 39.1 us, PERF.md):
-//   * the grid is persistent (one CTA an SM, each walking rows), so a CTA
-//     starts once, not once a row.  Shorter rows take fewer threads, and
-//     one-CTA-a-row kernels then share an SM (two at n = 256), overlapping
-//     one CTA's load with another's stages already: this kernel measured
-//     slower there, so it is not taken below 512 (the tile kernel is);
-//   * three shared buffers of 4n bytes: a landing buffer, the operand and a
-//     staging buffer.  Once a row has been scattered from the landing buffer
-//     into the swizzled operand (16-byte shared-memory copies: the swizzle
-//     permutes 16-byte chunks within 128 bytes), one thread arms an mbarrier
-//     and starts cp.async.bulk copies of the next row's re and im planes
-//     into it, which land while this row's stages run;
-//   * the last stage writes its outputs into the staging buffer as the
-//     natural [re | im][k] row: under a warp blocking each quad's lanes hold
-//     a row's outputs of 4 (or 2) column tiles, so four shuffles transpose
-//     them into whole 16-byte chunks, stored at most 2-way conflicted (the
-//     im plane sits kImPad elements after the re plane so that the 2-column
-//     blocking's two planes fall on other banks); other stage shapes store
-//     each output as fused_fft_tc_kernel does;
-//   * one thread stores the staged row with cp.async.bulk and commits the
-//     group; the CTA waits for its reads (wait_group.read) only before the
-//     next row's last stage writes the staging buffer, and for the writes
-//     once, before it exits.
+// What the design does about it (16384 x 4096: 1.47 -> 1.29 ms; 512 x
+// 262,144: 13.5 -> 1.93 ms at T = 16; PERF.md):
+//   * the grid is persistent (one CTA an SM, each walking tiles), so a CTA
+//     starts once, not once a tile;
+//   * T consecutive rows are one contiguous run of n*T elements a plane, so
+//     a tile lands by one cp.async.bulk per plane, and every per-step cost
+//     is paid once per T rows;
+//   * three shared buffers of 4nT bytes: a landing buffer, the operand and a
+//     staging buffer.  Once a tile has been scattered from the landing
+//     buffer into the swizzled operand, one thread arms an mbarrier and
+//     starts the bulk copies of the next tile into it, which land while this
+//     tile's stages run.  At T = 1 the scatter is a 16-byte shared-memory
+//     copy (the swizzle permutes 16-byte chunks within 128 bytes); at T > 1
+//     the rows go to K3's operand layout (element i of row lane at i*T +
+//     lane, run_fft_tc's T-row tile), each thread gathering 8 landed
+//     elements into one 16-byte operand chunk;
+//   * the last stage writes natural rows into the staging buffer.  At T = 1
+//     under a warp blocking each quad's lanes hold a row's outputs of 4 (or
+//     2) column tiles, so four shuffles transpose them into whole 16-byte
+//     chunks, stored at most 2-way conflicted (the im plane sits kImPad
+//     elements after the re plane so that the 2-column blocking's two planes
+//     fall on other banks).  At T > 1 no warp of the last stage holds
+//     consecutive bins of a row, so the outputs are staged in 2-byte stores
+//     into rows kRowPad elements apart, which spreads adjacent rows' stores
+//     over more banks;
+//   * thread `lane` stores row lane of the staged tile with cp.async.bulk
+//     and commits the group; those threads wait for the reads
+//     (wait_group.read) only before the next tile's last stage writes the
+//     staging buffer, and for the writes once, before they exit.
+//
+// T = 1 is a template flag (kRow) of the one kernel, not a runtime test:
+// the T = 1 instance keeps the 16-byte scatter and staging and its
+// layout, the T > 1 instance the gathers and the padded rows.  Both run the
+// shift arithmetic: at T = 1 it compiles without the spills of a loop that
+// divides by M (20 B of spill stores on the H100 build; PERF.md §6).
 #include "fft_mma.cuh"
 
 namespace tfft {
 
-// Elements between the staged re and im planes (see the note above).
+// Elements between the staged re and im planes at T = 1 (see the note
+// above).
 constexpr int kImPad = 16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -192,184 +209,6 @@ __device__ __forceinline__ void stage_out_blocked(const float (&o_re)[kMaxEpt],
   }
 }
 
-// run_fft_tc's stages for one row (T = 1, bf16 storage, one data term, the
-// knob-free stacked engine) on the operand `op`, with the last stage's
-// outputs in the staging buffer (re at st, im at im), natural order.  Thread
-// 0 first waits until the staging buffer's previous bulk store has read it.
-__device__ __forceinline__ void pipe_stages(__nv_bfloat16* op,
-                                            __nv_bfloat16* st,
-                                            __nv_bfloat16* im, int n,
-                                            const StagePlan& plan,
-                                            const __nv_bfloat16* __restrict__ mats,
-                                            const float* __restrict__ tw) {
-  Swizzle sw = stage_swizzle(n / plan.radix[0]);
-  int K = 1, M = n;
-  for (int s = 0; s < plan.n_stages; ++s) {
-    const int R = plan.radix[s];
-    const int lg_r = __ffs(R) - 1;
-    M /= R;
-    const int nt = n / R;
-    const __nv_bfloat16* d = mats + plan.d_off[s];
-    const bool mma = mma_route(plan.mode[s], R);
-    const int blk = (mma && plan.a_terms[s] == 1) ? mma_block(R >> 3, nt) : 0;
-    const int slice_stride = R * R * 2;
-    float o_re[kMaxEpt], o_im[kMaxEpt];
-    int vv;
-    if (plan.a_terms[s] == 2)
-      vv = stage_products<2, 1, kEngStacked>(op, n, nt, R, lg_r, sw, mma, blk,
-                                             false, d, slice_stride, 0,
-                                             slice_stride, o_re, o_im);
-    else
-      vv = stage_products<1, 1, kEngStacked>(op, n, nt, R, lg_r, sw, mma, blk,
-                                             false, d, slice_stride, 0,
-                                             slice_stride, o_re, o_im);
-    if (s + 1 == plan.n_stages) {
-      if (threadIdx.x == 0)
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      __syncthreads();  // the staging buffer is free
-      // M == 1 here: g = kk, natural bin k = r_out * K + g.
-      if (blk == 16) {
-        stage_out_blocked<4, 4>(o_re, o_im, st, im, R, K);
-      } else if (blk == 8) {
-        stage_out_blocked<2, 4>(o_re, o_im, st, im, R, K);
-      } else if (blk == 4) {
-        stage_out_blocked<2, 2>(o_re, o_im, st, im, R, K);
-      } else {
-        for_outputs(mma, blk, vv, n, nt, R, lg_r, [&](int e, int r_out, int g) {
-          st[r_out * K + g] = __float2bfloat16_rn(o_re[e]);
-          im[r_out * K + g] = __float2bfloat16_rn(o_im[e]);
-        });
-      }
-      return;
-    }
-    __syncthreads();  // every operand read before it is overwritten
-    const int R2 = plan.radix[s + 1], K2 = K * R, M2 = M / R2;
-    const float* w = tw + plan.w_off[s + 1];
-    const int flags2 = plan.flags[s + 1];
-    const Swizzle sw2 = stage_swizzle(n / R2);
-    for_outputs(mma, blk, vv, n, nt, R, lg_r, [&](int e, int r_out, int g) {
-      const int kk = g / M, mm = g - kk * M;
-      const int kk2 = r_out * K + kk;
-      const int r2 = mm / M2, mm2 = mm - r2 * M2;
-      float z_re, z_im;
-      cmul(o_re[e], o_im[e], __ldg(w + r2 * K2 + kk2),
-           __ldg(w + (R2 + r2) * K2 + kk2), z_re, z_im);
-      put_stage_operand<1, kEngStacked>(
-          op, n, swz((r2 * K2 + kk2) * M2 + mm2, sw2), z_re, z_im, flags2);
-    });
-    sw = sw2;
-    __syncthreads();
-    K *= R;
-  }
-}
-
-// Dynamic shared memory: landing, operand and staging buffers of 4n bytes
-// (the staging buffer kImPad elements more), then the mbarrier.
-inline size_t pipe_smem_bytes(int n) {
-  return (6 * static_cast<size_t>(n) + kImPad) * sizeof(__nv_bfloat16) +
-         sizeof(uint64_t);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
-                          const __nv_bfloat16* __restrict__ in_im,
-                          __nv_bfloat16* __restrict__ out_re,
-                          __nv_bfloat16* __restrict__ out_im, long long batch,
-                          int n, StagePlan plan,
-                          const __nv_bfloat16* __restrict__ mats,
-                          const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* land = reinterpret_cast<__nv_bfloat16*>(smem);  // [re | im]
-  __nv_bfloat16* op = land + 2 * n;
-  __nv_bfloat16* st = op + 2 * n;  // [re | kImPad | im]
-  __nv_bfloat16* st_im = st + n + kImPad;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(st_im + n);
-  const uint32_t bytes = 2u * static_cast<uint32_t>(n);  // one plane of a row
-  const long long step = gridDim.x;
-  const Swizzle sw0 = stage_swizzle(n / plan.radix[0]);
-  if (threadIdx.x == 0) {
-    bar_init(bar);
-    const long long at = static_cast<long long>(blockIdx.x) * n;
-    bulk_load(land, land + n, in_re + at, in_im + at, bytes, bar);
-  }
-  __syncthreads();
-  uint32_t parity = 0;
-  for (long long row = blockIdx.x; row < batch; row += step, parity ^= 1) {
-    bar_wait(bar, parity);
-    // Element q of the row to operand index swz(q): whole 16-byte chunks.
-    for (int q = threadIdx.x * 8; q < n; q += blockDim.x * 8) {
-      const int at = swz(q, sw0);
-      *reinterpret_cast<uint4*>(op + at) =
-          *reinterpret_cast<const uint4*>(land + q);
-      *reinterpret_cast<uint4*>(op + n + at) =
-          *reinterpret_cast<const uint4*>(land + n + q);
-    }
-    __syncthreads();  // the landing buffer is free
-    if (threadIdx.x == 0 && row + step < batch) {
-      fence_async_shared();
-      const long long at = (row + step) * n;
-      bulk_load(land, land + n, in_re + at, in_im + at, bytes, bar);
-    }
-    pipe_stages(op, st, st_im, n, plan, mats, tables);
-    fence_async_shared();
-    __syncthreads();  // the row is staged
-    if (threadIdx.x == 0)
-      bulk_store(out_re + row * n, out_im + row * n, st, st_im, bytes);
-  }
-  if (threadIdx.x == 0)
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
-                      void* out_im, long long batch, int n, int sms,
-                      const StagePlan& plan, const float* tables,
-                      const __nv_bfloat16* mats, cudaStream_t stream) {
-  const uintptr_t at = reinterpret_cast<uintptr_t>(in_re) |
-                       reinterpret_cast<uintptr_t>(in_im) |
-                       reinterpret_cast<uintptr_t>(out_re) |
-                       reinterpret_cast<uintptr_t>(out_im);
-  if (mats == nullptr || plan.engine != kEngStacked || n % 8 != 0 ||
-      n > kMaxCtaElems || (at & 15) != 0 || sms < 1 || batch <= sms)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_stage_kernel(
-      &fused_fft_pipe_kernel, sms, tc_threads(n), pipe_smem_bytes(n), 1, stream,
-      static_cast<const __nv_bfloat16*>(in_re),
-      static_cast<const __nv_bfloat16*>(in_im),
-      static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
-      batch, n, plan, mats, tables);
-}
-
-// -- The tile kernel -----------------------------------------------------------
-//
-// Replaces K1 (tensorfft_tpu/ops/fused_pallas.py:fused_fft, pallas_call at
-// :971) on the same calls as the row kernel above, at a power-of-two n from
-// 128 to 8192: ops/fused_cuda.py:pipeline_tile picks T (a tile of 16384
-// elements from n = 2048 on, of 8192 below, where it ran faster on the
-// H100; halved while the batch still gives at most one tile an SM).
-//
-// What bounds the row kernel at n = 512 on the H100: a pipeline step is one
-// 512-point row, one point a thread over two small stages (16, 32), and
-// each row still pays the mbarrier wait, four __syncthreads and a 1 KiB
-// bulk copy per plane in and out: 13.5 ms at 512 x 262,144 (the 512^3
-// grid's axis 0), 6.8 us a row an SM, 42x the pass's 0.32 ms HBM bound.
-//
-// What the tile does about it (13.5 -> 1.93 ms there at T = 16; PERF.md):
-//   * T consecutive rows are one contiguous run of n*T elements a plane, so
-//     a tile lands by one cp.async.bulk per plane, and every per-step cost
-//     above is paid once per T rows;
-//   * the landed rows are scattered into K3's operand layout (element i of
-//     row lane at i*T + lane, run_fft_tc's T-row tile): each thread gathers
-//     8 landed elements into one 16-byte operand chunk, a warp reading 32
-//     consecutive i of each row;
-//   * tile_stages is run_fft_tc's stage loop for T rows (the same stage
-//     functions, twiddles and roundings in the same order, shifts for the
-//     power-of-two index arithmetic), so each output equals one CTA a row's
-//     and K3's bit for bit;
-//   * the last stage writes natural rows into a staging buffer whose rows
-//     lie kRowPad elements apart, and each row leaves by its own two bulk
-//     copies, issued by thread `lane`.  No warp of the last stage holds
-//     consecutive bins of a row, so its outputs are staged in 2-byte
-//     stores; the pad spreads adjacent rows' stores over more banks.
 
 // Elements between the staged rows of a tile: each row starts on a 16-byte
 // boundary (a bulk copy's), and the last stage's 2-byte stores of adjacent
@@ -413,9 +252,12 @@ __device__ __forceinline__ void tile_scatter(const __nv_bfloat16* land,
 // of two) on the operand `op`, with the last stage's outputs in the staging
 // buffer as natural rows `pitch` elements apart (re at st, im at im).  The
 // same stage functions, twiddles and roundings in the same order as
-// run_fft_tc with T rows (K3) and as pipe_stages, so each output equals
-// theirs bit for bit; the index arithmetic uses shifts.  Threads below T
-// first wait until the staging buffer's previous bulk stores have read it.
+// run_fft_tc with T rows (K3 at T > 1, kernel A at T = 1), so each output
+// equals theirs bit for bit; the index arithmetic uses shifts.  kRow (T =
+// 1) stages the blocked stages' outputs in 16-byte chunks
+// (stage_out_blocked).  Threads below T first wait until the staging
+// buffer's previous bulk stores have read it.
+template <bool kRow>
 __device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
                                             __nv_bfloat16* st,
                                             __nv_bfloat16* im, int pitch,
@@ -450,11 +292,19 @@ __device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       __syncthreads();  // the staging buffer is free
       // g = kk * T + lane, natural bin k = r_out * K + kk of row lane.
-      for_outputs(mma, blk, vv, elems, nt, R, lg_r, [&](int e, int r_out, int g) {
-        const int at = (g & tm) * pitch + r_out * K + (g >> lg_t);
-        st[at] = __float2bfloat16_rn(o_re[e]);
-        im[at] = __float2bfloat16_rn(o_im[e]);
-      });
+      if (kRow && blk == 16) {
+        stage_out_blocked<4, 4>(o_re, o_im, st, im, R, K);
+      } else if (kRow && blk == 8) {
+        stage_out_blocked<2, 4>(o_re, o_im, st, im, R, K);
+      } else if (kRow && blk == 4) {
+        stage_out_blocked<2, 2>(o_re, o_im, st, im, R, K);
+      } else {
+        for_outputs(mma, blk, vv, elems, nt, R, lg_r, [&](int e, int r_out, int g) {
+          const int at = (g & tm) * pitch + r_out * K + (g >> lg_t);
+          st[at] = __float2bfloat16_rn(o_re[e]);
+          im[at] = __float2bfloat16_rn(o_im[e]);
+        });
+      }
       return;
     }
     __syncthreads();  // every operand read before it is overwritten
@@ -481,42 +331,45 @@ __device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
   }
 }
 
-// Dynamic shared memory of the tile kernel: landing and operand buffers of
-// 4nT bytes, the staging buffer of T rows of n + kRowPad elements per plane,
-// then the mbarrier.
-inline size_t pipe_tile_smem_bytes(int n, int T) {
-  return (4 * static_cast<size_t>(n) * T +
-          2 * static_cast<size_t>(n + kRowPad) * T) * sizeof(__nv_bfloat16) +
+// Dynamic shared memory: landing and operand buffers of 4nT bytes, the
+// staging buffer of T rows per plane, n + kImPad (T = 1) or n + kRowPad
+// elements apart, then the mbarrier.
+inline size_t pipe_smem_bytes(int n, int T) {
+  const size_t pitch = n + (T == 1 ? kImPad : kRowPad);
+  return (4 * static_cast<size_t>(n) * T + 2 * pitch * T) *
+             sizeof(__nv_bfloat16) +
          sizeof(uint64_t);
 }
 
 // The pipelined kernel on tiles of T = 2^lg_t consecutive rows of n (a
-// power of two): tile t holds rows tT .. tT + T - 1 (the last tile may be
-// short), one contiguous run of each plane, which lands by one bulk copy
-// per plane; each row leaves by its own bulk copies, issued by thread
-// `lane`.  Each CTA walks the tiles blockIdx.x + i * gridDim.x (gridDim.x at
-// most the tile count).
+// power of two; kRow: T = 1, lg_t unread): tile t holds rows tT .. tT + T -
+// 1 (the last tile may be short), one contiguous run of each plane, which
+// lands by one bulk copy per plane; each row leaves by its own bulk copies,
+// issued by thread `lane`.  Each CTA walks the tiles blockIdx.x + i *
+// gridDim.x (gridDim.x at most the tile count).
+template <bool kRow>
 __global__ void __launch_bounds__(kThreads)
-    fused_fft_pipe_tile_kernel(const __nv_bfloat16* __restrict__ in_re,
-                               const __nv_bfloat16* __restrict__ in_im,
-                               __nv_bfloat16* __restrict__ out_re,
-                               __nv_bfloat16* __restrict__ out_im,
-                               long long batch, int n, int lg_t,
-                               StagePlan plan,
-                               const __nv_bfloat16* __restrict__ mats,
-                               const float* __restrict__ tables) {
+    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
+                          const __nv_bfloat16* __restrict__ in_im,
+                          __nv_bfloat16* __restrict__ out_re,
+                          __nv_bfloat16* __restrict__ out_im, long long batch,
+                          int n, int lg_t, StagePlan plan,
+                          const __nv_bfloat16* __restrict__ mats,
+                          const float* __restrict__ tables) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int T = 1 << lg_t, elems = n << lg_t, pitch = n + kRowPad;
+  const int lg = kRow ? 0 : lg_t;
+  const int T = 1 << lg, elems = n << lg;
+  const int pitch = n + (kRow ? kImPad : kRowPad);
   __nv_bfloat16* land = reinterpret_cast<__nv_bfloat16*>(smem);  // [re | im]
   __nv_bfloat16* op = land + 2 * elems;
   __nv_bfloat16* st = op + 2 * elems;  // [re | im], T rows of pitch each
   __nv_bfloat16* st_im = st + T * pitch;
   uint64_t* bar = reinterpret_cast<uint64_t*>(st_im + T * pitch);
-  const long long tiles = (batch + T - 1) >> lg_t, step = gridDim.x;
+  const long long tiles = (batch + T - 1) >> lg, step = gridDim.x;
   const Swizzle sw0 = stage_swizzle(elems / plan.radix[0]);
   // Thread 0: the rows of tile t into the landing buffer.
   auto fetch = [&](long long t) {
-    const long long r0 = t << lg_t;
+    const long long r0 = t << lg;
     const long long rows = batch - r0 < T ? batch - r0 : T;
     const long long at = r0 * n;
     bulk_load(land, land + elems, in_re + at, in_im + at,
@@ -530,16 +383,27 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t parity = 0;
   for (long long t = blockIdx.x; t < tiles; t += step, parity ^= 1) {
     bar_wait(bar, parity);
-    tile_scatter(land, op, n, lg_t, sw0);
+    if constexpr (kRow) {
+      // Element q of the row to operand index swz(q): whole 16-byte chunks.
+      for (int q = threadIdx.x * 8; q < n; q += blockDim.x * 8) {
+        const int at = swz(q, sw0);
+        *reinterpret_cast<uint4*>(op + at) =
+            *reinterpret_cast<const uint4*>(land + q);
+        *reinterpret_cast<uint4*>(op + n + at) =
+            *reinterpret_cast<const uint4*>(land + n + q);
+      }
+    } else {
+      tile_scatter(land, op, n, lg, sw0);
+    }
     __syncthreads();  // the landing buffer is free
     if (threadIdx.x == 0 && t + step < tiles) {
       fence_async_shared();
       fetch(t + step);
     }
-    tile_stages(op, st, st_im, pitch, n, lg_t, plan, mats, tables);
+    tile_stages<kRow>(op, st, st_im, pitch, n, lg, plan, mats, tables);
     fence_async_shared();
     __syncthreads();  // the tile is staged
-    const long long row = (t << lg_t) + threadIdx.x;
+    const long long row = (t << lg) + threadIdx.x;
     if (threadIdx.x < T && row < batch)
       bulk_store(out_re + row * n, out_im + row * n, st + threadIdx.x * pitch,
                  st_im + threadIdx.x * pitch, 2u * static_cast<uint32_t>(n));
@@ -548,24 +412,24 @@ __global__ void __launch_bounds__(kThreads)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-int launch_fused_pipe_tile(const void* in_re, const void* in_im, void* out_re,
-                           void* out_im, long long batch, int n, int T, int sms,
-                           const StagePlan& plan, const float* tables,
-                           const __nv_bfloat16* mats, cudaStream_t stream) {
+int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
+                      void* out_im, long long batch, int n, int T, int sms,
+                      const StagePlan& plan, const float* tables,
+                      const __nv_bfloat16* mats, cudaStream_t stream) {
   const uintptr_t at = reinterpret_cast<uintptr_t>(in_re) |
                        reinterpret_cast<uintptr_t>(in_im) |
                        reinterpret_cast<uintptr_t>(out_re) |
                        reinterpret_cast<uintptr_t>(out_im);
   if (mats == nullptr || plan.engine != kEngStacked || n < 32 ||
-      (n & (n - 1)) != 0 || T < 2 || (T & (T - 1)) != 0 ||
+      (n & (n - 1)) != 0 || T < 1 || (T & (T - 1)) != 0 ||
       static_cast<long long>(n) * T > kMaxCtaElems || (at & 15) != 0 ||
       sms < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (batch + T - 1) / T;
   return launch_stage_kernel(
-      &fused_fft_pipe_tile_kernel, tiles < sms ? tiles : sms,
-      tc_threads(n * T), pipe_tile_smem_bytes(n, T), 1, stream,
-      static_cast<const __nv_bfloat16*>(in_re),
+      T == 1 ? &fused_fft_pipe_kernel<true> : &fused_fft_pipe_kernel<false>,
+      tiles < sms ? tiles : sms, tc_threads(n * T), pipe_smem_bytes(n, T), 1,
+      stream, static_cast<const __nv_bfloat16*>(in_re),
       static_cast<const __nv_bfloat16*>(in_im),
       static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
       batch, n, __builtin_ctz(T), plan, mats, tables);

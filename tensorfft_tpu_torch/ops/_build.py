@@ -50,8 +50,6 @@ _SIGNATURES = {
                                       _P, _P, _P, _P],
     "tfft_fft2_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P,
                       _P],
-    "tfft_fft2_col_scalar": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,
-                             _P],
     "tfft_fft2_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P, _P,
                       _P],
     "tfft_fused_batch_major": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _P, _P,

@@ -80,7 +80,6 @@ from tensorfft_tpu_torch.ops.fused_cuda import (
     count_launch,
     fit_cta,
     fused_fft_reference,
-    kernel_tables,
     launch,
     mma_tables,
     pass_stages,
@@ -704,36 +703,6 @@ def fft2_row_pass(mid_re, mid_im, *, radices2, scales2, sign=dft.FORWARD,
         "tfft_fft2_row", (mid_re, mid_im), (out_re, out_im), algorithm, h, w,
         radices2, scales2, sign, "default", knobs))
     return out_re, out_im
-
-
-def _fft2_column_pass_scalar(re, im, *, radices1, scales1, sign=dft.FORWARD,
-                             algorithm="bf16", engine="stacked", grouped=False,
-                             complex_mult="block", state_dtype="float32"):
-    """K4's column pass on CUDA planes on the scalar engine, one CTA per
-    tile (``col_pass_kernel``, entry point ``tfft_fft2_col_scalar``), not
-    counted: each output summed by fmaf in r order, not in the tensor-core
-    engine's chunk order, a reference kernel A's cluster twin is held
-    against at the fused bound.  ``ValueError`` where the pass does not fit
-    one CTA."""
-    _check_volumes(re, im, 1, radices1, "fft2_column_pass")
-    knobs = _knobs(pass_engine(engine, radices1, grouped, gridslice=False),
-                   grouped, complex_mult, state_dtype)
-    b, h, w = re.shape
-    stages = pass_stages(tuple(radices1), knobs["engine"], grouped,
-                         complex_mult, state_dtype)
-    lanes, cluster = _pass_lanes(re, im, h, w, algorithm, stages,
-                                 "fft2_column_pass")
-    if cluster != 1:
-        raise ValueError(f"a {h}-point column pass does not fit one CTA")
-    tables, meta = kernel_tables(tuple(radices1), tuple(map(float, scales1)),
-                                 int(sign), algorithm, "default", re.device,
-                                 knobs["engine"], grouped, complex_mult,
-                                 state_dtype, True)
-    mid_re, mid_im = torch.empty_like(re), torch.empty_like(im)
-    launch("tfft_fft2_col_scalar", (re, im, mid_re, mid_im),
-           policy_codes(re, algorithm), b, h, w, lanes, tables.data_ptr(),
-           meta.ctypes.data)
-    return mid_re, mid_im
 
 
 reset_launches(fft2_column_pass)

@@ -107,14 +107,10 @@ __all__ = [
 # Complex elements one CTA holds (csrc/fft_stages.cuh kMaxCtaElems): 512
 # threads keeping 32 fp32 outputs each in registers.
 MAX_CTA_ELEMS = 16384
-# Threads of a CTA holding a row of at least as many elements (kThreads); at
-# 128 registers a thread it fills an SM's register file.
-CTA_THREADS = 512
-# The shortest rows the pipelined kernel takes, on tiles (pipeline_tile), and
-# the rows from which a tile fills the whole CTA rather than half of it: on
-# the H100 the tile kernel beat one CTA a row at every batch above the SMs
-# from n = 128 on, and tiles of 8192 elements beat 16384 below n = 2048
-# (PERF.md §6).
+# The shortest rows the pipelined kernel takes (pipeline_tile), and the rows
+# from which a tile fills the whole CTA rather than half of it: on the H100
+# its tiles beat one CTA a row at every batch above the SMs from n = 128 on,
+# and tiles of 8192 elements beat 16384 below n = 2048 (PERF.md §6).
 TILE_MIN_N = 128
 TILE_FULL_N = 2048
 # CTAs of the largest thread-block cluster a pass may take (kMaxCluster).
@@ -223,8 +219,8 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
             cluster: int = 1, pipelined: bool = False, tile: int = 1) -> str:
     """The launch counters' name for a pass: the engine (none for stacked),
     the numeric knobs in effect, ``pipelined`` for kernel A's persistent
-    kernel (:func:`takes_pipeline`) and ``tile<T>`` where it moves tiles of
-    T rows (:func:`pipeline_tile`), then ``mma`` for a pass on one CTA
+    kernel (:func:`takes_pipeline`) and ``tile<T>`` where its tiles hold
+    T > 1 rows (:func:`pipeline_tile`), then ``mma`` for a pass on one CTA
     (every kernel runs those on the tensor-core engine) or the CTAs of its
     cluster, e.g. ``mma``, ``pipelined,mma``, ``pipelined,tile16,mma``,
     ``grouped,mult3,mma``, ``pretwiddle,mma`` or ``bf16_state,cluster2``."""
@@ -256,37 +252,30 @@ def takes_pipeline(*, dtype, algorithm: str, engine: str, stages,
                    state_dtype: str, cluster: int, batch: int, n: int,
                    pointers, sms: int) -> bool:
     """Whether a kernel A call runs the pipelined persistent kernel
-    (``csrc/fused_fft_pipe.cu``) rather than one CTA a row
-    (``fused_fft_tc_kernel``): bf16 storage with one data term, the
-    knob-free stacked engine, one CTA a row, every plane's pointer 16-byte
-    aligned, more rows than the card's ``sms`` (so that a CTA has a next row
-    or tile to fetch while it computes one), and rows it takes: a row a
-    step at ``n % 8 == 0`` (a row's planes are whole 16-byte bulk copies)
-    and ``n >= CTA_THREADS`` (one CTA fills an SM; shorter rows share an SM
-    among one-CTA-a-row kernels, which already overlap one's load with
-    another's stages, and the row-a-step kernel ran slower there: 10 % at
-    n = 256, 6.5 % at n = 128 on the H100), or tiles of rows
-    (:func:`pipeline_tile`) at a power of two from TILE_MIN_N on.  The
-    kernels give the same bits."""
+    (``csrc/fused_fft_pipe.cu``, on tiles of :func:`pipeline_tile` rows)
+    rather than one CTA a row (``fused_fft_tc_kernel``): bf16 storage with
+    one data term, the knob-free stacked engine, one CTA a row, every
+    plane's pointer 16-byte aligned, more rows than the card's ``sms`` (so
+    that a CTA has a next tile to fetch while it computes one), and a
+    power-of-two ``n`` from TILE_MIN_N to MAX_CTA_ELEMS, the lengths a plan
+    makes.  The kernels give the same bits."""
     return (dtype is torch.bfloat16 and DATA_TERMS.get(algorithm) == 1
             and knob_free(engine, stages, state_dtype) and cluster == 1
             and all(p % 16 == 0 for p in pointers) and batch > sms
-            and ((n % 8 == 0 and n >= CTA_THREADS)
-                 or pipeline_tile(n, batch, sms) > 1))
+            and TILE_MIN_N <= n <= MAX_CTA_ELEMS and n & (n - 1) == 0)
 
 
 def pipeline_tile(n: int, batch: int, sms: int) -> int:
-    """Rows a step of the pipelined kernel moves, on a call that
-    :func:`takes_pipeline` sends there: for a power-of-two ``n`` from
-    TILE_MIN_N up to MAX_CTA_ELEMS // 2, T consecutive rows, one contiguous
-    run of T * n elements a plane (``fused_fft_pipe_tile_kernel``): T fills
-    the CTA (MAX_CTA_ELEMS // n) from TILE_FULL_N on and half of it below
-    (64 at n = 128, 32 at 256, 16 at 512, 8 at 1024 and 2048, 4 at 4096,
-    2 at 8192), halved while the batch still gives at most ``sms`` tiles,
-    so that a small batch spreads over the SMs (4096 x 256 takes 2).  A
-    batch that T does not divide ends in a short tile.  Else 1, a row a
-    step (``fused_fft_pipe_kernel``), as at any ``batch <= sms``."""
-    if n >= MAX_CTA_ELEMS or n < TILE_MIN_N or n & (n - 1):
+    """Rows a step of the pipelined kernel, on a call that
+    :func:`takes_pipeline` sends there: T consecutive rows, one contiguous
+    run of T * n elements a plane, for a power-of-two ``n`` from TILE_MIN_N
+    to MAX_CTA_ELEMS.  T fills the CTA (MAX_CTA_ELEMS // n) from TILE_FULL_N
+    on and half of it below (64 at n = 128, 32 at 256, 16 at 512, 8 at 1024
+    and 2048, 4 at 4096, 2 at 8192, 1 at 16384), halved while the batch
+    still gives at most ``sms`` tiles, so that a small batch spreads over
+    the SMs (4096 x 256 takes 2).  A batch that T does not divide ends in a
+    short tile.  1 at any other length, and at any ``batch <= sms``."""
+    if n > MAX_CTA_ELEMS or n < TILE_MIN_N or n & (n - 1):
         return 1
     t = (MAX_CTA_ELEMS if n >= TILE_FULL_N else MAX_CTA_ELEMS // 2) // n
     while t > 1 and -(-batch // (t // 2)) <= sms:
@@ -381,7 +370,7 @@ def run_stages(re: torch.Tensor, im: torch.Tensor, stages, matrices,
                bf16_state: bool = False, round_input: bool = True):
     """Plain-torch stacked stage sequence on batch-major (rows, n) planes.
 
-    The math of the kernels' shared engine (csrc/fft_stages.cuh) and of
+    The math of the kernels' stage (csrc/fft_stages.cuh) and of
     ``fused_pallas.stage_loop``, stage for stage: fp32 twiddle, ``dots.dot``
     products (the block-complex one, or mult3's three), and under
     ``bf16_state`` the bf16 rounding points of :class:`Stage`.  Returns fp32
@@ -854,8 +843,8 @@ def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
     ``pipelined`` True or False and ``tile`` (a pipelined call's rows a
     step, 1 for a row a step) override the rules (the card tests and
     ``chip_smoke.py``: one CTA a row as the reference, the pipelined
-    kernels at a length or tile the rules keep off them); the C launcher
-    refuses a pipelined call its kernel cannot take."""
+    kernel at a tile the rules keep off it); the C launcher refuses a
+    pipelined call its kernel cannot take."""
     b, n = re.shape
     stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
     _, fit = fit_cta(n, 1, algorithm, stages, "fused_fft")
@@ -925,7 +914,7 @@ def fused_fft(
     :func:`fused_fft_reference`; CUDA tensors launch kernel A (a row longer
     than one CTA holds on a thread-block cluster, :func:`fit_cta`; where
     :func:`takes_pipeline` holds, the pipelined persistent kernel, on tiles
-    of :func:`pipeline_tile` rows where that is more than 1), counted
+    of :func:`pipeline_tile` rows), counted
     in ``fused_fft.launches`` and, per :func:`variant`,
     ``fused_fft.variant_launches``.  A gridslice engine whose layout the JAX
     kernel refuses raises ``ValueError`` on every device.

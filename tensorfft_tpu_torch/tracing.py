@@ -64,8 +64,6 @@ _OFF = contextlib.nullcontext()
 _profiler_enabled = torch.autograd._profiler_enabled
 
 # C launcher (its ``tfft_`` prefix dropped) -> (ops module, counted wrapper).
-# ``fft2_col_scalar``, a reference kernel the tests alone launch, is not
-# counted.
 _LAUNCHERS = {
     "fused_fft": ("fused_cuda", "fused_fft"),
     "fused_batch_major": ("four_step_cuda", "fused_fft_batch_major"),
@@ -127,7 +125,7 @@ def counters() -> dict:
         the same launches per variant, for the launchers whose wrapper
         counts them (``variant_launches``: the engine, knobs and kernel in
         effect, e.g. ``fused_fft``'s ``pipelined,tile16,mma`` for kernel A's
-        tile kernel, ``ops/fused_cuda.py:variant``);
+        pipelined kernel on tiles of 16 rows, ``ops/fused_cuda.py:variant``);
     ``table_builds``
         builds per cached table builder (``cache_info().misses``).  After
         the first call of each plan this stays put; a count that keeps

@@ -10,9 +10,8 @@ knobs; model the tensor-core summation order of a column pass (k-chunks of
 storage dtype) followed by a transposed row pass, and hold the model
 against the JAX package's ``four_step_fft`` (Pallas interpret mode); and,
 with ``launch`` replaced by a recorder, check that the launchers pass the
-bf16 matrices on one CTA and to the row passes' cluster twin, and none to
-kernel B's cluster twin (the scalar engine), with as many arguments as the
-entry points' ``_SIGNATURES`` declare.
+bf16 matrices on one CTA and to the cluster twins, with as many arguments
+as the entry points' ``_SIGNATURES`` declare.
 
 Tolerance of the order model against JAX: the four-step bound of
 ``tests/test_torch_four_step.py``, one bf16 ulp of the output scale on at
@@ -199,23 +198,3 @@ def test_launch_passes_mats_on_one_cta(recorded, symbol, cluster):
         assert mats == want_mats.data_ptr()
     assert tables == want_tables.data_ptr()
     assert meta == want_meta.ctypes.data
-
-
-def test_scalar_reference_launch(recorded):
-    # The private scalar column pass: the fp32 tables and no bf16 matrices.
-    re = torch.zeros(4, 1024, 1, dtype=torch.bfloat16)
-    radices = tt.create_plan(1024).radices
-    scales = tuple(1.0 / r for r in radices)
-    four_step_cuda._fft2_column_pass_scalar(re, re.clone(), radices1=radices,
-                                            scales1=scales)
-    (name, tensors, codes, rest), = recorded
-    assert name == "tfft_fft2_col_scalar"
-    assert len(tensors) + len(codes) + len(rest) + 1 == len(_build._SIGNATURES[name])
-    tables, meta = fused_cuda.kernel_tables(
-        tuple(radices), scales, -1, "bf16", "default", torch.device("cpu"),
-        "stacked", False, "block", "float32", True)
-    assert rest == (4, 1024, 1, 1, tables.data_ptr(), meta.ctypes.data)
-    with pytest.raises(ValueError, match="does not fit one CTA"):
-        big = torch.zeros(1, 32768, 1, dtype=torch.bfloat16)
-        four_step_cuda._fft2_column_pass_scalar(
-            big, big.clone(), radices1=(128, 256), scales1=(1 / 128, 1 / 256))

@@ -1,15 +1,16 @@
-"""Kernel A's pipelined persistent kernels (``csrc/fused_fft_pipe.cu``):
-a row a step (``fused_fft_pipe_kernel``) and tiles of T consecutive rows a
-step (``fused_fft_pipe_tile_kernel``).
+"""Kernel A's pipelined persistent kernel (``csrc/fused_fft_pipe.cu``,
+``fused_fft_pipe_kernel``): one kernel over tiles of T consecutive rows a
+step, T = 1 (a row a step) included.
 
-On the CPU: the rules that pick them (``fused_cuda.takes_pipeline``,
-``fused_cuda.pipeline_tile``), their counter names, and what
+On the CPU: the rules that pick it and its T (``fused_cuda.takes_pipeline``,
+``fused_cuda.pipeline_tile``), its counter names, and what
 ``_launch_fused`` hands the C launcher, with the launch recorded and the
 card's SM count passed in.
 
 On the card (``-m gpu``; every such test skips without a CUDA device, decided
-in the ``cuda`` fixture): their outputs equal ``fused_fft_tc_kernel``'s bit
-for bit, the reference running the same rows in chunks of at most SMs rows,
+in the ``cuda`` fixture): its outputs, at T = 1 and at every T the rule
+picks, equal ``fused_fft_tc_kernel``'s bit for bit, the reference running
+the same rows in chunks of at most SMs rows,
 each of which takes one CTA a row, or one CTA a row forced; a view off a
 16-byte boundary takes one CTA a row; the counter names the pipelined launch
 and its tile exactly when the rules hold.
@@ -84,22 +85,21 @@ def test_selection_rule_and_variant(batch, dtype, algorithm, name, knobs,
     assert (variant == "pipelined,mma") == (want and name == "stacked")
 
 
-@pytest.mark.parametrize("n,want", [(16384, True), (512, True), (1000, True),
-                                    (768, True), (1004, False), (256, True),
+@pytest.mark.parametrize("n,want", [(16384, True), (512, True), (1000, False),
+                                    (768, False), (1004, False), (256, True),
                                     (128, True), (384, False), (64, False),
                                     (8, False)])
-def test_selection_rule_needs_whole_16_byte_rows_of_512(n, want):
-    # A row's planes are cp.async.bulk copies: whole 16-byte runs; below 512
-    # elements one-CTA-a-row kernels share an SM, and only tiles of rows (a
-    # power of two from 128 on) take the pipelined kernel.
+def test_selection_rule_takes_powers_of_two_from_128(n, want):
+    # The pipelined kernel takes the lengths a plan makes, powers of two, from
+    # 128 (below, tiles of rows did not beat one CTA a row) to 16384.
     assert fused_cuda.takes_pipeline(
         dtype=torch.bfloat16, algorithm="bf16ax2", engine="stacked",
         stages=_stages({}), state_dtype="float32", cluster=1, batch=SMS + 1,
         n=n, pointers=[0, 16, 32, 48], sms=SMS) == want
 
 
-# The tile kernel's T by length at a large batch: a tile of 16384 elements
-# from n = 2048 on, 8192 below; 1 where no tile is taken.
+# The pipelined kernel's T by length at a large batch: a tile of 16384
+# elements from n = 2048 on, 8192 below; 1 at 16384.
 TILE = {128: 64, 256: 32, 512: 16, 1024: 8, 2048: 8, 4096: 4, 8192: 2,
         16384: 1}
 
@@ -291,8 +291,8 @@ def _bitwise(got, want):
 @pytest.mark.parametrize("n", [256, 4096, 16384])
 def test_pipelined_equals_one_cta_a_row(cuda, n, extra, forward):
     # b = SMs + 1, 4096, 4099: 4099 leaves the CTAs unequal row counts.  Below
-    # n = 16384 the rule takes tiles of rows; at n = 256 the row-a-step
-    # kernel, which the rule keeps off it, is forced too.
+    # n = 16384 the rule takes tiles of rows, and a row a step (T = 1), which
+    # the rule keeps off those lengths, is forced too.
     sms = fused_cuda.multiprocessors(cuda)
     b = sms + 1 if extra == 1 else extra
     re, im = _planes(b, n, cuda, seed=n + b + forward)
@@ -309,7 +309,7 @@ def test_pipelined_equals_one_cta_a_row(cuda, n, extra, forward):
             for c in chunks))])
     assert launched == {"mma": len(chunks)}
     _bitwise(got, want)
-    if n < fused_cuda.CTA_THREADS:
+    if tile > 1:
         full = dict(kw, algorithm="bf16", first_dot="default", engine="stacked",
                     grouped=False, complex_mult="block", state_dtype="float32")
         row, launched = _launched(lambda: fused_cuda._launch_fused(
@@ -382,7 +382,7 @@ def test_tile_equals_one_cta_a_row(cuda, n, rows, forward):
 @pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
 def test_tile_equals_one_cta_a_row_at_the_grid_rows(cuda, forward):
     # The 512^3 grid's axis-0 call: 262,144 rows of 512, bf16ax2 first stage;
-    # also the whole-CTA tile (T = 32) forced, and the row-a-step kernel.
+    # also the whole-CTA tile (T = 32) and a row a step (T = 1) forced.
     n, b = 512, 262144
     re, im = _planes(b, n, cuda, seed=7 + forward)
     kw = _plan_kwargs(n, forward)

@@ -762,10 +762,10 @@ def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
     # A row that one CTA holds, split over 2 and 4 CTAs through the private
     # launcher: each CTA owns a block of every stage's columns and runs the
     # one-CTA tensor-core products on it, so the output is one-CTA kernel
-    # A's bit for bit.  The one-CTA scalar engine (K4's column pass over the
-    # rows viewed as (B, N, 1) through its private launcher, run_fft: the
-    # same plan in another summation order) is held at the fused bound, and
-    # one-CTA K4c (tensor cores, columns) at the four-step bound.
+    # A's bit for bit.  Each is held against the plain-torch kernel A (the
+    # same plan in another summation order) at the fused bound, and one-CTA
+    # K4c (tensor cores, columns over the rows viewed as (B, N, 1)) against
+    # it at the four-step bound.
     n = int(np.prod(radices))
     plan = tt.create_plan(n, precision=precision)
     dtype = plan.precision.storage_dtype
@@ -780,16 +780,14 @@ def test_cluster_kernel_a_bitwise_one_cta(cuda, precision, radices, knobs):
     bf16 = dtype is torch.bfloat16 or kw["state_dtype"] == "bfloat16"
     col = {k: v for k, v in kw.items() if k not in ("radices", "scales", "first_dot")}
     cols = (re.reshape(8, n, 1), im.reshape(8, n, 1))
-    scalar = four_step_cuda._fft2_column_pass_scalar(
-        *cols, radices1=radices, scales1=kw["scales"], **col)
-    scalar = [t.reshape(8, n) for t in scalar]
+    plain = fused_cuda.fused_fft_reference(re, im, **kw)
     for cluster in (2, 4):
         got = fused_cuda._launch_fused(re, im, cluster=cluster, **kw)
         _bitwise(got, one)
-        _hold(got, scalar, bf16, **_bound(kw["state_dtype"], 1e-3))
+        _hold(got, plain, bf16, **_bound(kw["state_dtype"], 1e-3))
     k4c = four_step_cuda.fft2_column_pass(*cols, radices1=radices,
                                           scales1=kw["scales"], **col)
-    _hold([t.reshape(8, n) for t in k4c], scalar, bf16,
+    _hold([t.reshape(8, n) for t in k4c], plain, bf16,
           **_bound(kw["state_dtype"], FOUR_STEP_MAX_FRAC))
 
 
