@@ -24,7 +24,8 @@ first use, one process per source), then:
             float32 image and ``fftn_split`` + ``ifftn_split`` over the last
             two axes of 4096 x 4096 bf16 planes (the K4 column and row
             kernels), and ``fftn_split`` of a 512^3 bf16 volume (K4 on the
-            trailing axes, then kernel A along axis 0);
+            trailing axes, then kernel A along axis 0, its tiles landed
+            straight from K4's output: ``fused_fft_cols``);
        tuned: the tuned-plan path (run after step 4's gates), the public
             entry points with ``tuning="auto"`` reading a tuner cache
             written to a temporary directory (``TENSORFFT_TUNER_CACHE``):
@@ -146,10 +147,13 @@ SMs run its pipelined persistent kernel (``csrc/fused_fft_pipe.cu``), the
 same bits, on tiles of T consecutive rows a step: T = 1 at N = 16384
 (``fused_fft[pipelined,mma]``), T > 1 below
 (``fused_fft[pipelined,tile<T>,mma]``, ``fused_cuda.pipeline_tile``: the c2c
-path's 4096 x 4096 and 4096 x 256, the 512^3 grid's axis 0, the any path's
-2048-point rows); step 5 times kernel A at N=16384 x 4096 on both paths, in
-turns, and the pipelined kernel's tiles at TILE_SHAPES against one CTA a
-row, a row a step and (at the grid's rows) K3.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+path's 4096 x 4096 and 4096 x 256, the any path's 2048-point rows); an N-D
+pass whose planes allow it lands the tiles straight from the strided planes
+(``fused_fft_cols[pipelined,tile<T>,cols,mma]``, ``fused_cuda.column_tile``:
+the 512^3 grid's axis 0); step 5 times kernel A at N=16384 x 4096 on both
+paths, in turns, and the pipelined kernel's tiles at TILE_SHAPES against one
+CTA a row, a row a step and (at the grid's rows) K3, the relayout with the
+rule's tiles and the strided landing at T = 16 and 32.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
 kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
 adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
 engine on a thread-block cluster,
@@ -210,8 +214,10 @@ ND_VOLUME = (512, 512, 512)
 ND_GATE_2D = [(4096, 4096), (8, 16384), (16384, 8)]
 ND_GATE_3D = (256, 256, 256)
 # Kernel A's pipelined kernel on tiles of 16384 and of 8192 elements and the
-# rule's tile, timed in turns with one CTA a row, a row a step (and K3 at the
-# 512^3 grid's axis-0 rows), every output equal to one CTA a row's: (N, rows).
+# rule's tile, timed in turns with one CTA a row, a row a step (and, at the
+# 512^3 grid's axis-0 rows, K3, the relayout's copy with the rule's tiles and
+# the tiles landed straight from the grid), every output equal to one CTA a
+# row's: (N, rows).
 TILE_SHAPES = [(512, 262144), (512, 4096), (1024, 4096), (2048, 4096),
                (4096, 4096), (8192, 4096), (256, 4096), (128, 4096),
                (4096, 256)]
@@ -289,6 +295,9 @@ KERNELS = {
                                    "tensorfft_tpu/ops/fused_pallas.py:971"),
     "fused_fft[pipelined,tile16,mma]": ("tensorfft_tpu_torch/csrc/fused_fft_pipe.cu",
                                     "tensorfft_tpu/ops/fused_pallas.py:971"),
+    "fused_fft_cols[pipelined,tile16,cols,mma]": (
+        "tensorfft_tpu_torch/csrc/fused_fft_pipe.cu",
+        "tensorfft_tpu/ops/fused_pallas.py:971"),
     "four_step_col[mma]": ("tensorfft_tpu_torch/csrc/four_step_fft.cu",
                       "tensorfft_tpu/ops/four_step_pallas.py:465"),
     "four_step_row[mma]": ("tensorfft_tpu_torch/csrc/four_step_row.cu",
@@ -569,7 +578,8 @@ BIGN_HOLD_ELEMS = 1 << 22
 # The kernels of the tensor-core engine: one CTA (..._tc_kernel), kernel A's
 # pipelined kernel and the cluster twins (kernel A's and the row passes'
 # row_cluster_kernel, kernel B's col_cluster_tc_kernel).
-TC_KERNEL = re.compile(r"_tc_kernel<|fused_fft_pipe_kernel<|row_cluster_kernel<")
+TC_KERNEL = re.compile(
+    r"_tc_kernel<|fused_fft_pipe_kernel<|fused_fft_pipe_cols_kernel\(|row_cluster_kernel<")
 # The -Xptxas -v lines every kernel but the tensor-core engine's must keep.
 PTXAS_REFERENCE = "tensorfft_tpu_torch/csrc/ptxas_reference.txt"
 
@@ -768,6 +778,7 @@ def main() -> int:
 
     wrappers = {
         "fused_fft": fused_cuda.fused_fft,
+        "fused_fft_cols": fused_cuda.fused_fft_columns,
         "four_step_col": four_step_cuda.column_pass,
         "four_step_row": four_step_cuda.row_pass,
         "pack_split": rfft_cuda.pack_split,
@@ -882,7 +893,8 @@ def main() -> int:
         return conv, spec, back, tt.fftn_split(*volume)
 
     conv2d, spec2d, back2d, vol_spec = counted(
-        "nd", ("fft2_col[mma]", "fft2_row[mma]", "fused_fft[pipelined,tile16,mma]"),
+        "nd", ("fft2_col[mma]", "fft2_row[mma]",
+               "fused_fft_cols[pipelined,tile16,cols,mma]"),
         drive_nd)
     finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
@@ -1172,18 +1184,26 @@ def main() -> int:
     # Kernel A on the rows the per-axis loop gave it: axis 0 of the volume
     # after K4, moved last.  The N=512 plan runs the bf16ax2 first stage.
     plan_v = tt.create_plan(n_v)
-    rows = [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous()
-            for t in tt.fftn_split(*volume, axes=(1, 2))]
-    hold(kernel_a(n_v, rows[0].shape[0]),
-         f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
-         f"x B={rows[0].shape[0]} first_dot={plan_v.first_dot}",
-         tt.fft_split(*rows, plan_v),
-         fused_cuda.fused_fft_reference(
-             *rows, radices=plan_v.radices,
-             scales=stage_scales(plan_v.radices, plan_v.scaling, True),
-             algorithm=plan_v.precision.dot_algorithm,
-             first_dot=plan_v.first_dot), FUSED_MAX_FRAC)
-    del rows
+    mid = tt.fftn_split(*volume, axes=(1, 2))
+    rows = [torch.movedim(t, 0, -1).reshape(-1, n_v).contiguous() for t in mid]
+    v_label = (f"{'x'.join(map(str, ND_VOLUME))} axis 0, N={n_v} "
+               f"x B={rows[0].shape[0]} first_dot={plan_v.first_dot}")
+    v_kw = dict(radices=plan_v.radices,
+                scales=stage_scales(plan_v.radices, plan_v.scaling, True),
+                algorithm=plan_v.precision.dot_algorithm,
+                first_dot=plan_v.first_dot)
+    v_plain = fused_cuda.fused_fft_reference(*rows, **v_kw)
+    v_rows = tt.fft_split(*rows, plan_v)
+    hold(kernel_a(n_v, rows[0].shape[0]), v_label, v_rows, v_plain, FUSED_MAX_FRAC)
+    # The same pass landed straight from K4's output (no relayout): kernel
+    # A's bits on the copied rows.
+    v_cols = [t.reshape(-1, n_v)
+              for t in fused_cuda.fused_fft_columns(*mid, 0, **v_kw)]
+    bitwise("fused_fft_cols[pipelined,tile16,cols,mma]",
+            f"{v_label} (against the relayout's rows)", v_cols, v_rows)
+    hold("fused_fft_cols[pipelined,tile16,cols,mma]", v_label, v_cols, v_plain,
+         FUSED_MAX_FRAC)
+    del mid, rows, v_plain, v_rows, v_cols
     torch.cuda.synchronize()
 
     # -- 4. reference gates and round trips --------------------------------
@@ -2198,9 +2218,24 @@ def main() -> int:
                                                                 tile=tile)
         fns = {name: (lambda r, i, o=o: fused_cuda._launch_fused(r, i, **o, **a_kw))
                for name, o in paths.items()}
+        rules, grid = {rule}, None
         if (n, b) == (ND_VOLUME[0], math.prod(ND_VOLUME[1:])):
             fns["K3 fused_fft_batch_major[mma]"] = (
                 lambda r, i: four_step_cuda.fused_fft_batch_major(r, i, **a_kw))
+            # The grid's axis-0 pass as the N-D loop runs it: from the
+            # (N, B) grid, the relayout's copy then the rule's tiles, or the
+            # tiles landed straight from the grid (T = 16, the rule's, and
+            # T = 32).
+            grid = [p.t().contiguous() for p in x]
+            fns["relayout + fused_fft[pipelined,tile16,mma]"] = (
+                lambda r, i: fused_cuda._launch_fused(
+                    *(p.movedim(0, -1).contiguous() for p in grid),
+                    pipelined=True, tile=16, **a_kw))
+            for tile in (16, 32):
+                fns[f"fused_fft_cols[pipelined,tile{tile},cols,mma]"] = (
+                    lambda r, i, t=tile: fused_cuda.fused_fft_columns(
+                        *grid, 0, tile=t, **a_kw))
+            rules.add("fused_fft_cols[pipelined,tile16,cols,mma]")
         want = fns["fused_fft[mma]"](*x)
         for name, fn in fns.items():
             bitwise(name, f"N={n} x B={b} (against one CTA a row)", fn(*x), want)
@@ -2223,12 +2258,12 @@ def main() -> int:
                 f"{min(ms):.4f} ms (runs {', '.join(f'{v:.4f}' for v in ms)}) | bound "
                 f"{b_ms:.4f} ms ({b_by}) | {b_ms / min(ms):.1%} of bound | plain "
                 f"{p_ms:.4f} ms | torch.fft c64 {c_ms:.4f} ms"
-                f"{' | the rule' if name == rule else ''} | {smi}")
-            if name in KERNELS and name not in timing and name == rule:
+                f"{' | the rule' if name in rules else ''} | {smi}")
+            if name in KERNELS and name not in timing and name in rules:
                 timing[name] = dict(ms=min(ms), plain_ms=p_ms, library_ms=c_ms,
                                     bound_ms=b_ms, bound_by=b_by,
                                     shape=f"N={n} x B={b} bf16 first_dot={plan.first_dot}")
-        del x
+        del x, fns, grid
         torch.cuda.empty_cache()
 
     # The float32 policy at the headline shape (kernel A, bf16x3).
@@ -2404,9 +2439,10 @@ def main() -> int:
     t_tvol = measure(lambda x: torch.fft.fftn(x), (v_c,), iters=5)
     log(f"[time] fftn_split {'x'.join(map(str, ND_VOLUME))} bf16: "
         f"{t_vol.average_time_ms:.4f} ms (K4 over axes 1, 2: "
-        f"{t_vk4.average_time_ms:.4f} ms; axis 0 through kernel A: "
-        f"{t_vax0.average_time_ms:.4f} ms, of which the moveaxis copies "
-        f"{t_copy.average_time_ms:.4f} ms) | torch.fft.fftn c64 "
+        f"{t_vk4.average_time_ms:.4f} ms; axis 0 through kernel A's tiles "
+        f"landed from the grid: {t_vax0.average_time_ms:.4f} ms; the moveaxis "
+        f"copies it does without: {t_copy.average_time_ms:.4f} ms) | "
+        f"torch.fft.fftn c64 "
         f"{t_tvol.average_time_ms:.4f} ms | {smi}")
     del v_c
 

@@ -45,6 +45,18 @@ int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
                       const StagePlan& plan, const float* tables,
                       const __nv_bfloat16* mats, cudaStream_t stream);
 
+// The same kernel with the strided landing, along the middle axis of
+// (outer, n, inner) planes, inner contiguous: tiles of T lines of inner
+// (T >= 8 dividing inner, so that a line's run is whole 16-byte chunks),
+// each plane's tile landed by tensor copies; the output is the (outer *
+// inner, n) rows the same kernel gives on the planes with that axis moved
+// last.  Anything else returns cudaErrorInvalidValue.
+int launch_fused_pipe_cols(const void* in_re, const void* in_im, void* out_re,
+                           void* out_im, long long outer, int n,
+                           long long inner, int T, int sms,
+                           const StagePlan& plan, const float* tables,
+                           const __nv_bfloat16* mats, cudaStream_t stream);
+
 // One CTA per row (launch_fused_tc, compiled in fused_fft_tc{1,2,3}.cu), or
 // a cluster of `cluster` CTAs per row (the row passes' twin with one row of
 // n per batch, stored in place: launch_row_cluster_tc, compiled in
@@ -107,4 +119,24 @@ extern "C" int tfft_fused_fft(const void* in_re, const void* in_im,
   if (dtype == 1 && data_terms == 3) TFFT_FUSED(float, 3);
 #undef TFFT_FUSED
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Kernel A along the middle axis of bf16 (outer, n, inner) planes
+// (launch_fused_pipe_cols) into (outer * inner, n) rows: bf16 storage with
+// one data term (dtype 0, data_terms 1), the pipelined kernel over `sms`
+// CTAs, on tiles of `tile` lines.  Returns a cudaError_t code.
+extern "C" int tfft_fused_fft_cols(const void* in_re, const void* in_im,
+                                   void* out_re, void* out_im, int dtype,
+                                   int data_terms, long long outer, int n,
+                                   long long inner, int sms, int tile,
+                                   const void* tables, const void* mats,
+                                   const long long* meta, void* stream) {
+  using namespace tfft;
+  StagePlan plan;
+  if (!read_plan(meta, &plan) || dtype != 0 || data_terms != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fused_pipe_cols(in_re, in_im, out_re, out_im, outer, n, inner,
+                                tile, sms, plan, static_cast<const float*>(tables),
+                                static_cast<const __nv_bfloat16*>(mats),
+                                static_cast<cudaStream_t>(stream));
 }

@@ -2,7 +2,8 @@
 // rows on a persistent grid, each CTA walking tiles of T = 2^lg_t
 // consecutive rows (T = 1 at n = 16384), tiles blockIdx.x + i * gridDim.x,
 // while the next tile's input and the last tile's output move by bulk
-// async copies.
+// async copies; or of T lines of an N-D axis that is not last, landed from
+// the strided planes (the strided landing, below).
 //
 // Replaces the TPU kernel K1, tensorfft_tpu/ops/fused_pallas.py:fused_fft
 // (pallas_call at :971), for the calls whose rows it can feed: bf16 storage
@@ -67,6 +68,31 @@
 // layout, the T > 1 instance the gathers and the padded rows.  Both run the
 // shift arithmetic: at T = 1 it compiles without the spills of a loop that
 // divides by M (20 B of spill stores on the H100 build; PERF.md §6).
+//
+// The strided landing (kCols, fused_fft_pipe_cols_kernel): an N-D pass
+// along an axis that is not last sees its planes as (outer, n, inner),
+// inner contiguous, and would first copy them with the axis moved last
+// (at the 512^3 grid's axis 0 on the H100, a read and a write of the grid
+// at 0.59 TB/s: 1.8 ms a call beside this kernel's 2.0 ms; PERF.md §5).  T consecutive
+// lines of inner are exactly the T-row tile's operand order: element i of
+// line lane sits at i * inner + lane, a run of T elements for each i, and
+// the operand wants it at i * T + lane.  So a tile lands straight from the
+// grid by tensor copies (cp.async.bulk.tensor, one 3-D tensor map a plane,
+// boxes of T x min(n, 256) x 1) in that order, and goes to the operand by
+// the T = 1 instance's 16-byte chunk copy through the swizzle, with no
+// gather.  T >= 8 and T | inner keep every run whole 16-byte chunks and
+// every tile whole; the stages, the staging and the row stores are the T >
+// 1 instance's, and a tile's lines leave as output rows tT + lane of the
+// (outer * inner, n) rows the copy would have given, so the outputs are the
+// same bits.  What bounds it is the row instance's stages: its loads, 32
+// bytes a line at T = 16 with lines 2 * inner bytes apart, stay off the
+// critical path as the contiguous ones do (512 x 262,144 at T = 16: 1.96
+// ms, the row instance on the copied rows 1.94; promoting each read to 64,
+// 128 or 256 bytes of L2 moved nothing; PERF.md §6).
+#include <cuda.h>  // CUtensorMap and its encoding's types
+
+#include <climits>
+
 #include "fft_mma.cuh"
 
 namespace tfft {
@@ -110,6 +136,31 @@ __device__ __forceinline__ void bulk_load(void* dst_re, void* dst_im,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst_im)),
       "l"(im), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Arm `bar` for `bytes` of copies still to land.
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Lines of i in one box of the strided landing: a tensor map's box is at
+// most 256 elements along each dimension.
+constexpr int kBoxLines = 256;
+
+// Copy the box at coordinates (c, i, o) of the 3-D tensor map `map` into
+// shared memory at dst, completing on `bar`.
+__device__ __forceinline__ void tensor_load(void* dst, const CUtensorMap* map,
+                                            int c, int i, int o,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(i), "r"(o),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -341,22 +392,23 @@ inline size_t pipe_smem_bytes(int n, int T) {
          sizeof(uint64_t);
 }
 
-// The pipelined kernel on tiles of T = 2^lg_t consecutive rows of n (a
-// power of two; kRow: T = 1, lg_t unread): tile t holds rows tT .. tT + T -
-// 1 (the last tile may be short), one contiguous run of each plane, which
-// lands by one bulk copy per plane; each row leaves by its own bulk copies,
-// issued by thread `lane`.  Each CTA walks the tiles blockIdx.x + i *
-// gridDim.x (gridDim.x at most the tile count).
-template <bool kRow>
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
-                          const __nv_bfloat16* __restrict__ in_im,
-                          __nv_bfloat16* __restrict__ out_re,
-                          __nv_bfloat16* __restrict__ out_im, long long batch,
-                          int n, int lg_t, StagePlan plan,
-                          const __nv_bfloat16* __restrict__ mats,
-                          const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
+// One CTA's walk over the tiles blockIdx.x + i * gridDim.x (gridDim.x at
+// most the tile count) of T = 2^lg_t lines of n (a power of two; kRow: T =
+// 1, lg_t unread), `batch` lines in all: thread 0 lands tile t in the
+// landing buffer by fetch(land, bar, t), arming `bar`; the tile goes to the
+// operand (kRow and kCols: landed in operand order, so whole 16-byte chunks
+// through the swizzle; else T consecutive rows, gathered by tile_scatter),
+// the next tile's fetch starts, the stages run, and each line leaves as
+// output row tT + lane by its own bulk copies, issued by thread `lane`.
+template <bool kRow, bool kCols, typename Fetch>
+__device__ __forceinline__ void pipe_tiles(unsigned char* smem,
+                                           const Fetch& fetch,
+                                           __nv_bfloat16* __restrict__ out_re,
+                                           __nv_bfloat16* __restrict__ out_im,
+                                           long long batch, int n, int lg_t,
+                                           const StagePlan& plan,
+                                           const __nv_bfloat16* __restrict__ mats,
+                                           const float* __restrict__ tables) {
   const int lg = kRow ? 0 : lg_t;
   const int T = 1 << lg, elems = n << lg;
   const int pitch = n + (kRow ? kImPad : kRowPad);
@@ -367,30 +419,22 @@ __global__ void __launch_bounds__(kThreads)
   uint64_t* bar = reinterpret_cast<uint64_t*>(st_im + T * pitch);
   const long long tiles = (batch + T - 1) >> lg, step = gridDim.x;
   const Swizzle sw0 = stage_swizzle(elems / plan.radix[0]);
-  // Thread 0: the rows of tile t into the landing buffer.
-  auto fetch = [&](long long t) {
-    const long long r0 = t << lg;
-    const long long rows = batch - r0 < T ? batch - r0 : T;
-    const long long at = r0 * n;
-    bulk_load(land, land + elems, in_re + at, in_im + at,
-              static_cast<uint32_t>(2 * rows * n), bar);
-  };
   if (threadIdx.x == 0) {
     bar_init(bar);
-    fetch(blockIdx.x);
+    fetch(land, bar, blockIdx.x);
   }
   __syncthreads();
   uint32_t parity = 0;
   for (long long t = blockIdx.x; t < tiles; t += step, parity ^= 1) {
     bar_wait(bar, parity);
-    if constexpr (kRow) {
-      // Element q of the row to operand index swz(q): whole 16-byte chunks.
-      for (int q = threadIdx.x * 8; q < n; q += blockDim.x * 8) {
+    if constexpr (kRow || kCols) {
+      // Landed index q to operand index swz(q): whole 16-byte chunks.
+      for (int q = threadIdx.x * 8; q < elems; q += blockDim.x * 8) {
         const int at = swz(q, sw0);
         *reinterpret_cast<uint4*>(op + at) =
             *reinterpret_cast<const uint4*>(land + q);
-        *reinterpret_cast<uint4*>(op + n + at) =
-            *reinterpret_cast<const uint4*>(land + n + q);
+        *reinterpret_cast<uint4*>(op + elems + at) =
+            *reinterpret_cast<const uint4*>(land + elems + q);
       }
     } else {
       tile_scatter(land, op, n, lg, sw0);
@@ -398,7 +442,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();  // the landing buffer is free
     if (threadIdx.x == 0 && t + step < tiles) {
       fence_async_shared();
-      fetch(t + step);
+      fetch(land, bar, t + step);
     }
     tile_stages<kRow>(op, st, st_im, pitch, n, lg, plan, mats, tables);
     fence_async_shared();
@@ -410,6 +454,69 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (threadIdx.x < T)
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The pipelined kernel on tiles of T = 2^lg_t consecutive rows of n (kRow:
+// T = 1): tile t holds rows tT .. tT + T - 1 (the last tile may be short),
+// one contiguous run of each plane, which lands by one bulk copy per plane.
+template <bool kRow>
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
+                          const __nv_bfloat16* __restrict__ in_im,
+                          __nv_bfloat16* __restrict__ out_re,
+                          __nv_bfloat16* __restrict__ out_im, long long batch,
+                          int n, int lg_t, StagePlan plan,
+                          const __nv_bfloat16* __restrict__ mats,
+                          const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lg = kRow ? 0 : lg_t;
+  const int T = 1 << lg;
+  // Thread 0: the rows of tile t into the landing buffer.
+  auto fetch = [&](__nv_bfloat16* land, uint64_t* bar, long long t) {
+    const long long r0 = t << lg;
+    const long long rows = batch - r0 < T ? batch - r0 : T;
+    const long long at = r0 * n;
+    bulk_load(land, land + (n << lg), in_re + at, in_im + at,
+              static_cast<uint32_t>(2 * rows * n), bar);
+  };
+  pipe_tiles<kRow, false>(smem, fetch, out_re, out_im, batch, n, lg_t, plan,
+                          mats, tables);
+}
+
+// The strided landing: the input seen as (outer, n, inner) with inner
+// contiguous, one tensor map a plane (column_map); tile t covers the T
+// lines c0 .. c0 + T - 1 of outer block o (t = o * per_outer + c0 / T,
+// per_outer = inner / T), which are output rows tT .. tT + T - 1.  Each
+// plane of the tile lands as n runs of T elements, i-major, in boxes of at
+// most kBoxLines lines of i: element i of line lane at i * T + lane, the
+// operand's order before the swizzle.  The tiles number at most INT_MAX, so
+// t splits by a 32-bit division (a 64-bit one is a call, whose saved
+// registers spill at the 128-register cap).
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_cols_kernel(const __grid_constant__ CUtensorMap map_re,
+                               const __grid_constant__ CUtensorMap map_im,
+                               __nv_bfloat16* __restrict__ out_re,
+                               __nv_bfloat16* __restrict__ out_im,
+                               long long batch, uint32_t per_outer, int n,
+                               int lg_t, StagePlan plan,
+                               const __nv_bfloat16* __restrict__ mats,
+                               const float* __restrict__ tables) {
+  // A tensor copy lands at a 128-byte aligned address.
+  extern __shared__ __align__(128) unsigned char cols_smem[];
+  const int elems = n << lg_t, box = n < kBoxLines ? n : kBoxLines;
+  auto fetch = [&](__nv_bfloat16* land, uint64_t* bar, long long t) {
+    const uint32_t o = static_cast<uint32_t>(t) / per_outer;
+    const int c0 = static_cast<int>((static_cast<uint32_t>(t) - o * per_outer)
+                                    << lg_t);
+    bar_expect(bar, 4u * static_cast<uint32_t>(elems));
+    for (int i = 0; i < n; i += box) {
+      tensor_load(land + (i << lg_t), &map_re, c0, i, static_cast<int>(o), bar);
+      tensor_load(land + elems + (i << lg_t), &map_im, c0, i,
+                  static_cast<int>(o), bar);
+    }
+  };
+  pipe_tiles<false, true>(cols_smem, fetch, out_re, out_im, batch, n, lg_t,
+                          plan, mats, tables);
 }
 
 int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
@@ -433,6 +540,86 @@ int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
       static_cast<const __nv_bfloat16*>(in_im),
       static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
       batch, n, __builtin_ctz(T), plan, mats, tables);
+}
+
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (so the
+// library links nothing beyond the runtime), looked up once; null where
+// the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of one bf16 plane seen as (outer, n, inner), inner
+// contiguous (dimensions innermost first), whose box is T lines of inner by
+// min(n, kBoxLines) of n by one of outer.
+inline bool column_map(CUtensorMap* map, const void* plane, long long outer,
+                       int n, long long inner, int T) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner) * n * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T),
+                             static_cast<cuuint32_t>(n < kBoxLines ? n : kBoxLines),
+                             1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(plane), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_fused_pipe_cols(const void* in_re, const void* in_im, void* out_re,
+                           void* out_im, long long outer, int n,
+                           long long inner, int T, int sms,
+                           const StagePlan& plan, const float* tables,
+                           const __nv_bfloat16* mats, cudaStream_t stream) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(in_re) |
+                       reinterpret_cast<uintptr_t>(in_im) |
+                       reinterpret_cast<uintptr_t>(out_re) |
+                       reinterpret_cast<uintptr_t>(out_im);
+  if (mats == nullptr || plan.engine != kEngStacked || n < 32 ||
+      (n & (n - 1)) != 0 || T < 8 || (T & (T - 1)) != 0 ||
+      static_cast<long long>(n) * T > kMaxCtaElems || (at & 15) != 0 ||
+      sms < 1 || outer < 1 || inner < T || inner > INT_MAX ||
+      inner % T != 0 || outer * (inner / T) > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_re, map_im;
+  if (!column_map(&map_re, in_re, outer, n, inner, T) ||
+      !column_map(&map_im, in_im, outer, n, inner, T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = outer * (inner / T);
+  return launch_stage_kernel(
+      &fused_fft_pipe_cols_kernel, tiles < sms ? tiles : sms,
+      tc_threads(n * T), pipe_smem_bytes(n, T), 1, stream, map_re, map_im,
+      static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
+      outer * inner, static_cast<uint32_t>(inner / T), n, __builtin_ctz(T),
+      plan, mats, tables);
 }
 
 }  // namespace tfft

@@ -25,7 +25,9 @@ The N-D transforms (``fftn_split``, ``ifftn_split``, ``fftn``, ``ifftn``,
 transform over the last two axes with both lengths on the FUSED route runs
 as K4, the 2D row-column kernels (``four_step_cuda.fft2_fused``); any other
 axis runs ``fft_split`` along it, one axis at a time in the order given,
-after an explicit relayout that moves the axis last (``_relayout``).
+after an explicit relayout that moves the axis last (``_relayout``), or,
+where its planes allow (``_column_tile``), as kernel A's pipelined tiles
+landed straight from the strided planes (``_columns``), with no copy.
 ``nd_counts`` counts the 2D branch's calls, the per-axis passes and the
 bytes the relayout copied (``tracing.counters()["nd"]``).
 """
@@ -93,18 +95,12 @@ def _fft_split_core(re, im, plan: FFTPlan, forward: bool):
     if strategy is Strategy.FOUR_STEP:
         return four_step_cuda.four_step_fft(
             re, im, **four_step_call_kwargs(plan, forward))
-    scales = stage_scales(plan.radices, plan.scaling, forward)
     if strategy is Strategy.FUSED:
         # Both kernels read (B, N) rows; "transform_major" is kernel A here.
         fused = (four_step_cuda.fused_fft_batch_major
                  if _batch_major_ok(plan, re.shape[0]) else fused_cuda.fused_fft)
-        return fused(
-            re, im, radices=plan.radices, scales=scales, sign=sign,
-            algorithm=plan.precision.dot_algorithm,
-            grouped=plan.grouped, state_dtype=plan.state_dtype,
-            complex_mult=plan.complex_mult, engine=plan.engine,
-            first_dot=plan.first_dot,
-        )
+        return fused(re, im, **_fused_kwargs(plan, forward))
+    scales = stage_scales(plan.radices, plan.scaling, forward)
     if strategy is Strategy.STAGED:
         o_re, o_im = stages_torch.apply_stages(
             re.T, im.T, plan.radices, scales, sign,
@@ -120,6 +116,20 @@ def _fft_split_core(re, im, plan: FFTPlan, forward: bool):
         x = x * total
         return x.real, x.imag
     raise ValueError(f"unhandled strategy {strategy}")
+
+
+def _fused_kwargs(plan: FFTPlan, forward: bool) -> dict:
+    """Keyword arguments of kernel A (``fused_cuda.fused_fft``, and of K3
+    and ``fused_cuda.fused_fft_columns``) for a FUSED ``plan``."""
+    return dict(
+        radices=plan.radices,
+        scales=stage_scales(plan.radices, plan.scaling, forward),
+        sign=dft.FORWARD if forward else dft.INVERSE,
+        algorithm=plan.precision.dot_algorithm,
+        grouped=plan.grouped, state_dtype=plan.state_dtype,
+        complex_mult=plan.complex_mult, engine=plan.engine,
+        first_dot=plan.first_dot,
+    )
 
 
 def _batch_major_ok(plan: FFTPlan, b: int) -> bool:
@@ -315,6 +325,37 @@ def _relayout(re, im, ax, storage):
     return out
 
 
+def _column_tile(re, im, ax, plan: FFTPlan) -> int:
+    """The lines a tile when the pass along ``ax`` lands its tiles straight
+    from the planes (``_columns``), else 0 (the pass takes ``_relayout``):
+    CUDA planes already in the plan's storage dtype, a FUSED plan on kernel
+    A (not K3), and ``fused_cuda.column_tile``'s rule on their shape,
+    strides and pointers (dense bf16 planes, 16-byte aligned, the pipelined
+    kernel's lines, its tile at least 8 lines and dividing the lines after
+    the axis)."""
+    storage = plan.precision.storage_dtype
+    if (re.device.type != "cuda" or re.dtype is not storage
+            or im.dtype is not storage
+            or plan.resolve_strategy() is not Strategy.FUSED
+            or _batch_major_ok(plan, re.numel() // re.shape[ax])):
+        return 0
+    return fused_cuda.column_tile(
+        re.shape, (re.stride(), im.stride()), ax, re.dtype,
+        (re.data_ptr(), im.data_ptr()), fused_cuda.multiprocessors(re.device),
+        radices=plan.radices, algorithm=plan.precision.dot_algorithm,
+        engine=plan.engine, grouped=plan.grouped,
+        complex_mult=plan.complex_mult, state_dtype=plan.state_dtype)
+
+
+@tracing.spanned("tfft.entry")
+def _columns(re, im, ax, plan: FFTPlan, forward: bool, tile: int):
+    """The pass along ``ax`` as kernel A's tiles landed straight from the
+    planes: both planes with the axis moved last and made contiguous, as
+    ``_relayout`` then ``_run`` give them, bit for bit, with no copy."""
+    return fused_cuda.fused_fft_columns(re, im, ax, tile=tile,
+                                        **_fused_kwargs(plan, forward))
+
+
 def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
     axes_norm = tuple(a % re.ndim for a in axes)
     last_two = {re.ndim - 2, re.ndim - 1}
@@ -339,8 +380,12 @@ def _fftn_split(re, im, axes, plans, forward, plan_kwargs):
         plan = plans.get(n) if isinstance(plans, dict) else None
         plan = _nd_plan(n, kw) if plan is None else _ensure_plan(n, plan)
         nd_counts["axis_passes"] += 1
-        re_m, im_m = _relayout(re, im, ax, plan.precision.storage_dtype)
-        re_m, im_m = _run(re_m, im_m, plan, forward, {})
+        tile = _column_tile(re, im, ax, plan)
+        if tile:
+            re_m, im_m = _columns(re, im, ax, plan, forward, tile)
+        else:
+            re_m, im_m = _relayout(re, im, ax, plan.precision.storage_dtype)
+            re_m, im_m = _run(re_m, im_m, plan, forward, {})
         re = torch.movedim(re_m, -1, ax)
         im = torch.movedim(im_m, -1, ax)
     return re, im

@@ -40,6 +40,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "tfft_fused_fft": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
                        _P, _P],
+    "tfft_fused_fft_cols": [_P, _P, _P, _P, _I, _I, _L, _I, _L, _I, _I, _P,
+                            _P, _P, _P],
     "tfft_four_step_col": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,
                            _P, _P, _P, _I, _P],
     "tfft_four_step_row": [_P, _P, _P, _P, _I, _I, _L, _I, _I, _I, _I, _P, _P,

@@ -79,6 +79,8 @@ __all__ = [
     "plain_pass",
     "fused_fft",
     "fused_fft_reference",
+    "fused_fft_columns",
+    "column_tile",
     "kernel_tables",
     "mma_route",
     "cluster_owner",
@@ -113,6 +115,10 @@ MAX_CTA_ELEMS = 16384
 # and tiles of 8192 elements beat 16384 below n = 2048 (PERF.md §6).
 TILE_MIN_N = 128
 TILE_FULL_N = 2048
+# The fewest lines a tile of the strided landing (fused_fft_columns) takes:
+# each line's run of T bf16 elements is then whole 16-byte chunks, which a
+# tensor copy lands and the operand copy moves.
+COLUMN_MIN_TILE = 8
 # CTAs of the largest thread-block cluster a pass may take (kMaxCluster).
 MAX_CLUSTER = H100.max_cluster
 
@@ -216,13 +222,16 @@ def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
 
 
 def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
-            cluster: int = 1, pipelined: bool = False, tile: int = 1) -> str:
+            cluster: int = 1, pipelined: bool = False, tile: int = 1,
+            columns: bool = False) -> str:
     """The launch counters' name for a pass: the engine (none for stacked),
     the numeric knobs in effect, ``pipelined`` for kernel A's persistent
     kernel (:func:`takes_pipeline`) and ``tile<T>`` where its tiles hold
-    T > 1 rows (:func:`pipeline_tile`), then ``mma`` for a pass on one CTA
-    (every kernel runs those on the tensor-core engine) or the CTAs of its
-    cluster, e.g. ``mma``, ``pipelined,mma``, ``pipelined,tile16,mma``,
+    T > 1 rows (:func:`pipeline_tile`), ``cols`` where they land straight
+    from strided planes (:func:`fused_fft_columns`), then ``mma`` for a
+    pass on one CTA (every kernel runs those on the tensor-core engine) or
+    the CTAs of its cluster, e.g. ``mma``, ``pipelined,mma``,
+    ``pipelined,tile16,mma``, ``pipelined,tile16,cols,mma``,
     ``grouped,mult3,mma``, ``pretwiddle,mma`` or ``bf16_state,cluster2``."""
     tags = [] if engine == "stacked" else [engine]
     if any(st.kind == "grouped" for st in stages):
@@ -235,6 +244,8 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
         tags.append("pipelined")
         if tile > 1:
             tags.append(f"tile{tile}")
+        if columns:
+            tags.append("cols")
     tags.append(f"cluster{cluster}" if cluster > 1 else "mma")
     return ",".join(tags)
 
@@ -281,6 +292,49 @@ def pipeline_tile(n: int, batch: int, sms: int) -> int:
     while t > 1 and -(-batch // (t // 2)) <= sms:
         t //= 2
     return t
+
+
+def _dense(shape, strides) -> bool:
+    """Whether ``strides`` (in elements) lay ``shape`` out row-major with no
+    gaps, as ``Tensor.is_contiguous`` says (an axis of length 1 takes any
+    stride)."""
+    expect = 1
+    for size, stride in zip(reversed(shape), reversed(strides)):
+        if size != 1 and stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def column_tile(shape, strides, axis: int, dtype, pointers, sms: int, *,
+                radices, algorithm: str, engine: str = "stacked",
+                grouped: bool = False, complex_mult: str = "block",
+                state_dtype: str = "float32") -> int:
+    """The lines a tile of a kernel A pass along ``axis`` of planes of
+    ``shape`` (the same for both planes; ``strides``, one tuple a plane, in
+    elements; ``pointers``, one a plane) when its tiles land straight from
+    the strided planes (:func:`fused_fft_columns`), or 0 where the pass
+    takes the relayout.  The planes, seen as (outer, n, inner), must be
+    dense (``_dense``) with a later axis (inner > 1); the pass must run the
+    pipelined kernel (:func:`takes_pipeline` on the outer * inner lines,
+    with the same ``dtype`` and pointers); and the rule's T
+    (:func:`pipeline_tile`) must be at least COLUMN_MIN_TILE and divide
+    inner.  Then it is that T."""
+    shape = tuple(int(s) for s in shape)
+    axis %= len(shape)
+    n, inner = shape[axis], math.prod(shape[axis + 1:])
+    if (inner <= 1 or not all(_dense(shape, st) for st in strides)
+            or not TILE_MIN_N <= n <= MAX_CTA_ELEMS):
+        return 0
+    lines = math.prod(shape) // n
+    stages = pass_stages(tuple(radices), engine, grouped, complex_mult,
+                         state_dtype)
+    if not takes_pipeline(dtype=dtype, algorithm=algorithm, engine=engine,
+                          stages=stages, state_dtype=state_dtype, cluster=1,
+                          batch=lines, n=n, pointers=pointers, sms=sms):
+        return 0
+    t = pipeline_tile(n, lines, sms)
+    return t if t >= COLUMN_MIN_TILE and inner % t == 0 else 0
 
 
 def multiprocessors(device) -> int:
@@ -940,4 +994,102 @@ def fused_fft(
                          algorithm=algorithm, **knobs)
 
 
+def _launch_columns(re, im, axis, *, radices, scales, sign, algorithm,
+                    first_dot, engine, grouped, complex_mult, state_dtype,
+                    tile=None):
+    """Launch the pipelined kernel's strided landing on CUDA planes along
+    ``axis``, on tiles of ``tile`` lines (default: :func:`column_tile`'s;
+    ``ValueError`` where that is 0), counted in ``fused_fft_columns``'s
+    counters; returns the (outer * inner, n) rows.  The C launcher refuses
+    a tile its kernel cannot take."""
+    shape = tuple(re.shape)
+    axis %= len(shape)
+    n, inner = shape[axis], math.prod(shape[axis + 1:])
+    outer = math.prod(shape[:axis])
+    sms = multiprocessors(re.device)
+    knobs = dict(radices=radices, algorithm=algorithm, engine=engine,
+                 grouped=grouped, complex_mult=complex_mult,
+                 state_dtype=state_dtype)
+    if tile is None:
+        tile = column_tile(shape, (re.stride(), im.stride()), axis, re.dtype,
+                           (re.data_ptr(), im.data_ptr()), sms, **knobs)
+        if not tile:
+            raise ValueError(
+                f"fused_fft_columns: the pass along axis {axis} of "
+                f"{shape} {re.dtype} planes cannot land from them "
+                f"(fused_cuda.column_tile)")
+    stages = pass_stages(radices, engine, grouped, complex_mult, state_dtype)
+    tables, meta, mats = mma_tables(
+        radices, tuple(float(s) for s in scales), int(sign), algorithm,
+        first_dot, re.device, engine, grouped, complex_mult, state_dtype,
+        engine not in PLANAR_ENGINES)
+    out_re = torch.empty(outer * inner, n, dtype=re.dtype, device=re.device)
+    out_im = torch.empty_like(out_re)
+    launch("tfft_fused_fft_cols", (re, im, out_re, out_im),
+           policy_codes(re, algorithm), outer, n, inner, sms, tile,
+           tables.data_ptr(), mats.data_ptr(), meta.ctypes.data)
+    count_launch(fused_fft_columns, variant(engine, stages, state_dtype, 1,
+                                            True, tile, columns=True))
+    return out_re, out_im
+
+
+def fused_fft_columns(
+    re: torch.Tensor,
+    im: torch.Tensor,
+    axis: int,
+    *,
+    radices: Tuple[int, ...],
+    scales: Tuple[float, ...],
+    sign: int = dft.FORWARD,
+    algorithm: str = "bf16",
+    first_dot: str = "default",
+    grouped: bool = False,
+    state_dtype: str = "float32",
+    complex_mult: str = "block",
+    engine: str = "stacked",
+    tile=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel A along ``axis`` of planes in which that axis is not last,
+    with the axis moved last in the output: contiguous planes of
+    ``torch.movedim(re, axis, -1)``'s shape, equal bit for bit to
+    :func:`fused_fft` on ``movedim(re, axis, -1).contiguous()`` as (B, N)
+    rows, with no such copy on the card.
+
+    CPU tensors run that: the move, the copy and
+    :func:`fused_fft_reference`.  CUDA tensors, where :func:`column_tile`
+    gives a tile, launch the pipelined kernel whose tiles of T lines land
+    straight from the strided planes (``csrc/fused_fft_pipe.cu``,
+    ``fused_fft_pipe_cols_kernel``), counted in
+    ``fused_fft_columns.launches`` and, per :func:`variant` (e.g.
+    ``pipelined,tile16,cols,mma``), ``fused_fft_columns.variant_launches``;
+    elsewhere ``ValueError``.  ``tile`` forces the lines a tile on the card
+    (``chip_smoke.py``); the C launcher refuses one its kernel cannot take.
+    """
+    if (re.shape != im.shape or re.dtype != im.dtype
+            or re.device != im.device):
+        raise ValueError(
+            f"fused_fft_columns: re {tuple(re.shape)} {re.dtype} on "
+            f"{re.device} and im {tuple(im.shape)} {im.dtype} on {im.device} "
+            f"differ")
+    axis %= re.ndim
+    n = re.shape[axis]
+    radices = tuple(int(r) for r in radices)
+    if math.prod(radices) != n:
+        raise ValueError(f"radices {radices} do not multiply to N={n}")
+    moved = torch.movedim(re, axis, -1).shape
+    knobs = dict(radices=radices, scales=scales, sign=sign,
+                 algorithm=algorithm, first_dot=first_dot, engine=engine,
+                 grouped=grouped, complex_mult=complex_mult,
+                 state_dtype=state_dtype)
+    if re.device.type == "cpu":
+        rows = [torch.movedim(p, axis, -1).contiguous().reshape(-1, n)
+                for p in (re, im)]
+        out = fused_fft_reference(*rows, **knobs)
+    else:
+        check_kernel_operands(re, im, algorithm, "fused_fft_columns")
+        out = _launch_columns(re, im, axis, tile=tile, **knobs)
+    return tuple(p.reshape(moved) for p in out)
+
+
 reset_launches(fused_fft)
+reset_launches(fused_fft_columns)

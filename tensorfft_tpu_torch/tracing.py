@@ -38,9 +38,12 @@ torch's ``cpu_op`` events and the CUDA runtime's launch events:
     the 2D branch: the trailing two axes as K4 (``fft2_col`` then
     ``fft2_row``), with its casts and reshapes;
 ``tfft.nd.relayout``
-    each pass of the per-axis loop: the move of its axis last, the cast and
-    the copy that makes the planes contiguous.  The pass's ``tfft.entry``
-    follows it and copies nothing.
+    each pass of the per-axis loop that copies: the move of its axis last,
+    the cast and the copy that makes the planes contiguous.  The pass's
+    ``tfft.entry`` follows it and copies nothing.  A pass whose tiles land
+    straight from the strided planes (``fused_cuda.fused_fft_columns``,
+    launcher ``fused_fft_cols``) has no such span: its ``tfft.entry`` holds
+    the launch.
 
 A call's spans nest on one thread; the ``tfft.entry`` span that holds a
 span is the call it belongs to.  The spans are made only while a profiler
@@ -66,6 +69,7 @@ _profiler_enabled = torch.autograd._profiler_enabled
 # C launcher (its ``tfft_`` prefix dropped) -> (ops module, counted wrapper).
 _LAUNCHERS = {
     "fused_fft": ("fused_cuda", "fused_fft"),
+    "fused_fft_cols": ("fused_cuda", "fused_fft_columns"),
     "fused_batch_major": ("four_step_cuda", "fused_fft_batch_major"),
     "four_step_col": ("four_step_cuda", "column_pass"),
     "four_step_row": ("four_step_cuda", "row_pass"),
@@ -125,7 +129,9 @@ def counters() -> dict:
         the same launches per variant, for the launchers whose wrapper
         counts them (``variant_launches``: the engine, knobs and kernel in
         effect, e.g. ``fused_fft``'s ``pipelined,tile16,mma`` for kernel A's
-        pipelined kernel on tiles of 16 rows, ``ops/fused_cuda.py:variant``);
+        pipelined kernel on tiles of 16 rows, ``fused_fft_cols``'s
+        ``pipelined,tile16,cols,mma`` for its tiles landed from strided
+        planes, ``ops/fused_cuda.py:variant``);
     ``table_builds``
         builds per cached table builder (``cache_info().misses``).  After
         the first call of each plan this stays put; a count that keeps
@@ -134,9 +140,9 @@ def counters() -> dict:
         the host and copy them to the device again;
     ``nd``
         the N-D dispatch (``fft.nd_counts``): ``fft2_branch``, calls of the
-        2D branch; ``axis_passes``, passes of the per-axis loop;
-        ``relayout_bytes``, bytes the relayout wrote, both planes (it reads
-        as many).
+        2D branch; ``axis_passes``, passes of the per-axis loop (those
+        that land from the strided planes too); ``relayout_bytes``, bytes
+        the relayout wrote, both planes (it reads as many).
     """
     from tensorfft_tpu_torch.fft import nd_counts
     from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, rfft_cuda

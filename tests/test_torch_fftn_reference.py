@@ -190,6 +190,30 @@ def test_nd_counters_count_no_copy_on_the_last_axis():
         "fft2_branch": 0, "axis_passes": 1, "relayout_bytes": 0}
 
 
+def test_cpu_planes_keep_the_relayout(monkeypatch):
+    """A pass that would land from the strided planes on the card (128
+    points along axis 0 of dense bf16 planes, 4096 lines: tiles of 32) runs
+    the relayout on CPU planes, with the same bits as before."""
+    from tensorfft_tpu_torch.ops import fused_cuda
+
+    monkeypatch.setattr(fused_cuda, "multiprocessors", lambda device: 132)
+    re, im = _planes((128, 64, 64), torch.bfloat16, seed=13)
+    plan = tt.create_plan(128)
+    assert fused_cuda.column_tile(
+        re.shape, (re.stride(), im.stride()), 0, re.dtype, (0, 16), 132,
+        radices=plan.radices, algorithm=plan.precision.dot_algorithm) == 32
+    assert fft_module._column_tile(re, im, 0, plan) == 0
+    before, launched = _counts(), fused_cuda.fused_fft_columns.launches
+    got = tt.fftn_split(re, im, axes=(0,), plans={128: plan})
+    after = _counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "fft2_branch": 0, "axis_passes": 1, "relayout_bytes": 2 * 2 * 128 * 64 * 64}
+    assert fused_cuda.fused_fft_columns.launches == launched
+    want = _old_per_axis(re, im, (0,), True, "bfloat16")
+    assert all(torch.equal(g, w) and g.stride() == w.stride()
+               for g, w in zip(got, want))
+
+
 @pytest.fixture
 def record_function_calls(monkeypatch):
     made = []

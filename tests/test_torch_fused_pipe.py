@@ -5,7 +5,10 @@ step, T = 1 (a row a step) included.
 On the CPU: the rules that pick it and its T (``fused_cuda.takes_pipeline``,
 ``fused_cuda.pipeline_tile``), its counter names, and what
 ``_launch_fused`` hands the C launcher, with the launch recorded and the
-card's SM count passed in.
+card's SM count passed in; for the strided landing of an N-D pass
+(``fused_cuda.fused_fft_columns``, ``fused_fft_pipe_cols_kernel``), the
+rule (``fused_cuda.column_tile``), what ``_launch_columns`` hands its C
+launcher, and the CPU version.
 
 On the card (``-m gpu``; every such test skips without a CUDA device, decided
 in the ``cuda`` fixture): its outputs, at T = 1 and at every T the rule
@@ -13,21 +16,28 @@ picks, equal ``fused_fft_tc_kernel``'s bit for bit, the reference running
 the same rows in chunks of at most SMs rows,
 each of which takes one CTA a row, or one CTA a row forced; a view off a
 16-byte boundary takes one CTA a row; the counter names the pipelined launch
-and its tile exactly when the rules hold.
+and its tile exactly when the rules hold.  An N-D pass that the rule lands
+from the strided planes equals the relayout's pass bit for bit, with the
+same strides, and copies nothing; every other pass takes the relayout.
 
     python -m pytest -m gpu tests/test_torch_fused_pipe.py
 """
 import collections
+import importlib
+import math
 
 import numpy as np
 import pytest
 import torch
 
 import tensorfft_tpu_torch as tt
+from tensorfft_tpu_torch import tracing
 from tensorfft_tpu_torch.fft import stage_scales
 from tensorfft_tpu_torch.ops import fused_cuda
 
 torch.set_num_threads(1)
+
+fft_module = importlib.import_module("tensorfft_tpu_torch.fft")
 
 SMS = 132  # the H100's SMs; the rule takes the count as an argument
 
@@ -416,3 +426,307 @@ def test_offset_rows_take_one_cta_a_row_not_a_tile(cuda):
         lambda: fused_cuda.fused_fft(re.clone(), im.clone(), **kw))
     assert launched == {"pipelined,tile16,mma": 1}
     _bitwise(got, want)
+
+
+# -- the strided landing (fused_fft_columns) ------------------------------------
+
+def _dense_strides(shape):
+    out, step = [], 1
+    for size in reversed(shape):
+        out.append(step)
+        step *= size
+    return tuple(reversed(out))
+
+
+def _column_rule(shape, axis, *, dtype=torch.bfloat16, strides=None,
+                 pointers=(1 << 20, 3 << 20), sms=SMS, **knobs):
+    n = shape[axis]
+    radices = tt.create_plan(n).radices if n & (n - 1) == 0 else (n,)
+    kw = dict(radices=radices, algorithm="bf16ax2")
+    kw.update(knobs)
+    strides = strides or _dense_strides(shape)
+    return fused_cuda.column_tile(shape, (strides, strides), axis, dtype,
+                                  pointers, sms, **kw)
+
+
+@pytest.mark.parametrize("shape,axis,want", [
+    ((512, 512, 512), 0, 16),       # the 512^3 grid's axis 0
+    ((1, 512, 512, 512), 1, 16),    # the benchmark's (rows, *grid) view
+    ((3, 512, 64, 64), 1, 16),      # outer > 1
+    ((128, 4096), 0, 32), ((1024, 64, 64), 0, 8), ((2048, 4096), 0, 8),
+    ((256, 8, 4096), 0, 32),
+    ((4096, 4096), 0, 0),           # T = 4: runs of 8 bytes
+    ((8192, 256), 0, 0),            # T = 2
+    ((16384, 1024), 0, 0),          # T = 1
+    ((512, 4100), 0, 0),            # T = 16 does not divide 4100
+    ((512, 4104), 0, 0),            # nor 4104 (8 does, but the rule says 16)
+    ((512, 64), 0, 0),              # 64 lines: no more than SMs
+    ((1000, 4096), 0, 0),           # not a power of two
+    ((64, 4096), 0, 0),             # below TILE_MIN_N
+    ((4096, 512), 1, 0), ((4096, 512), -1, 0),  # the last axis: nothing to land
+    ((2, 2, 512), 2, 0),
+], ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_column_tile_rule(shape, axis, want):
+    assert _column_rule(shape, axis) == want
+    if want:
+        n = shape[axis]
+        assert want == fused_cuda.pipeline_tile(n, math.prod(shape) // n, SMS)
+
+
+def test_column_tile_follows_the_sms():
+    # 1024 lines of 512: on 132 SMs tiles of 8 (128 tiles of 16 would leave
+    # SMs idle), on 114 SMs tiles of 16 (64 tiles of 8 would).
+    assert _column_rule((512, 1024), 0, sms=SMS) == 8
+    assert _column_rule((512, 1024), 0, sms=114) == 16
+    assert _column_rule((512, 1024), 0, sms=1024) == 0
+
+
+@pytest.mark.parametrize("case", ["float32", "gap", "transposed", "offset_re",
+                                  "offset_im", "planar", "bf16_state",
+                                  "grouped", "bf16x3"])
+def test_column_tile_refuses(case):
+    shape = (512, 4096)
+    assert _column_rule(shape, 0) == 16
+    kw = {"float32": dict(dtype=torch.float32),
+          "gap": dict(strides=(8192, 1)),
+          "transposed": dict(strides=(1, 512)),
+          "offset_re": dict(pointers=((1 << 20) + 2, 3 << 20)),
+          "offset_im": dict(pointers=(1 << 20, (3 << 20) + 8)),
+          "planar": dict(engine="planar"),
+          "bf16_state": dict(state_dtype="bfloat16"),
+          "grouped": dict(grouped=True, radices=(16, 32)),
+          "bf16x3": dict(algorithm="bf16x3")}[case]
+    assert _column_rule(shape, 0, **kw) == 0
+
+
+def test_column_tile_reads_each_plane():
+    # One plane laid out otherwise than the other refuses the landing.
+    shape = (512, 4096)
+    plan = tt.create_plan(512)
+    dense = _dense_strides(shape)
+    for strides in ((dense, (8192, 1)), ((8192, 1), dense)):
+        assert fused_cuda.column_tile(
+            shape, strides, 0, torch.bfloat16, (0, 16), SMS,
+            radices=plan.radices, algorithm="bf16") == 0
+
+
+def test_dense_matches_is_contiguous():
+    x = torch.zeros(4, 1, 6, 8)
+    for view in (x, x[:, :, ::2], x.transpose(2, 3), x[:, :, :, :4],
+                 x.expand(4, 3, 6, 8), x[1:2], x.view(4, 6, 8)[:, :1]):
+        assert fused_cuda._dense(view.shape, view.stride()) == view.is_contiguous()
+
+
+def _column_kwargs(n, forward=True):
+    plan = tt.create_plan(n)
+    return dict(radices=plan.radices, sign=-1 if forward else 1,
+                scales=stage_scales(plan.radices, "forward", forward),
+                algorithm=plan.precision.dot_algorithm, first_dot=plan.first_dot,
+                engine="stacked", grouped=False, complex_mult="block",
+                state_dtype="float32")
+
+
+@pytest.fixture
+def recorded_planes(monkeypatch):
+    """Record the C launch with its planes' pointers, and give CPU tensors
+    the card's SM count."""
+    calls = []
+    monkeypatch.setattr(fused_cuda, "launch",
+                        lambda symbol, tensors, codes, *args: calls.append(
+                            (symbol, [t.data_ptr() for t in tensors],
+                             [tuple(t.shape) for t in tensors], codes, args)))
+    monkeypatch.setattr(fused_cuda, "multiprocessors", lambda device: SMS)
+    return calls
+
+
+@pytest.mark.parametrize("shape,axis,tile", [((3, 512, 64, 64), 1, 16),
+                                             ((512, 512, 64), 0, 16),
+                                             ((128, 4096), 0, 32),
+                                             ((2, 1024, 64, 16), 1, 8)])
+def test_launch_columns_passes_the_landing(recorded_planes, shape, axis, tile):
+    re = torch.zeros(shape, dtype=torch.bfloat16)
+    im = torch.zeros(shape, dtype=torch.bfloat16)
+    n = shape[axis]
+    outer, inner = math.prod(shape[:axis]), math.prod(shape[axis + 1:])
+    before = collections.Counter(fused_cuda.fused_fft_columns.variant_launches)
+    before_rows = fused_cuda.fused_fft.launches
+    out_re, out_im = fused_cuda._launch_columns(re, im, axis, **_column_kwargs(n))
+    (symbol, pointers, shapes, codes, args), = recorded_planes
+    assert symbol == "tfft_fused_fft_cols" and codes == (0, 1)
+    assert pointers == [re.data_ptr(), im.data_ptr(), out_re.data_ptr(),
+                        out_im.data_ptr()]
+    # The planes as given; the output as (outer * inner, n) rows.
+    assert shapes == [shape, shape, (outer * inner, n), (outer * inner, n)]
+    # outer, n, inner: the tensor map's dimensions (innermost first: inner,
+    # n, outer), the card's SMs, then the lines a tile, then the tables,
+    # the bf16 matrices and the meta.
+    assert args[:5] == (outer, n, inner, SMS, tile)
+    assert len(args) == 8
+    assert len(pointers) + len(codes) + len(args) + 1 == len(
+        fused_cuda._build._SIGNATURES[symbol])
+    launched = (collections.Counter(fused_cuda.fused_fft_columns.variant_launches)
+                - before)
+    assert launched == {f"pipelined,tile{tile},cols,mma": 1}
+    assert fused_cuda.fused_fft.launches == before_rows
+
+
+def test_launch_columns_refuses_what_the_rule_refuses(recorded_planes):
+    re = torch.zeros(512, 4100, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="column_tile"):
+        fused_cuda._launch_columns(re, re.clone(), 0, **_column_kwargs(512))
+    assert recorded_planes == []
+
+
+@pytest.mark.parametrize("tile", [8, 32])
+def test_launch_columns_passes_a_forced_tile(recorded_planes, tile):
+    re = torch.zeros(512, 4096, dtype=torch.bfloat16)
+    fused_cuda._launch_columns(re, re.clone(), 0, tile=tile, **_column_kwargs(512))
+    (_, _, _, _, args), = recorded_planes
+    assert args[:5] == (1, 512, 4096, SMS, tile)
+
+
+def test_column_variant_names():
+    stages = _stages({})
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 16,
+                              columns=True) == "pipelined,tile16,cols,mma"
+    assert fused_cuda.variant("pretwiddle", stages, "float32", 1, True, 32,
+                              columns=True) == "pretwiddle,pipelined,tile32,cols,mma"
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("shape,axis", [((128, 6, 4), 0), ((2, 256, 3, 8), 1),
+                                        ((4, 128, 16), -2)])
+def test_columns_on_the_cpu_are_the_moved_rows(shape, axis, forward):
+    # CPU planes: the move, the copy and the plain kernel A, in the moved
+    # shape, contiguous.
+    rng = np.random.default_rng(sum(shape) + forward)
+    re, im = (torch.from_numpy(p).to(torch.bfloat16)
+              for p in rng.standard_normal((2, *shape), dtype=np.float32))
+    n = shape[axis]
+    kw = _column_kwargs(n, forward)
+    before = fused_cuda.fused_fft_columns.launches
+    got = fused_cuda.fused_fft_columns(re, im, axis, **kw)
+    rows = [torch.movedim(p, axis, -1).contiguous() for p in (re, im)]
+    want = fused_cuda.fused_fft(rows[0].reshape(-1, n), rows[1].reshape(-1, n), **kw)
+    for g, w, r in zip(got, want, rows):
+        assert g.shape == r.shape and g.is_contiguous()
+        assert torch.equal(g.reshape(-1, n), w)
+    assert fused_cuda.fused_fft_columns.launches == before
+
+
+def test_columns_check_their_planes():
+    re = torch.zeros(128, 8, dtype=torch.bfloat16)
+    kw = _column_kwargs(128)
+    with pytest.raises(ValueError, match="differ"):
+        fused_cuda.fused_fft_columns(re, torch.zeros(128, 4, dtype=torch.bfloat16),
+                                     0, **kw)
+    with pytest.raises(ValueError, match="multiply"):
+        fused_cuda.fused_fft_columns(re, re, 0, **_column_kwargs(256))
+
+
+# -- the strided landing on the card --------------------------------------------
+
+def _nd_counts():
+    return dict(tracing.counters()["nd"])
+
+
+def _grid_planes(shape, device, seed, dtype=torch.bfloat16):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for _ in range(2)]
+
+
+def _relayout_pass(re, im, axis, plan, forward):
+    """The pass as the relayout runs it: the axis moved last, copied to
+    contiguous (B, N) rows, kernel A, and the axis moved back."""
+    rows = [torch.movedim(p, axis, -1).to(plan.precision.storage_dtype).contiguous()
+            for p in (re, im)]
+    out = (tt.fft_split if forward else tt.ifft_split)(*rows, plan)
+    return [torch.movedim(p, -1, axis) for p in out]
+
+
+def _pass_counted(call):
+    """(output, nd counter deltas, kernel A's variant launches, the strided
+    landing's variant launches)."""
+    nd = _nd_counts()
+    rows = collections.Counter(fused_cuda.fused_fft.variant_launches)
+    cols = collections.Counter(fused_cuda.fused_fft_columns.variant_launches)
+    out = call()
+    torch.cuda.synchronize()
+    after = _nd_counts()
+    return (out, {k: after[k] - nd[k] for k in after},
+            dict(collections.Counter(fused_cuda.fused_fft.variant_launches) - rows),
+            dict(collections.Counter(fused_cuda.fused_fft_columns.variant_launches)
+                 - cols))
+
+
+def _same_bits_and_strides(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.stride() == w.stride()
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("shape,axis,tile", [
+    ((512, 512, 512), 0, 16),        # the 512^3 grid's axis 0
+    ((3, 512, 64, 64), 1, 16),       # outer > 1
+    ((128, 64, 64), 0, 32),
+    ((1024, 64, 64), 0, 8),
+    ((2048, 32, 64), 0, 8),
+], ids=["grid512", "outer3", "n128", "n1024", "n2048"])
+def test_columns_equal_the_relayout(cuda, shape, axis, tile, forward):
+    re, im = _grid_planes(shape, cuda, seed=sum(shape) + forward)
+    n = shape[axis]
+    plan = tt.create_plan(n)
+    call = tt.fftn_split if forward else tt.ifftn_split
+    got, nd, rows, cols = _pass_counted(
+        lambda: call(re, im, axes=(axis,), plans={n: plan}))
+    assert nd == {"fft2_branch": 0, "axis_passes": 1, "relayout_bytes": 0}
+    assert rows == {} and cols == {f"pipelined,tile{tile},cols,mma": 1}
+    want, nd, rows, cols = _pass_counted(
+        lambda: _relayout_pass(re, im, axis, plan, forward))
+    assert rows == {f"pipelined,tile{tile},mma": 1} and cols == {}
+    _same_bits_and_strides(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["inner_undivided", "float32_input",
+                                  "non_contiguous", "offset", "n4096_tile4"])
+def test_columns_fall_back_to_the_relayout(cuda, case):
+    n = 4096 if case == "n4096_tile4" else 512
+    inner = 4100 if case == "inner_undivided" else 4096
+    dtype = torch.float32 if case == "float32_input" else torch.bfloat16
+    if case == "non_contiguous":
+        re, im = (p[:, ::2] for p in _grid_planes((n, 2 * inner), cuda, seed=3))
+    elif case == "offset":
+        flat = _grid_planes((n * inner + 1,), cuda, seed=4)
+        re, im = (p[1:].view(n, inner) for p in flat)
+        assert re.data_ptr() % 16 and im.data_ptr() % 16
+    else:
+        re, im = _grid_planes((n, inner), cuda, seed=5, dtype=dtype)
+    plan = tt.create_plan(n)
+    got, nd, rows, cols = _pass_counted(
+        lambda: tt.fftn_split(re, im, axes=(0,), plans={n: plan}))
+    assert nd == {"fft2_branch": 0, "axis_passes": 1,
+                  "relayout_bytes": 2 * 2 * n * inner}
+    assert cols == {} and sum(rows.values()) == 1
+    want, _, _, _ = _pass_counted(lambda: _relayout_pass(re, im, 0, plan, True))
+    _same_bits_and_strides(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+def test_grid_call_lands_axis_0_from_the_grid(cuda, forward):
+    # The benchmark's call: fftn_split over the last three axes of a
+    # (1, 512, 512, 512) view: K4 on the trailing two, then axis 1 lands
+    # from K4's output with no copy, the parent's bits and strides.
+    shape = (1, 512, 512, 512)
+    re, im = _grid_planes(shape, cuda, seed=17 + forward)
+    call = tt.fftn_split if forward else tt.ifftn_split
+    got, nd, rows, cols = _pass_counted(lambda: call(re, im, axes=(-3, -2, -1)))
+    assert nd == {"fft2_branch": 1, "axis_passes": 1, "relayout_bytes": 0}
+    assert rows == {} and cols == {"pipelined,tile16,cols,mma": 1}
+    mid = call(re, im, axes=(-2, -1))
+    plan = fft_module._nd_plan(512, {"tuning": "auto"})
+    _same_bits_and_strides(got, _relayout_pass(*mid, 1, plan, forward))
