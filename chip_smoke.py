@@ -150,10 +150,13 @@ same bits, on tiles of T consecutive rows a step: T = 1 at N = 16384
 path's 4096 x 4096 and 4096 x 256, the any path's 2048-point rows); an N-D
 pass whose planes allow it lands the tiles straight from the strided planes
 (``fused_fft_cols[pipelined,tile<T>,cols,mma]``, ``fused_cuda.column_tile``:
-the 512^3 grid's axis 0); step 5 times kernel A at N=16384 x 4096 on both
+the 512^3 grid's axis 0); the Poisson path solves the 512^3 volume and
+must launch K7, kernel A on the 256-point half-length rows, K9, the landed
+and the relayout's axis passes, the spectral scale, K10 and K8; step 5 times kernel A at N=16384 x 4096 on both
 paths, in turns, and the pipelined kernel's tiles at TILE_SHAPES against one
 CTA a row, a row a step and (at the grid's rows) K3, the relayout with the
-rule's tiles and the strided landing at T = 16 and 32.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+rule's tiles and the strided landing at T = 16 and 32, then the scale and
+kernel A on the solve's half spectrum and half-length rows.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
 kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
 adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
 engine on a thread-block cluster,
@@ -337,6 +340,10 @@ KERNELS = {
     "fused_fft_batch_major[planar_vpu,mma]": (
         "tensorfft_tpu_torch/csrc/fused_batch_major.cu",
         "tensorfft_tpu/ops/four_step_pallas.py:768"),
+    # The Poisson solve's spectral scale: no pallas_call (the JAX package
+    # multiplies by full 3-D tables of 1/lambda in XLA).
+    "poisson_scale": ("tensorfft_tpu_torch/csrc/spectral.cu",
+                      "tensorfft_tpu/models/poisson.py:62 (XLA, no kernel)"),
 }
 # The tpu_tuned path's variants: the stacked engine under the numeric knobs
 # (grouped, mult3, bf16 state), the pretwiddle and gridslice engines, and
@@ -699,8 +706,9 @@ def main() -> int:
     import tensorfft_tpu_torch as tt
     from tensorfft_tpu_torch import bluestein
     from tensorfft_tpu_torch.fft import four_step_call_kwargs, stage_scales
+    from tensorfft_tpu_torch.models import poisson, poisson_solve_3d
     from tensorfft_tpu_torch.ops import (_build, four_step_cuda, fused_cuda,
-                                         rfft_cuda)
+                                         rfft_cuda, spectral_cuda)
     from tensorfft_tpu_torch.rfft import _inverse_pre_scale, _output_scale
     from tensorfft_tpu_torch.testing import (agreement, deviation, fft_oracle,
                                              get_random_weights,
@@ -790,6 +798,7 @@ def main() -> int:
         "fft2_col": four_step_cuda.fft2_column_pass,
         "fft2_row": four_step_cuda.fft2_row_pass,
         "fused_fft_batch_major": four_step_cuda.fused_fft_batch_major,
+        "poisson_scale": spectral_cuda.poisson_scale,
     }
     launches_by_path = {}
 
@@ -900,6 +909,20 @@ def main() -> int:
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
     finite("fftn_split 3-D", vol_spec, ND_VOLUME, torch.bfloat16)
     del vol_spec
+
+    # The Poisson solve of the volume's real plane: K7 and kernel A on the
+    # half-length rows, K9, the half spectrum's two axes (one landed from
+    # the strided planes, one through the relayout), the scale, and back
+    # through K10 and K8.
+    nx, ny, nz = ND_VOLUME
+    vol_u = counted(
+        "poisson", ("pack_split", kernel_a(nz // 2, nx * ny), "untangle_fwd",
+                    "fused_fft_cols[pipelined,tile16,cols,mma]",
+                    kernel_a(nx, ny * (nz // 2 + 1)), "poisson_scale", "retangle_inv",
+                    "interleave_split"),
+        lambda: poisson_solve_3d(volume[0], precision="bfloat16"))
+    finite("poisson_solve_3d", (vol_u,), ND_VOLUME, torch.float32)
+    del vol_u
 
     # -- 3. kernels against their plain versions ---------------------------
     log(f"[phase] kernels against plain versions from {time.perf_counter() - t_start:.1f} s")
@@ -1204,6 +1227,14 @@ def main() -> int:
     hold("fused_fft_cols[pipelined,tile16,cols,mma]", v_label, v_cols, v_plain,
          FUSED_MAX_FRAC)
     del mid, rows, v_plain, v_rows, v_cols
+    # The spectral scale on the half spectrum the Poisson solve of the
+    # volume's real plane gives it (y innermost, as the forward pass leaves
+    # it), bit for bit with its plain version.
+    p_tables = poisson.device_tables(ND_VOLUME, (1.0, 1.0, 1.0), True, dev)
+    p_half = tt.rfftn_split(volume[0], precision="bfloat16")
+    bitwise("poisson_scale", f"{'x'.join(map(str, ND_VOLUME))} half spectrum, strides "
+            f"{p_half[0].stride()}", spectral_cuda.poisson_scale(*p_half, *p_tables),
+            spectral_cuda.poisson_scale_reference(*p_half, *p_tables))
     torch.cuda.synchronize()
 
     # -- 4. reference gates and round trips --------------------------------
@@ -2471,6 +2502,39 @@ def main() -> int:
             f"{p_ms:.4f} ms | torch.fft "
             f"{'none' if l_ms is None else f'{l_ms:.4f} ms'} | bound "
             f"{b_ms:.4f} ms ({b_by}) | {b_ms / k_ms:.1%} of bound{extra} | {smi}")
+
+    # The spectral scale on the solve's half spectrum, and the whole solve
+    # beside torch.fft's real transforms of the same grid.
+    n_half = p_half[0].numel()
+    time_kernel("poisson_scale", f"{tuple(p_half[0].shape)} bf16, strides {p_half[0].stride()}",
+                lambda r, i: spectral_cuda.poisson_scale(r, i, *p_tables),
+                lambda r, i: spectral_cuda.poisson_scale_reference(r, i, *p_tables),
+                None, p_half, 8 * n_half, 6 * n_half)
+    # Kernel A on the solve's half-length rows (rfft_split's transform of
+    # 262,144 rows of 256 in the default plan), in the rule's tile.
+    n_h = nz // 2
+    plan_h = tt.create_plan(n_h)
+    kw_h = fused_kw(plan_h)
+    x_h = device_inputs(n_h, nx * ny, torch.bfloat16, SEED + 7)
+    elems = n_h * nx * ny
+    name_h, _ = named(lambda: fused_cuda.fused_fft(*x_h, **kw_h))
+    time_kernel(name_h, f"N={n_h} x B={nx * ny} bf16 (the solve's "
+                f"half-length rows)", lambda r, i: fused_cuda.fused_fft(r, i, **kw_h),
+                lambda r, i: fused_cuda.fused_fft_reference(r, i, **kw_h),
+                (lambda v: torch.fft.fft(v, dim=-1),
+                 (torch.complex(x_h[0].float(), x_h[1].float()),)), x_h,
+                4 * 2 * elems + table_bytes(plan_h, plan_h.radices, kw_h["scales"], -1,
+                                            mma=True),
+                pass_flops(plan_h, plan_h.radices, elems), record=False)
+    del x_h
+    t_solve = measure(lambda f: poisson_solve_3d(f, precision="bfloat16"), (volume[0],),
+                      iters=5)
+    f32 = volume[0].float()
+    t_tsolve = measure(lambda f: torch.fft.irfftn(torch.fft.rfftn(f)), (f32,), iters=5)
+    log(f"[time] poisson_solve_3d {'x'.join(map(str, ND_VOLUME))} bf16: "
+        f"{t_solve.average_time_ms:.4f} ms | torch.fft rfftn + irfftn float32 "
+        f"{t_tsolve.average_time_ms:.4f} ms | {smi}")
+    del p_half, f32
 
     for label, n_t, b_t, layout, want in TUNED_CALLS:
         plan, x = tuned_plans[label], tuned_in[label]

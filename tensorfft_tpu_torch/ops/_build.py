@@ -60,6 +60,8 @@ _SIGNATURES = {
     "tfft_interleave_split": [_P, _P, _P, _I, _L, _I, _P],
     "tfft_untangle_fwd": [_P, _P, _P, _P, _I, _L, _I, _P, _F, _P],
     "tfft_retangle_inv": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _F, _P],
+    "tfft_poisson_scale": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
+                           _L, _L, _L, _L, _L, _L, _I, _P],
 }
 
 

@@ -20,6 +20,10 @@ JAX package's ``epilogue`` knob, which chose between two bit-identical
 implementations for the TPU, has no counterpart.  ``rfftn_split`` and
 ``irfftn_split`` run R2C/C2R along the last axis and the N-D C2C transforms
 (``fft.fftn_split``) along the others.
+
+Each ``rfft_split`` / ``irfft_split`` call runs inside a ``tfft.r2c`` span
+while a profiler records; ``r2c_counts`` counts the calls and the bytes
+the path's own casts and copies wrote (``tracing.counters()["r2c"]``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tensorfft_tpu_torch import tracing
 from tensorfft_tpu_torch.fft import (
     _fft_split_core,
     _to_complex,
@@ -41,6 +46,18 @@ from tensorfft_tpu_torch.plan import FFTPlan, Strategy, create_plan
 
 __all__ = ["rfft_split", "irfft_split", "rfft", "irfft", "rfftn_split",
            "irfftn_split", "rfftn", "irfftn"]
+
+
+# What the R2C path has done since import (``tracing.counters()["r2c"]``).
+r2c_counts = {"calls": 0, "copy_bytes": 0}
+
+
+def _counted(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """``new``, its bytes counted in ``r2c_counts["copy_bytes"]`` when a cast
+    or a copy made it (it does not share ``old``'s buffer)."""
+    if new.untyped_storage().data_ptr() != old.untyped_storage().data_ptr():
+        r2c_counts["copy_bytes"] += new.numel() * new.element_size()
+    return new
 
 
 def _half_length_plan(m: int, plan: Optional[FFTPlan], plan_kwargs) -> FFTPlan:
@@ -83,6 +100,7 @@ def _inverse_pre_scale(plan: FFTPlan) -> float:
     raise ValueError(plan.scaling)
 
 
+@tracing.spanned("tfft.r2c")
 def rfft_split(x, plan: Optional[FFTPlan] = None, **plan_kwargs):
     """Forward R2C FFT of a real tensor along the last axis.
 
@@ -99,7 +117,8 @@ def rfft_split(x, plan: Optional[FFTPlan] = None, **plan_kwargs):
     storage = plan.precision.storage_dtype
     batch_shape = x.shape[:-1]
     b = int(np.prod(batch_shape)) if batch_shape else 1
-    x2 = x.reshape(b, n).to(storage).contiguous()
+    r2c_counts["calls"] += 1
+    x2 = _counted(x.reshape(b, n).to(storage).contiguous(), x)
     if _fused_pack_ok(plan):
         Z_re, Z_im = four_step_cuda.four_step_fft_packed_real(
             x2, **four_step_call_kwargs(plan, forward=True))
@@ -107,12 +126,14 @@ def rfft_split(x, plan: Optional[FFTPlan] = None, **plan_kwargs):
         z_re, z_im = rfft_cuda.pack_split(x2)
         Z_re, Z_im = _fft_split_core(z_re, z_im, plan, True)
     o_re, o_im = rfft_cuda.untangle_fwd(
-        Z_re.to(storage).contiguous(), Z_im.to(storage).contiguous(), n=n,
+        _counted(Z_re.to(storage).contiguous(), Z_re),
+        _counted(Z_im.to(storage).contiguous(), Z_im), n=n,
         scale=float(_output_scale(plan, forward=True)))
     return (o_re.reshape(*batch_shape, m + 1),
             o_im.reshape(*batch_shape, m + 1))
 
 
+@tracing.spanned("tfft.r2c")
 def irfft_split(re, im, plan: Optional[FFTPlan] = None, n: Optional[int] = None,
                 **plan_kwargs):
     """Inverse of :func:`rfft_split`: (..., N/2+1) spectrum -> (..., N) real
@@ -131,17 +152,19 @@ def irfft_split(re, im, plan: Optional[FFTPlan] = None, n: Optional[int] = None,
     storage = plan.precision.storage_dtype
     batch_shape = re.shape[:-1]
     b = int(np.prod(batch_shape)) if batch_shape else 1
+    r2c_counts["calls"] += 1
     z_re, z_im = rfft_cuda.retangle_inv(
-        re.reshape(b, m_plus).contiguous(), im.reshape(b, m_plus).contiguous(),
+        _counted(re.reshape(b, m_plus).contiguous(), re),
+        _counted(im.reshape(b, m_plus).contiguous(), im),
         n=n, scale=float(_inverse_pre_scale(plan)), out_dtype=storage)
     if _fused_pack_ok(plan):
         x = four_step_cuda.four_step_fft_to_real(
             z_re, z_im, **four_step_call_kwargs(plan, forward=False))
     else:
         o_re, o_im = _fft_split_core(z_re, z_im, plan, False)
-        x = rfft_cuda.interleave_split(o_re.to(storage).contiguous(),
-                                       o_im.to(storage).contiguous())
-    return x.reshape(*batch_shape, n).to(storage)
+        x = rfft_cuda.interleave_split(_counted(o_re.to(storage).contiguous(), o_re),
+                                       _counted(o_im.to(storage).contiguous(), o_im))
+    return _counted(x.reshape(*batch_shape, n).to(storage), x)
 
 
 def rfft(x, plan: Optional[FFTPlan] = None, *, device="cuda", **plan_kwargs):

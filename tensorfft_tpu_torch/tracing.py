@@ -45,6 +45,19 @@ torch's ``cpu_op`` events and the CUDA runtime's launch events:
     launcher ``fused_fft_cols``) has no such span: its ``tfft.entry`` holds
     the launch.
 
+``tfft.r2c``
+    one ``rfft_split`` / ``irfft_split`` call (also under ``rfftn_split``,
+    ``irfftn_split`` and the models): the pack or the retangle, the
+    half-length transform and the untangle or the interleave, with the
+    path's own casts and copies (``irfft_split``'s copy of a permuted
+    spectrum into rows among them).
+``tfft.model.poisson``
+    one ``models.poisson_solve_3d`` call: its ``rfftn_split`` (a
+    ``tfft.r2c`` span, then a ``tfft.nd`` span), the spectral scale (the
+    ``tfft.launch.poisson_scale`` launch on the card), its ``irfftn_split``
+    (a ``tfft.nd`` span, then a ``tfft.r2c`` span) and the cast of u to
+    float32.
+
 A call's spans nest on one thread; the ``tfft.entry`` span that holds a
 span is the call it belongs to.  The spans are made only while a profiler
 records (``torch.autograd._profiler_enabled()``); otherwise each site costs
@@ -81,6 +94,7 @@ _LAUNCHERS = {
     "interleave_split": ("rfft_cuda", "interleave_split"),
     "untangle_fwd": ("rfft_cuda", "untangle_fwd"),
     "retangle_inv": ("rfft_cuda", "retangle_inv"),
+    "poisson_scale": ("spectral_cuda", "poisson_scale"),
 }
 
 # The cached builders of kernel operands: each miss computes the tables on
@@ -92,6 +106,7 @@ _TABLE_BUILDERS = {
     "device_pq": ("four_step_cuda", "_device_pq"),
     "phase_tables": ("rfft_cuda", "phase_tables"),
     "device_phase": ("rfft_cuda", "_device_phase"),
+    "poisson_tables": ("poisson", "device_tables"),
 }
 
 
@@ -145,10 +160,13 @@ def counters() -> dict:
         the relayout wrote, both planes (it reads as many).
     """
     from tensorfft_tpu_torch.fft import nd_counts
-    from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, rfft_cuda
+    from tensorfft_tpu_torch.models import poisson
+    from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, rfft_cuda, spectral_cuda
+    from tensorfft_tpu_torch.rfft import r2c_counts
 
     modules = {"fused_cuda": fused_cuda, "four_step_cuda": four_step_cuda,
-               "rfft_cuda": rfft_cuda}
+               "rfft_cuda": rfft_cuda, "spectral_cuda": spectral_cuda,
+               "poisson": poisson}
     return {
         "launches": {symbol: getattr(modules[m], f).launches
                      for symbol, (m, f) in _LAUNCHERS.items()},
@@ -158,4 +176,6 @@ def counters() -> dict:
         "table_builds": {name: getattr(modules[m], f).cache_info().misses
                          for name, (m, f) in _TABLE_BUILDERS.items()},
         "nd": dict(nd_counts),
+        "r2c": dict(r2c_counts),
+        "models": dict(poisson.model_counts),
     }

@@ -172,11 +172,21 @@ def test_tile_variant_names():
     assert fused_cuda.variant("stacked", stages, "float32", 1, False, 32) == "mma"
 
 
+def _keep_counts(monkeypatch):
+    """Count the fake launches on copies of the wrappers' counters, so the
+    process's counts are as they were after the test."""
+    for wrapper in (fused_cuda.fused_fft, fused_cuda.fused_fft_columns):
+        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
+        monkeypatch.setattr(wrapper, "variant_launches",
+                            collections.Counter(wrapper.variant_launches))
+
+
 @pytest.fixture
 def recorded(monkeypatch):
     """Record the C launch (symbol, codes, arguments) and give CPU tensors
     the card's SM count."""
     calls = []
+    _keep_counts(monkeypatch)
     monkeypatch.setattr(fused_cuda, "launch",
                         lambda symbol, tensors, codes, *args:
                         calls.append((symbol, codes, args)))
@@ -531,6 +541,7 @@ def recorded_planes(monkeypatch):
     """Record the C launch with its planes' pointers, and give CPU tensors
     the card's SM count."""
     calls = []
+    _keep_counts(monkeypatch)
     monkeypatch.setattr(fused_cuda, "launch",
                         lambda symbol, tensors, codes, *args: calls.append(
                             (symbol, [t.data_ptr() for t in tensors],

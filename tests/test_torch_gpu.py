@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain-torch versions on the card:
 kernels A, B and C, the packed/interleaving four-step variants (K5, K6),
-the R2C epilogue kernels (K7-K10), the 2D row-column passes (K4), K3, and
-every engine and numeric knob of the shared stage engine.
+the R2C epilogue kernels (K7-K10), the 2D row-column passes (K4), K3,
+every engine and numeric knob of the shared stage engine, and the Poisson
+solve's spectral scale and the solve itself.
 
 Run on a machine with a CUDA device:
 
@@ -1140,3 +1141,90 @@ def test_card_oracle_and_datagen_vs_numpy(cuda):
     assert d_card.maximum == d_host.maximum
     assert d_card.average == pytest.approx(d_host.average, rel=1e-12)
     assert d_card.sigma == pytest.approx(d_host.sigma, rel=1e-9)
+
+
+# -- the Poisson solve ---------------------------------------------------------
+
+# (shape of the half spectrum, memory order of its axes, outermost first):
+# dense (the kernel's mode 0); y innermost, as the forward pass leaves it
+# (the 512^3 solve's layout at a smaller grid, and at full size; mode 2,
+# pairs along y); x innermost (mode 2); y innermost with an odd extent
+# (mode 1, one element a lane); x and y swapped (mode 0); tiles cut at every
+# edge.
+SCALE_CASES = [((64, 96, 33), (0, 1, 2)), ((64, 64, 33), (0, 2, 1)),
+               ((512, 512, 257), (0, 2, 1)), ((40, 72, 17), (2, 1, 0)),
+               ((66, 33, 9), (0, 2, 1)), ((33, 65, 9), (1, 0, 2))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape,order", SCALE_CASES)
+def test_poisson_scale_kernel_matches_plain(cuda, shape, order, dtype):
+    """The kernel on planes of any strides equals its plain version bit for
+    bit, in dense C-order planes."""
+    from tensorfft_tpu_torch.models import poisson
+    from tensorfft_tpu_torch.ops import spectral_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    stored = [shape[a] for a in order]
+    re, im = (torch.randn(stored, generator=gen, device=cuda).to(dtype)
+              .permute(*np.argsort(order)) for _ in range(2))
+    grid = (shape[0], shape[1], 2 * (shape[2] - 1))
+    tables = poisson.device_tables(grid, (1.0, 1.0, 1.0), True, cuda)
+    before = spectral_cuda.poisson_scale.launches
+    got = spectral_cuda.poisson_scale(re, im, *tables)
+    torch.cuda.synchronize()
+    assert spectral_cuda.poisson_scale.launches == before + 1
+    want = spectral_cuda.poisson_scale_reference(
+        re.cpu(), im.cpu(), *(t.cpu() for t in tables))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype is dtype and g.is_contiguous()
+        assert torch.equal(g.cpu(), w)
+
+
+def _cell_limits():
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "portbench/cells/poisson512.solve.json"
+    return json.loads(path.read_text())["limits"]
+
+
+@pytest.mark.parametrize("side", [64, 512])
+def test_poisson_solve_within_the_cell_limits(cuda, side):
+    """The solve of a bf16 grid on the card against the float64 reference,
+    on the numbers and within the limits of the benchmark's cell: the
+    relative rms error of u, and the largest error of an element over its
+    line's rms; one launch of the scale a solve."""
+    import reference_poisson
+    from tensorfft_tpu_torch.models import poisson_solve_3d
+    from tensorfft_tpu_torch.ops import spectral_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(side)
+    f = torch.randn((side,) * 3, generator=gen, device=cuda).to(torch.bfloat16)
+    before = spectral_cuda.poisson_scale.launches
+    u = poisson_solve_3d(f, precision="bfloat16")
+    torch.cuda.synchronize()
+    assert spectral_cuda.poisson_scale.launches == before + 1
+    assert u.is_cuda and u.dtype is torch.float32 and u.shape == f.shape
+    want = reference_poisson.solve(f)
+    diff = (u.double() - want).abs()
+    rms = float(diff.norm() / want.norm())
+    worst = float((diff / want.square().mean(-1, keepdim=True).sqrt()).max())
+    limits = _cell_limits()
+    assert rms <= limits["fwd_rel_rms"] and worst <= limits["fwd_max_err"], (rms, worst)
+
+
+def test_poisson_solve_sends_an_array_to_the_card(cuda):
+    """A NumPy f goes to the card by default (``device="cuda"``) and comes
+    back as a CUDA u, through the scale's kernel, equal to the solve of the
+    same grid handed over as a CUDA tensor."""
+    from tensorfft_tpu_torch.models import poisson_solve_3d
+    from tensorfft_tpu_torch.ops import spectral_cuda
+
+    f = np.random.default_rng(7).standard_normal((32, 32, 32), dtype=np.float32)
+    before = spectral_cuda.poisson_scale.launches
+    u = poisson_solve_3d(f)
+    torch.cuda.synchronize()
+    assert spectral_cuda.poisson_scale.launches == before + 1
+    assert u.is_cuda and u.dtype is torch.float32 and u.shape == f.shape
+    assert torch.equal(u, poisson_solve_3d(torch.from_numpy(f).to(cuda)))

@@ -2,6 +2,7 @@
 on the CPU: no span is made without a profiler, a traced call leaves
 ``tfft.entry`` around ``tfft.dispatch``, a launch names its span after the C
 launcher, and a table build is counted once."""
+import collections
 import contextlib
 import json
 import types
@@ -135,6 +136,11 @@ def test_counters_report_variants(monkeypatch):
         assert sum(per_variant.values()) <= counted["launches"][symbol]
     monkeypatch.setattr(fused_cuda, "launch", lambda *args: None)
     monkeypatch.setattr(fused_cuda, "multiprocessors", lambda device: 132)
+    # The fake launch counts on copies, so the process's counts are as
+    # they were after the test.
+    monkeypatch.setattr(fused_cuda.fused_fft, "launches", fused_cuda.fused_fft.launches)
+    monkeypatch.setattr(fused_cuda.fused_fft, "variant_launches",
+                        collections.Counter(fused_cuda.fused_fft.variant_launches))
     re = torch.zeros(132 * 16 + 1, 512, dtype=torch.bfloat16)
     before = tracing.counters()["variants"]["fused_fft"]
     fused_cuda._launch_fused(
