@@ -151,12 +151,15 @@ path's 4096 x 4096 and 4096 x 256, the any path's 2048-point rows); an N-D
 pass whose planes allow it lands the tiles straight from the strided planes
 (``fused_fft_cols[pipelined,tile<T>,cols,mma]``, ``fused_cuda.column_tile``:
 the 512^3 grid's axis 0); the Poisson path solves the 512^3 volume and
-must launch K7, kernel A on the 256-point half-length rows, K9, the landed
+must launch K7, kernel A on the 256-point half-length rows (its radix-256
+stage's A fragments gathered from the stage's roots in shared memory,
+``fused_fft[pipelined,tile32,roots,mma]``), K9, the landed
 and the relayout's axis passes, the spectral scale, K10 and K8; step 5 times kernel A at N=16384 x 4096 on both
 paths, in turns, and the pipelined kernel's tiles at TILE_SHAPES against one
 CTA a row, a row a step and (at the grid's rows) K3, the relayout with the
 rule's tiles and the strided landing at T = 16 and 32, then the scale and
-kernel A on the solve's half spectrum and half-length rows.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+kernel A on the solve's half spectrum and half-length rows (and, for the
+record, radices (16, 16) there).  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
 kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
 adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
 engine on a thread-block cluster,
@@ -583,10 +586,12 @@ BIGN_SLICE_ABOVE = 1 << 24
 BIGN_HOLD_ELEMS = 1 << 22
 
 # The kernels of the tensor-core engine: one CTA (..._tc_kernel), kernel A's
-# pipelined kernel and the cluster twins (kernel A's and the row passes'
-# row_cluster_kernel, kernel B's col_cluster_tc_kernel).
+# pipelined kernels (their roots instances included) and the cluster twins
+# (kernel A's and the row passes' row_cluster_kernel, kernel B's
+# col_cluster_tc_kernel).
 TC_KERNEL = re.compile(
-    r"_tc_kernel<|fused_fft_pipe_kernel<|fused_fft_pipe_cols_kernel\(|row_cluster_kernel<")
+    r"_tc_kernel<|fused_fft_pipe_kernel<|fused_fft_pipe_(cols_)?(roots_)?kernel\(|"
+    r"row_cluster_kernel<")
 # The -Xptxas -v lines every kernel but the tensor-core engine's must keep.
 PTXAS_REFERENCE = "tensorfft_tpu_torch/csrc/ptxas_reference.txt"
 
@@ -850,12 +855,15 @@ def main() -> int:
                                                   SEED + n + b))
     sms = fused_cuda.multiprocessors(dev)
 
-    def kernel_a(n, b):
+    def kernel_a(n, b, t=None):
         """Kernel A's counted variant for a knob-free bf16 call of b rows of n
-        on aligned planes (b > SMs; n >= 512, or a power of two >= 128): the
-        pipelined kernel, a row or a tile a step."""
-        t = fused_cuda.pipeline_tile(n, b, sms)
-        return f"fused_fft[pipelined{f',tile{t}' if t > 1 else ''},mma]"
+        on aligned planes (b > SMs; n >= 512, or a power of two >= 128) under
+        the default plan: the pipelined kernel, a row or a tile (the rule's,
+        or ``t`` rows) a step; at n = 256 the plan's one radix-256 stage
+        gathers its A fragments from its roots on tiles."""
+        t = fused_cuda.pipeline_tile(n, b, sms) if t is None else t
+        tile = f",tile{t}{',roots' if n == 256 else ''}" if t > 1 else ""
+        return f"fused_fft[pipelined{tile},mma]"
 
     outputs = counted(
         "c2c", ("fused_fft[pipelined,mma]", "fused_fft[pipelined,tile4,mma]",
@@ -2245,8 +2253,7 @@ def main() -> int:
         tiles = {fused_cuda.MAX_CTA_ELEMS // n, fused_cuda.MAX_CTA_ELEMS // 2 // n,
                  fused_cuda.pipeline_tile(n, b, sms)}
         for tile in sorted(tiles - {0, 1}, reverse=True):
-            paths[f"fused_fft[pipelined,tile{tile},mma]"] = dict(pipelined=True,
-                                                                tile=tile)
+            paths[kernel_a(n, b, tile)] = dict(pipelined=True, tile=tile)
         fns = {name: (lambda r, i, o=o: fused_cuda._launch_fused(r, i, **o, **a_kw))
                for name, o in paths.items()}
         rules, grid = {rule}, None
@@ -2517,7 +2524,20 @@ def main() -> int:
     kw_h = fused_kw(plan_h)
     x_h = device_inputs(n_h, nx * ny, torch.bfloat16, SEED + 7)
     elems = n_h * nx * ny
-    name_h, _ = named(lambda: fused_cuda.fused_fft(*x_h, **kw_h))
+    # Both ways, the rule's launch (the roots' persistent walk: about 62
+    # tiles a CTA) equals one CTA a row bit for bit and the plain version
+    # within the fused bound.
+    for sign in (-1, 1):
+        kw_s = dict(kw_h, sign=sign,
+                    scales=stage_scales(plan_h.radices, plan_h.scaling, sign < 0))
+        name_h, got = named(lambda: fused_cuda.fused_fft(*x_h, **kw_s))
+        label = f"N={n_h} x B={nx * ny} sign {sign} (the solve's half-length rows)"
+        bitwise(name_h, f"{label}, against one CTA a row", got, fused_cuda._launch_fused(
+            *x_h, pipelined=False, grouped=False, complex_mult="block",
+            state_dtype="float32", **kw_s))
+        hold(name_h, label, got, fused_cuda.fused_fft_reference(*x_h, **kw_s),
+             FUSED_MAX_FRAC)
+        del got
     time_kernel(name_h, f"N={n_h} x B={nx * ny} bf16 (the solve's "
                 f"half-length rows)", lambda r, i: fused_cuda.fused_fft(r, i, **kw_h),
                 lambda r, i: fused_cuda.fused_fft_reference(r, i, **kw_h),
@@ -2526,6 +2546,17 @@ def main() -> int:
                 4 * 2 * elems + table_bytes(plan_h, plan_h.radices, kw_h["scales"], -1,
                                             mma=True),
                 pass_flops(plan_h, plan_h.radices, elems), record=False)
+    # Two stages (16, 16) at the same rows, for the record: the plan stays
+    # the JAX plan's one radix-256 stage.
+    kw_16 = dict(kw_h, radices=(16, 16), scales=stage_scales((16, 16), plan_h.scaling, True))
+    time_kernel("fused_fft (16, 16)", f"N={n_h} x B={nx * ny} bf16 (the solve's "
+                f"half-length rows, radices (16, 16))",
+                lambda r, i: fused_cuda.fused_fft(r, i, **kw_16),
+                lambda r, i: fused_cuda.fused_fft_reference(r, i, **kw_16),
+                None, x_h,
+                4 * 2 * elems + table_bytes(plan_h, (16, 16), kw_16["scales"], -1,
+                                            mma=True),
+                pass_flops(plan_h, (16, 16), elems), record=False)
     del x_h
     t_solve = measure(lambda f: poisson_solve_3d(f, precision="bfloat16"), (volume[0],),
                       iters=5)

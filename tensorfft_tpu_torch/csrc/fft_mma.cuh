@@ -37,7 +37,9 @@
 //     load per lane and matrix, 128 bytes per warp) through L1: the table
 //     is the same for every CTA.  The bf16 policy's one-term stacked
 //     stages take a warp blocking (mma_block) that shares each chunk's A
-//     and B fragments across a block of tiles.
+//     and B fragments across a block of tiles.  The pipelined kernel A
+//     gathers a two-term stage of radix 256 from the stage's roots in
+//     shared memory instead (stage_mma_roots, fused_fft_pipe.cu).
 //   * vector (a folded stage, whose per-slice tables M_kk differ by output
 //     column, and a stage of radix < 8): each output is a scalar loop over
 //     r, fmaf in order, with an accumulator per partial product and real
@@ -123,6 +125,15 @@ __device__ __forceinline__ void mma_add(float (&acc)[4], uint32_t a0,
 __device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
                                               const __nv_bfloat16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a)
+               : "memory");
+}
+
+// ldsm_x2_trans at a shared-memory address.
+__device__ __forceinline__ void ldsm_x2_trans_at(uint32_t& r0, uint32_t& r1,
+                                                 uint32_t a) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(a)
@@ -333,6 +344,118 @@ __device__ __forceinline__ void stage_mma_blocked(
         o_re[2 * t + 1] = __fadd_rn(o_re[2 * t + 1], c[1]);
         o_im[2 * t] = __fadd_rn(o_im[2 * t], c[2]);
         o_im[2 * t + 1] = __fadd_rn(o_im[2 * t + 1], c[3]);
+      }
+    }
+  }
+}
+
+// The slot of root k in a stage's copy of its R roots in shared memory
+// (stage_mma_roots): a pad after every 32 roots spreads a warp's gathers
+// over more banks (by a bank model of the fragment's indices at R = 256, 4.2
+// wavefronts a 64-bit gather on average against 6.0 unpadded).  R + R / 32
+// slots hold R roots.
+__host__ __device__ constexpr int root_slot(int k) { return k + (k >> 5); }
+
+// stage_mma for a two-term stacked stage of radix R (a power of two) whose
+// entry (r_out, r) is its entry (1, (r_out * r) mod R), as every entry of the
+// stacked DFT matrix is (ops/fused_cuda.py:roots_route), with the A
+// fragments gathered from the stage's R roots in shared memory instead of
+// read from its R x R fragment table: roots[root_slot(k)] holds root k as a
+// bf16 pair (re | im << 16) per term, x term 0 and y term 1.  Lane l of
+// chunk c takes entries r = 8c + 2(l % 4) + {0, 1} of row r_out = 8q + l / 4,
+// roots k0 = r_out (8c + 2(l % 4)) and k0 + r_out (mod R): two 64-bit
+// gathers and four permutes give the words m0 (both entries' re) and m1
+// (their im) of each term that stage_mma loads.
+//
+// Tiles: under a warp blocking (blk = mma_block's, block_origin's QW x JB
+// tiles, slot qi * JB + ji) G groups of JW column tiles that share their
+// r_out tile, slot gi * JW + ji, so a chunk's gathers serve JW tiles; with
+// none (blk = 0: JB = 0, JW = 1, G = kMaxEpt / 2) stage_mma's tile order,
+// slot tt.  Each output's sum is stage_mma's: per term, each chunk's product
+// from a zero accumulator added in chunk order, then the terms added as
+// combine_levels<2, 1> does, so the outputs equal stage_mma's bit for bit.
+template <int G, int JW, int JB>
+__device__ __forceinline__ void stage_mma_roots(const __nv_bfloat16* op,
+                                                int elems, int nt, int R,
+                                                Swizzle sw, int blk,
+                                                const uint2* roots,
+                                                float (&o_re)[kMaxEpt],
+                                                float (&o_im)[kMaxEpt]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5, chunks = R >> 3, mask = R - 1;
+  const int ntiles = (nt + 7) >> 3;
+  int qw, jw, q0 = 0, j0 = 0;
+  if constexpr (JB > 0) block_origin(blk, chunks, qw, jw, q0, j0);
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    int q, g0;
+    bool on = true;
+    if constexpr (JB > 0) {
+      q = q0 + gi * JW / JB;
+      g0 = (j0 + gi * JW % JB) << 3;
+    } else {
+      const int tile = warp + gi * warps;
+      on = tile < chunks * ntiles;
+      q = tile / ntiles;
+      g0 = (tile - q * ntiles) << 3;
+    }
+    if (on) {
+      const int r_out = 8 * q + (lane >> 2);
+      const int step = (8 * r_out) & mask;
+      int k = (2 * (lane & 3) * r_out) & mask;
+      // Under a blocking nt >= 16, and the swizzle of operand row 8c + l
+      // (l < 8) is row l's, so a column tile's ldmatrix address steps by 8
+      // rows a chunk.
+      uint32_t b_at[JW];
+      if constexpr (JB > 0) {
+#pragma unroll
+        for (int ji = 0; ji < JW; ++ji)
+          b_at[ji] = static_cast<uint32_t>(__cvta_generic_to_shared(
+              ((lane & 8) ? op + elems : op) +
+              swz((lane & 7) * nt + g0 + (ji << 3), sw)));
+      }
+      // Term 0 accumulates in the output slots, term 1 here.
+      float hi[JW][4];
+#pragma unroll
+      for (int ji = 0; ji < JW; ++ji) {
+        const int t = gi * JW + ji;
+        o_re[2 * t] = o_re[2 * t + 1] = o_im[2 * t] = o_im[2 * t + 1] = 0.0f;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) hi[ji][x] = 0.0f;
+      }
+#pragma unroll 1
+      for (int c = 0; c < chunks; ++c) {
+        const uint2 w0 = roots[root_slot(k)];
+        const uint2 w1 = roots[root_slot((k + r_out) & mask)];
+        const uint32_t a0 = __byte_perm(w0.x, w1.x, 0x5410);
+        const uint32_t a1 = __byte_perm(w0.x, w1.x, 0x7632);
+        const uint32_t e0 = __byte_perm(w0.y, w1.y, 0x5410);
+        const uint32_t e1 = __byte_perm(w0.y, w1.y, 0x7632);
+#pragma unroll
+        for (int ji = 0; ji < JW; ++ji) {
+          const int t = gi * JW + ji;
+          uint32_t b0, b1;
+          if constexpr (JB > 0)
+            ldsm_x2_trans_at(b0, b1, b_at[ji] + c * 16 * nt);
+          else
+            load_b(b0, b1, op, op + elems, c, g0 + (ji << 3), nt, sw);
+          float p[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(p, a0, a1, a1 ^ 0x80008000u, a0, b0, b1);
+          o_re[2 * t] = __fadd_rn(o_re[2 * t], p[0]);  // as mma_add
+          o_re[2 * t + 1] = __fadd_rn(o_re[2 * t + 1], p[1]);
+          o_im[2 * t] = __fadd_rn(o_im[2 * t], p[2]);
+          o_im[2 * t + 1] = __fadd_rn(o_im[2 * t + 1], p[3]);
+          mma_add(hi[ji], e0, e1, e1 ^ 0x80008000u, e0, b0, b1);
+        }
+        k = (k + step) & mask;
+      }
+#pragma unroll
+      for (int ji = 0; ji < JW; ++ji) {
+        const int t = gi * JW + ji;
+        o_re[2 * t] = __fadd_rn(o_re[2 * t], hi[ji][0]);
+        o_re[2 * t + 1] = __fadd_rn(o_re[2 * t + 1], hi[ji][1]);
+        o_im[2 * t] = __fadd_rn(o_im[2 * t], hi[ji][2]);
+        o_im[2 * t + 1] = __fadd_rn(o_im[2 * t + 1], hi[ji][3]);
       }
     }
   }

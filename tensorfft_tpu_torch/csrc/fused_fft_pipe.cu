@@ -61,7 +61,14 @@
 //   * thread `lane` stores row lane of the staged tile with cp.async.bulk
 //     and commits the group; those threads wait for the reads
 //     (wait_group.read) only before the next tile's last stage writes the
-//     staging buffer, and for the writes once, before they exit.
+//     staging buffer, and for the writes once, before they exit;
+//   * at T > 1 a two-term stage of radix 256 (the default plan's one
+//     stage at n = 256, bf16ax2) reads its A fragments from the stage's R
+//     roots, copied into shared memory once a CTA, not from its 512 KiB
+//     fragment table (roots_route, below; the kernels
+//     fused_fft_pipe_roots_kernel and fused_fft_pipe_cols_roots_kernel):
+//     the table streamed from L2 every step, and 256 x 262,144 took 4.9 ms
+//     on the H100, 1.5 ms from the roots (PERF.md §6).
 //
 // T = 1 is a template flag (kRow) of the one kernel, not a runtime test:
 // the T = 1 instance keeps the 16-byte scatter and staging and its
@@ -298,6 +305,57 @@ __device__ __forceinline__ void tile_scatter(const __nv_bfloat16* land,
   }
 }
 
+// The roots route (tile_stages at T > 1; ops/fused_cuda.py:roots_route
+// mirrors it): a two-term stage of radix kRootsRadix on the mma route
+// gathers its A fragments from a per-CTA copy of its R roots in shared
+// memory (stage_mma_roots).  Its fragment table, terms x matrices x R x R
+// bf16, is 512 KiB at R = 256: beside the tile's buffers it does not stay in
+// L1, and stage_mma, whose tile order gives a warp 8 row tiles of one column
+// tile, read it from L2 again every step (about 17 GB a call at 256 x
+// 262,144, against the rows' 0.54 GB of HBM).  The roots are 2 KiB.  Only
+// R = 256 takes it: the radix measured and tested; a larger radix's roots
+// beside a tile's buffers can pass the card's shared memory a block (R =
+// 8192 at T = 2: 264,264 bytes).
+constexpr int kRootsRadix = 256;
+
+__host__ __device__ inline bool roots_route(int mode, int radix, int a_terms) {
+  return mma_route(mode, radix) && radix == kRootsRadix && a_terms == 2;
+}
+
+// The stage of `plan` that takes the roots route, or -1.  At most one: two
+// stages of radix 256 make n >= 65536, and a tile of T > 1 rows holds at
+// most 16384.
+__host__ __device__ inline int roots_stage(const StagePlan& plan) {
+  for (int s = 0; s < plan.n_stages; ++s)
+    if (roots_route(plan.mode[s], plan.radix[s], plan.a_terms[s])) return s;
+  return -1;
+}
+
+// Row r_out = 1 of the roots stage's table into the roots' shared copy:
+// entry (i, m, 1, r) of the fragment order (ops/fused_cuda.py:
+// mma_table_index: lane 4 + (r % 8) / 2, pair r % 2) lies at ((i * 2 + m)
+// * chunks^2 + r / 8) * 64 + 8 + r % 8, so each chunk of 8 roots of one term
+// and matrix is one 16-byte load; root r of term i, matrix m (re, im) goes
+// to bf16 (root_slot(r) * 2 + i) * 2 + m.
+__device__ __forceinline__ void load_roots(unsigned short* roots,
+                                           const StagePlan& plan,
+                                           const __nv_bfloat16* __restrict__ mats) {
+  const int s = roots_stage(plan);
+  if (s < 0) return;
+  const int chunks = plan.radix[s] >> 3;
+  const __nv_bfloat16* d = mats + plan.d_off[s];
+  for (int u = threadIdx.x; u < 4 * chunks; u += blockDim.x) {
+    const int tm = u / chunks, c = u - tm * chunks;  // tm = i * 2 + m
+    const uint4 v =
+        __ldg(reinterpret_cast<const uint4*>(d + (tm * chunks * chunks + c) * 64 + 8));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      roots[(root_slot(8 * c + e) * 2 + (tm >> 1)) * 2 + (tm & 1)] =
+          static_cast<unsigned short>(w[e >> 1] >> (16 * (e & 1)));
+  }
+}
+
 // run_fft_tc's stages for a tile of T = 2^lg_t consecutive rows (bf16
 // storage, one data term, the knob-free stacked engine; every radix a power
 // of two) on the operand `op`, with the last stage's outputs in the staging
@@ -306,16 +364,19 @@ __device__ __forceinline__ void tile_scatter(const __nv_bfloat16* land,
 // run_fft_tc with T rows (K3 at T > 1, kernel A at T = 1), so each output
 // equals theirs bit for bit; the index arithmetic uses shifts.  kRow (T =
 // 1) stages the blocked stages' outputs in 16-byte chunks
-// (stage_out_blocked).  Threads below T first wait until the staging
-// buffer's previous bulk stores have read it.
-template <bool kRow>
+// (stage_out_blocked); kRoots (T > 1) gathers a roots-route stage's A
+// fragments from `roots` (stage_mma_roots, under mma_block's blocking: the
+// same bits).  Threads below T first wait until the staging buffer's
+// previous bulk stores have read it.
+template <bool kRow, bool kRoots>
 __device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
                                             __nv_bfloat16* st,
                                             __nv_bfloat16* im, int pitch,
                                             int n, int lg_t,
                                             const StagePlan& plan,
                                             const __nv_bfloat16* __restrict__ mats,
-                                            const float* __restrict__ tw) {
+                                            const float* __restrict__ tw,
+                                            const uint2* roots) {
   const int elems = n << lg_t, tm = (1 << lg_t) - 1;
   Swizzle sw = stage_swizzle(elems / plan.radix[0]);
   int K = 1, lg_m = __ffs(n) - 1;
@@ -326,18 +387,37 @@ __device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
     const int nt = elems >> lg_r;
     const __nv_bfloat16* d = mats + plan.d_off[s];
     const bool mma = mma_route(plan.mode[s], R);
-    const int blk = (mma && plan.a_terms[s] == 1) ? mma_block(R >> 3, nt) : 0;
+    // The roots stage by its index: where the test names R = 256, the
+    // compiler folds R into the route and the instance spills.
+    bool from_roots = false;
+    if constexpr (kRoots) from_roots = s == roots_stage(plan);
+    const int blk = (mma && (plan.a_terms[s] == 1 || from_roots))
+                        ? mma_block(R >> 3, nt)
+                        : 0;
     const int slice_stride = R * R * 2;
     float o_re[kMaxEpt], o_im[kMaxEpt];
-    int vv;
-    if (plan.a_terms[s] == 2)
+    int vv = 0;
+    if (from_roots) {
+      if constexpr (kRoots) {
+        if (blk == 16)
+          stage_mma_roots<8, 2, 4>(op, elems, nt, R, sw, blk, roots, o_re, o_im);
+        else if (blk == 8)
+          stage_mma_roots<4, 2, 4>(op, elems, nt, R, sw, blk, roots, o_re, o_im);
+        else if (blk == 4)
+          stage_mma_roots<2, 2, 2>(op, elems, nt, R, sw, blk, roots, o_re, o_im);
+        else
+          stage_mma_roots<kMaxEpt / 2, 1, 0>(op, elems, nt, R, sw, 0, roots,
+                                             o_re, o_im);
+      }
+    } else if (plan.a_terms[s] == 2) {
       vv = stage_products<2, 1, kEngStacked>(op, elems, nt, R, lg_r, sw, mma,
                                              blk, false, d, slice_stride, 0,
                                              slice_stride, o_re, o_im);
-    else
+    } else {
       vv = stage_products<1, 1, kEngStacked>(op, elems, nt, R, lg_r, sw, mma,
                                              blk, false, d, slice_stride, 0,
                                              slice_stride, o_re, o_im);
+    }
     if (s + 1 == plan.n_stages) {
       if (threadIdx.x <= tm)
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -384,23 +464,27 @@ __device__ __forceinline__ void tile_stages(__nv_bfloat16* op,
 
 // Dynamic shared memory: landing and operand buffers of 4nT bytes, the
 // staging buffer of T rows per plane, n + kImPad (T = 1) or n + kRowPad
-// elements apart, then the mbarrier.
-inline size_t pipe_smem_bytes(int n, int T) {
+// elements apart, the mbarrier, then at T > 1 the roots stage's roots, 8
+// bytes a slot.
+inline size_t pipe_smem_bytes(int n, int T, const StagePlan& plan) {
   const size_t pitch = n + (T == 1 ? kImPad : kRowPad);
+  const int rs = T > 1 ? roots_stage(plan) : -1;
   return (4 * static_cast<size_t>(n) * T + 2 * pitch * T) *
              sizeof(__nv_bfloat16) +
-         sizeof(uint64_t);
+         sizeof(uint64_t) +
+         (rs < 0 ? 0 : root_slot(plan.radix[rs]) * sizeof(uint2));
 }
 
 // One CTA's walk over the tiles blockIdx.x + i * gridDim.x (gridDim.x at
 // most the tile count) of T = 2^lg_t lines of n (a power of two; kRow: T =
-// 1, lg_t unread), `batch` lines in all: thread 0 lands tile t in the
+// 1, lg_t unread), `batch` lines in all: kRoots (T > 1) first copies the
+// roots stage's roots (load_roots); thread 0 lands tile t in the
 // landing buffer by fetch(land, bar, t), arming `bar`; the tile goes to the
 // operand (kRow and kCols: landed in operand order, so whole 16-byte chunks
 // through the swizzle; else T consecutive rows, gathered by tile_scatter),
 // the next tile's fetch starts, the stages run, and each line leaves as
 // output row tT + lane by its own bulk copies, issued by thread `lane`.
-template <bool kRow, bool kCols, typename Fetch>
+template <bool kRow, bool kCols, bool kRoots, typename Fetch>
 __device__ __forceinline__ void pipe_tiles(unsigned char* smem,
                                            const Fetch& fetch,
                                            __nv_bfloat16* __restrict__ out_re,
@@ -417,12 +501,16 @@ __device__ __forceinline__ void pipe_tiles(unsigned char* smem,
   __nv_bfloat16* st = op + 2 * elems;  // [re | im], T rows of pitch each
   __nv_bfloat16* st_im = st + T * pitch;
   uint64_t* bar = reinterpret_cast<uint64_t*>(st_im + T * pitch);
+  const uint2* roots = reinterpret_cast<const uint2*>(bar + 1);
   const long long tiles = (batch + T - 1) >> lg, step = gridDim.x;
   const Swizzle sw0 = stage_swizzle(elems / plan.radix[0]);
   if (threadIdx.x == 0) {
     bar_init(bar);
     fetch(land, bar, blockIdx.x);
   }
+  // Once for the CTA's whole walk.
+  if constexpr (kRoots)
+    load_roots(reinterpret_cast<unsigned short*>(bar + 1), plan, mats);
   __syncthreads();
   uint32_t parity = 0;
   for (long long t = blockIdx.x; t < tiles; t += step, parity ^= 1) {
@@ -444,7 +532,8 @@ __device__ __forceinline__ void pipe_tiles(unsigned char* smem,
       fence_async_shared();
       fetch(land, bar, t + step);
     }
-    tile_stages<kRow>(op, st, st_im, pitch, n, lg, plan, mats, tables);
+    tile_stages<kRow, kRoots>(op, st, st_im, pitch, n, lg, plan, mats, tables,
+                              roots);
     fence_async_shared();
     __syncthreads();  // the tile is staged
     const long long row = (t << lg) + threadIdx.x;
@@ -459,16 +548,16 @@ __device__ __forceinline__ void pipe_tiles(unsigned char* smem,
 // The pipelined kernel on tiles of T = 2^lg_t consecutive rows of n (kRow:
 // T = 1): tile t holds rows tT .. tT + T - 1 (the last tile may be short),
 // one contiguous run of each plane, which lands by one bulk copy per plane.
-template <bool kRow>
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
-                          const __nv_bfloat16* __restrict__ in_im,
-                          __nv_bfloat16* __restrict__ out_re,
-                          __nv_bfloat16* __restrict__ out_im, long long batch,
-                          int n, int lg_t, StagePlan plan,
-                          const __nv_bfloat16* __restrict__ mats,
-                          const float* __restrict__ tables) {
-  extern __shared__ __align__(16) unsigned char smem[];
+template <bool kRow, bool kRoots>
+__device__ __forceinline__ void pipe_rows(unsigned char* smem,
+                                          const __nv_bfloat16* __restrict__ in_re,
+                                          const __nv_bfloat16* __restrict__ in_im,
+                                          __nv_bfloat16* __restrict__ out_re,
+                                          __nv_bfloat16* __restrict__ out_im,
+                                          long long batch, int n, int lg_t,
+                                          const StagePlan& plan,
+                                          const __nv_bfloat16* __restrict__ mats,
+                                          const float* __restrict__ tables) {
   const int lg = kRow ? 0 : lg_t;
   const int T = 1 << lg;
   // Thread 0: the rows of tile t into the landing buffer.
@@ -479,8 +568,39 @@ __global__ void __launch_bounds__(kThreads)
     bulk_load(land, land + (n << lg), in_re + at, in_im + at,
               static_cast<uint32_t>(2 * rows * n), bar);
   };
-  pipe_tiles<kRow, false>(smem, fetch, out_re, out_im, batch, n, lg_t, plan,
-                          mats, tables);
+  pipe_tiles<kRow, false, kRoots>(smem, fetch, out_re, out_im, batch, n, lg_t,
+                                  plan, mats, tables);
+}
+
+template <bool kRow>
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_kernel(const __nv_bfloat16* __restrict__ in_re,
+                          const __nv_bfloat16* __restrict__ in_im,
+                          __nv_bfloat16* __restrict__ out_re,
+                          __nv_bfloat16* __restrict__ out_im, long long batch,
+                          int n, int lg_t, StagePlan plan,
+                          const __nv_bfloat16* __restrict__ mats,
+                          const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  pipe_rows<kRow, false>(smem, in_re, in_im, out_re, out_im, batch, n, lg_t,
+                         plan, mats, tables);
+}
+
+// The roots route's instance (tiles of T > 1 rows of a plan with a
+// roots_stage): its own kernel, so that every other plan keeps the code it
+// had (with the route inside fused_fft_pipe_kernel<false>, the 512^3 grid's
+// 512-point rows took 3 % longer on the H100, with no spills).
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_roots_kernel(const __nv_bfloat16* __restrict__ in_re,
+                                const __nv_bfloat16* __restrict__ in_im,
+                                __nv_bfloat16* __restrict__ out_re,
+                                __nv_bfloat16* __restrict__ out_im,
+                                long long batch, int n, int lg_t, StagePlan plan,
+                                const __nv_bfloat16* __restrict__ mats,
+                                const float* __restrict__ tables) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  pipe_rows<false, true>(smem, in_re, in_im, out_re, out_im, batch, n, lg_t,
+                         plan, mats, tables);
 }
 
 // The strided landing: the input seen as (outer, n, inner) with inner
@@ -492,17 +612,16 @@ __global__ void __launch_bounds__(kThreads)
 // operand's order before the swizzle.  The tiles number at most INT_MAX, so
 // t splits by a 32-bit division (a 64-bit one is a call, whose saved
 // registers spill at the 128-register cap).
-__global__ void __launch_bounds__(kThreads)
-    fused_fft_pipe_cols_kernel(const __grid_constant__ CUtensorMap map_re,
-                               const __grid_constant__ CUtensorMap map_im,
-                               __nv_bfloat16* __restrict__ out_re,
-                               __nv_bfloat16* __restrict__ out_im,
-                               long long batch, uint32_t per_outer, int n,
-                               int lg_t, StagePlan plan,
-                               const __nv_bfloat16* __restrict__ mats,
-                               const float* __restrict__ tables) {
-  // A tensor copy lands at a 128-byte aligned address.
-  extern __shared__ __align__(128) unsigned char cols_smem[];
+template <bool kRoots>
+__device__ __forceinline__ void pipe_cols(unsigned char* cols_smem,
+                                          const CUtensorMap& map_re,
+                                          const CUtensorMap& map_im,
+                                          __nv_bfloat16* __restrict__ out_re,
+                                          __nv_bfloat16* __restrict__ out_im,
+                                          long long batch, uint32_t per_outer,
+                                          int n, int lg_t, const StagePlan& plan,
+                                          const __nv_bfloat16* __restrict__ mats,
+                                          const float* __restrict__ tables) {
   const int elems = n << lg_t, box = n < kBoxLines ? n : kBoxLines;
   auto fetch = [&](__nv_bfloat16* land, uint64_t* bar, long long t) {
     const uint32_t o = static_cast<uint32_t>(t) / per_outer;
@@ -515,8 +634,38 @@ __global__ void __launch_bounds__(kThreads)
                   static_cast<int>(o), bar);
     }
   };
-  pipe_tiles<false, true>(cols_smem, fetch, out_re, out_im, batch, n, lg_t,
-                          plan, mats, tables);
+  pipe_tiles<false, true, kRoots>(cols_smem, fetch, out_re, out_im, batch, n,
+                                  lg_t, plan, mats, tables);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_cols_kernel(const __grid_constant__ CUtensorMap map_re,
+                               const __grid_constant__ CUtensorMap map_im,
+                               __nv_bfloat16* __restrict__ out_re,
+                               __nv_bfloat16* __restrict__ out_im,
+                               long long batch, uint32_t per_outer, int n,
+                               int lg_t, StagePlan plan,
+                               const __nv_bfloat16* __restrict__ mats,
+                               const float* __restrict__ tables) {
+  // A tensor copy lands at a 128-byte aligned address.
+  extern __shared__ __align__(128) unsigned char cols_smem[];
+  pipe_cols<false>(cols_smem, map_re, map_im, out_re, out_im, batch, per_outer,
+                   n, lg_t, plan, mats, tables);
+}
+
+// The strided landing's roots instance (fused_fft_pipe_roots_kernel's).
+__global__ void __launch_bounds__(kThreads)
+    fused_fft_pipe_cols_roots_kernel(const __grid_constant__ CUtensorMap map_re,
+                                     const __grid_constant__ CUtensorMap map_im,
+                                     __nv_bfloat16* __restrict__ out_re,
+                                     __nv_bfloat16* __restrict__ out_im,
+                                     long long batch, uint32_t per_outer, int n,
+                                     int lg_t, StagePlan plan,
+                                     const __nv_bfloat16* __restrict__ mats,
+                                     const float* __restrict__ tables) {
+  extern __shared__ __align__(128) unsigned char cols_smem[];
+  pipe_cols<true>(cols_smem, map_re, map_im, out_re, out_im, batch, per_outer,
+                  n, lg_t, plan, mats, tables);
 }
 
 int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
@@ -534,9 +683,11 @@ int launch_fused_pipe(const void* in_re, const void* in_im, void* out_re,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = (batch + T - 1) / T;
   return launch_stage_kernel(
-      T == 1 ? &fused_fft_pipe_kernel<true> : &fused_fft_pipe_kernel<false>,
-      tiles < sms ? tiles : sms, tc_threads(n * T), pipe_smem_bytes(n, T), 1,
-      stream, static_cast<const __nv_bfloat16*>(in_re),
+      T == 1 ? &fused_fft_pipe_kernel<true>
+             : (roots_stage(plan) >= 0 ? &fused_fft_pipe_roots_kernel
+                                       : &fused_fft_pipe_kernel<false>),
+      tiles < sms ? tiles : sms, tc_threads(n * T), pipe_smem_bytes(n, T, plan),
+      1, stream, static_cast<const __nv_bfloat16*>(in_re),
       static_cast<const __nv_bfloat16*>(in_im),
       static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
       batch, n, __builtin_ctz(T), plan, mats, tables);
@@ -615,8 +766,10 @@ int launch_fused_pipe_cols(const void* in_re, const void* in_im, void* out_re,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = outer * (inner / T);
   return launch_stage_kernel(
-      &fused_fft_pipe_cols_kernel, tiles < sms ? tiles : sms,
-      tc_threads(n * T), pipe_smem_bytes(n, T), 1, stream, map_re, map_im,
+      roots_stage(plan) >= 0 ? &fused_fft_pipe_cols_roots_kernel
+                             : &fused_fft_pipe_cols_kernel,
+      tiles < sms ? tiles : sms,
+      tc_threads(n * T), pipe_smem_bytes(n, T, plan), 1, stream, map_re, map_im,
       static_cast<__nv_bfloat16*>(out_re), static_cast<__nv_bfloat16*>(out_im),
       outer * inner, static_cast<uint32_t>(inner / T), n, __builtin_ctz(T),
       plan, mats, tables);

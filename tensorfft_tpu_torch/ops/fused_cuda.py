@@ -83,6 +83,8 @@ __all__ = [
     "column_tile",
     "kernel_tables",
     "mma_route",
+    "roots_route",
+    "roots_stage",
     "cluster_owner",
     "cluster_slice_base",
     "mma_table_index",
@@ -115,6 +117,10 @@ MAX_CTA_ELEMS = 16384
 # and tiles of 8192 elements beat 16384 below n = 2048 (PERF.md §6).
 TILE_MIN_N = 128
 TILE_FULL_N = 2048
+# The radix of a stage whose A fragments the pipelined kernel on tiles of
+# T > 1 rows gathers from the stage's roots in shared memory (roots_route;
+# csrc/fused_fft_pipe.cu kRootsRadix): the one radix measured and tested.
+ROOTS_RADIX = 256
 # The fewest lines a tile of the strided landing (fused_fft_columns) takes:
 # each line's run of T bf16 elements is then whole 16-byte chunks, which a
 # tensor copy lands and the operand copy moves.
@@ -223,15 +229,18 @@ def pass_stages(radices: Tuple[int, ...], engine: str = "stacked",
 
 def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
             cluster: int = 1, pipelined: bool = False, tile: int = 1,
-            columns: bool = False) -> str:
+            columns: bool = False, roots: bool = False) -> str:
     """The launch counters' name for a pass: the engine (none for stacked),
     the numeric knobs in effect, ``pipelined`` for kernel A's persistent
     kernel (:func:`takes_pipeline`) and ``tile<T>`` where its tiles hold
     T > 1 rows (:func:`pipeline_tile`), ``cols`` where they land straight
-    from strided planes (:func:`fused_fft_columns`), then ``mma`` for a
+    from strided planes (:func:`fused_fft_columns`), ``roots`` where a
+    stage of such a tile gathers its A fragments from its roots
+    (:func:`roots_stage`), then ``mma`` for a
     pass on one CTA (every kernel runs those on the tensor-core engine) or
     the CTAs of its cluster, e.g. ``mma``, ``pipelined,mma``,
     ``pipelined,tile16,mma``, ``pipelined,tile16,cols,mma``,
+    ``pipelined,tile32,roots,mma``,
     ``grouped,mult3,mma``, ``pretwiddle,mma`` or ``bf16_state,cluster2``."""
     tags = [] if engine == "stacked" else [engine]
     if any(st.kind == "grouped" for st in stages):
@@ -246,6 +255,8 @@ def variant(engine: str, stages: Sequence[Stage], state_dtype: str,
             tags.append(f"tile{tile}")
         if columns:
             tags.append("cols")
+        if roots:
+            tags.append("roots")
     tags.append(f"cluster{cluster}" if cluster > 1 else "mma")
     return ",".join(tags)
 
@@ -799,6 +810,32 @@ def mma_route(st: Stage) -> bool:
     return not st.fold and st.radix >= 8
 
 
+def roots_route(radix: int, terms: int, mode: int = _STACKED) -> bool:
+    """Whether the pipelined kernel on tiles of T > 1 rows gathers a
+    stage's A fragments from the stage's ``radix`` roots in shared memory
+    (``csrc/fused_fft_pipe.cu:roots_route``) rather than reading its
+    fragment table: a two-term stage (``terms`` matrix terms; bf16ax2) of
+    radix ROOTS_RADIX on the mma route.  Every entry (r_out, r) of such a
+    stage's table is its entry (1, (r_out * r) mod radix), so the products
+    are the same bits; the table (512 KiB) streamed from L2 every tile."""
+    return (mode not in (_PLANAR_FOLDED, _STACKED_FOLDED)
+            and radix == ROOTS_RADIX and terms == 2)
+
+
+def roots_stage(meta, tile: int):
+    """The stage of a pass (``meta``, :func:`kernel_tables`') whose A
+    fragments the pipelined kernel on tiles of ``tile`` rows gathers from
+    its roots (:func:`roots_route`; ``csrc/fused_fft_pipe.cu:roots_stage``),
+    or None: at most one, and none at ``tile`` = 1."""
+    n = int(meta[0])
+    if tile > 1:
+        for s in range(n):
+            if roots_route(int(meta[1 + 4 * s]), int(meta[2 + 4 * s]),
+                           int(meta[1 + 4 * n + s])):
+                return s
+    return None
+
+
 def cluster_owner(n: int, radix: int, cluster: int, index, lanes: int = 1):
     """(rank, local index) of operand index ``index`` = r * nt + g of a
     stage of ``radix`` on a cluster of ``cluster`` CTAs holding one
@@ -924,8 +961,9 @@ def _launch_fused(re, im, *, radices, scales, sign, algorithm, first_dot,
     launch("tfft_fused_fft", planes, policy_codes(re, algorithm), b, n,
            cluster, sms if pipelined else 0, tile, tables.data_ptr(),
            mats.data_ptr(), meta.ctypes.data)
-    count_launch(fused_fft, variant(engine, stages, state_dtype, cluster,
-                                    pipelined, tile))
+    count_launch(fused_fft, variant(
+        engine, stages, state_dtype, cluster, pipelined, tile,
+        roots=pipelined and roots_stage(meta, tile) is not None))
     return out_re, out_im
 
 
@@ -1028,8 +1066,9 @@ def _launch_columns(re, im, axis, *, radices, scales, sign, algorithm,
     launch("tfft_fused_fft_cols", (re, im, out_re, out_im),
            policy_codes(re, algorithm), outer, n, inner, sms, tile,
            tables.data_ptr(), mats.data_ptr(), meta.ctypes.data)
-    count_launch(fused_fft_columns, variant(engine, stages, state_dtype, 1,
-                                            True, tile, columns=True))
+    count_launch(fused_fft_columns, variant(
+        engine, stages, state_dtype, 1, True, tile, columns=True,
+        roots=roots_stage(meta, tile) is not None))
     return out_re, out_im
 
 

@@ -8,7 +8,10 @@ On the CPU: the rules that pick it and its T (``fused_cuda.takes_pipeline``,
 card's SM count passed in; for the strided landing of an N-D pass
 (``fused_cuda.fused_fft_columns``, ``fused_fft_pipe_cols_kernel``), the
 rule (``fused_cuda.column_tile``), what ``_launch_columns`` hands its C
-launcher, and the CPU version.
+launcher, and the CPU version; the roots route (a two-term stage of radix
+256 on tiles of T > 1 rows gathers its fragments from the stage's roots:
+``fused_cuda.roots_route``, ``roots_stage``), its counter name
+(``...,roots,mma``).
 
 On the card (``-m gpu``; every such test skips without a CUDA device, decided
 in the ``cuda`` fixture): its outputs, at T = 1 and at every T the rule
@@ -18,7 +21,9 @@ each of which takes one CTA a row, or one CTA a row forced; a view off a
 16-byte boundary takes one CTA a row; the counter names the pipelined launch
 and its tile exactly when the rules hold.  An N-D pass that the rule lands
 from the strided planes equals the relayout's pass bit for bit, with the
-same strides, and copies nothing; every other pass takes the relayout.
+same strides, and copies nothing; every other pass takes the relayout.  The
+roots route equals one CTA a row bit for bit at the Poisson solve's 262,144
+rows of 256 and under every warp blocking.
 
     python -m pytest -m gpu tests/test_torch_fused_pipe.py
 """
@@ -238,8 +243,11 @@ def test_launch_passes_the_tile(recorded, n, rows, aligned):
     tile = _want_tile(n, batch, SMS) if on else 1
     assert args[:5] == (batch, n, 1, SMS if on else 0, tile)
     launched = collections.Counter(fused_cuda.fused_fft.variant_launches) - before
+    # The default plan's one radix-256 stage at n = 256 (bf16ax2) gathers
+    # its A fragments from its roots on tiles of T > 1 rows.
+    roots = ",roots" if n == 256 else ""
     want = "mma" if not on else (
-        f"pipelined,tile{tile},mma" if tile > 1 else "pipelined,mma")
+        f"pipelined,tile{tile}{roots},mma" if tile > 1 else "pipelined,mma")
     assert launched == {want: 1}
     if on and rows in ("sms_tiles_plus_1", "undivided"):
         assert tile == t
@@ -260,6 +268,77 @@ def test_launch_passes_a_forced_tile(recorded, tile):
     (_, _, on), (_, _, off) = recorded
     assert on[:5] == (batch, n, 1, SMS, 16 if tile is None else tile)
     assert off[:5] == (batch, n, 1, 0, 1)
+
+
+# -- the roots route: a two-term stage of radix 256 on tiles of T > 1 rows ---
+
+def _meta(radices, algorithm="bf16", first_dot="bf16ax2"):
+    scales = tuple(float(s) for s in stage_scales(radices, "forward", True))
+    return fused_cuda.kernel_tables(tuple(radices), scales, -1, algorithm,
+                                    first_dot, torch.device("cpu"))[1]
+
+
+@pytest.mark.parametrize("radix,terms,want", [
+    (128, 2, False), (256, 2, True), (512, 2, False), (4096, 2, False),
+    (8192, 2, False), (128, 1, False), (256, 1, False)])
+def test_roots_rule(radix, terms, want):
+    assert fused_cuda.roots_route(radix, terms) == want
+    # A folded stage takes the vector route, never the roots.
+    assert not fused_cuda.roots_route(radix, terms, fused_cuda._STACKED_FOLDED)
+
+
+@pytest.mark.parametrize("radices,algorithm,first_dot,want", [
+    ((256,), "bf16", "bf16ax2", 0),       # the default plan at 256
+    ((256,), "bf16", "default", None),    # one term
+    ((128,), "bf16", "bf16ax2", None),    # the default plan at 128
+    ((16, 32), "bf16", "bf16ax2", None),  # the default plan at 512
+    ((4, 256), "bf16ax2", "default", 1),
+    ((4, 256), "bf16", "bf16ax2", None),  # its radix-256 stage has one term
+    ((256, 4), "bf16", "bf16ax2", 0),
+    ((512,), "bf16", "bf16ax2", None),    # only the radix measured
+    ((4, 512), "bf16ax2", "default", None),
+], ids=["256", "256_one_term", "128", "16x32", "4x256", "4x256_one_term",
+        "256x4", "512", "4x512"])
+def test_roots_stage_of_a_pass(radices, algorithm, first_dot, want):
+    meta = _meta(radices, algorithm, first_dot)
+    for tile in (2, 8, 32):
+        assert fused_cuda.roots_stage(meta, tile) == want
+    assert fused_cuda.roots_stage(meta, 1) is None  # a row a step: never
+
+
+def test_roots_variant_names():
+    stages = _stages({})
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 32,
+                              roots=True) == "pipelined,tile32,roots,mma"
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 16,
+                              columns=True, roots=True) == \
+        "pipelined,tile16,cols,roots,mma"
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 16,
+                              columns=True) == "pipelined,tile16,cols,mma"
+    assert fused_cuda.variant("stacked", stages, "float32", 1, True, 1) == \
+        "pipelined,mma"
+    # The roots name only a pipelined launch.
+    assert fused_cuda.variant("stacked", stages, "float32", 1, False, 1,
+                              roots=True) == "mma"
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+def test_launch_counts_the_roots_at_the_solves_tiles(recorded, forward):
+    # rfft_split's transform in the solve: the default plan at 256 (bf16ax2)
+    # on tiles of 32 rows; a row a step and one CTA a row read the table.
+    batch = SMS * 32 + 1
+    re = torch.zeros(batch, 256, dtype=torch.bfloat16)
+    kw = dict(_plan_kwargs(256, forward), engine="stacked", grouped=False,
+              complex_mult="block", state_dtype="float32")
+    before = collections.Counter(fused_cuda.fused_fft.variant_launches)
+    fused_cuda._launch_fused(re, re.clone(), **kw)
+    fused_cuda._launch_fused(re, re.clone(), pipelined=True, tile=1, **kw)
+    fused_cuda._launch_fused(re, re.clone(), pipelined=False, **kw)
+    assert [args[:5] for _, _, args in recorded] == [
+        (batch, 256, 1, SMS, 32), (batch, 256, 1, SMS, 1), (batch, 256, 1, 0, 1)]
+    launched = collections.Counter(fused_cuda.fused_fft.variant_launches) - before
+    assert launched == {"pipelined,tile32,roots,mma": 1, "pipelined,mma": 1,
+                        "mma": 1}
 
 
 # -- on the card ---------------------------------------------------------------
@@ -389,7 +468,8 @@ def test_tile_equals_one_cta_a_row(cuda, n, rows, forward):
         assert tile == 2
     elif rows != "4096":
         assert tile == t
-    assert launched == {f"pipelined,tile{tile},mma": 1}
+    roots = ",roots" if n == 256 else ""  # the one radix-256 stage, bf16ax2
+    assert launched == {f"pipelined,tile{tile}{roots},mma": 1}
     full = dict(kw, engine="stacked", grouped=False, complex_mult="block",
                 state_dtype="float32")
     want, launched = _launched(
@@ -420,6 +500,55 @@ def test_tile_equals_one_cta_a_row_at_the_grid_rows(cuda, forward):
             re, im, pipelined=True, tile=tile, **full))
         assert launched == {name: 1}
         _bitwise(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+def test_roots_equal_one_cta_a_row_at_the_solves_rows(cuda, forward):
+    # rfft_split's transform in the 512^3 solve: 262,144 rows of 256, the
+    # default plan's one radix-256 stage (bf16ax2), its A fragments gathered
+    # from the stage's roots; one CTA a row reads them from the table.
+    n, b = 256, 262144
+    re, im = _planes(b, n, cuda, seed=21 + forward)
+    kw = _plan_kwargs(n, forward)
+    assert kw["radices"] == (256,) and kw["first_dot"] == "bf16ax2"
+    got, launched = _launched(lambda: fused_cuda.fused_fft(re, im, **kw))
+    assert launched == {"pipelined,tile32,roots,mma": 1}
+    full = dict(kw, engine="stacked", grouped=False, complex_mult="block",
+                state_dtype="float32")
+    want, launched = _launched(
+        lambda: fused_cuda._launch_fused(re, im, pipelined=False, **full))
+    assert launched == {"mma": 1}
+    _bitwise(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("radices,algorithm,first_dot,tiles", [
+    ((256,), "bf16", "bf16ax2", (64, 32, 16, 8, 4, 2)),
+    ((4, 256), "bf16ax2", "default", (16, 8, 2)),
+    ((256, 4), "bf16", "bf16ax2", (16, 8, 2)),
+], ids=["256", "4x256", "256x4"])
+def test_roots_equal_one_cta_a_row_at_every_tile(cuda, radices, algorithm,
+                                                  first_dot, tiles, forward):
+    # Every route of stage_mma_roots: the warp blockings (4, 4), (2, 4) and
+    # (2, 2), and stage_mma's tile order (T <= 8, under 8 columns a row tile
+    # at T < 8); the radix-256 stage first or after a twiddle.
+    sms = fused_cuda.multiprocessors(cuda)
+    n, b = math.prod(radices), sms * tiles[0] + 3
+    re, im = _planes(b, n, cuda, seed=n + len(radices) + forward)
+    full = dict(radices=radices, sign=-1 if forward else 1,
+                scales=stage_scales(radices, "forward", forward),
+                algorithm=algorithm, first_dot=first_dot, engine="stacked",
+                grouped=False, complex_mult="block", state_dtype="float32")
+    want, launched = _launched(
+        lambda: fused_cuda._launch_fused(re, im, pipelined=False, **full))
+    assert launched == {"mma": 1}
+    for tile in tiles:
+        got, launched = _launched(lambda: fused_cuda._launch_fused(
+            re, im, pipelined=True, tile=tile, **full))
+        assert launched == {f"pipelined,tile{tile},roots,mma": 1}
+        _bitwise(got, want)
 
 
 @pytest.mark.gpu
@@ -553,7 +682,8 @@ def recorded_planes(monkeypatch):
 @pytest.mark.parametrize("shape,axis,tile", [((3, 512, 64, 64), 1, 16),
                                              ((512, 512, 64), 0, 16),
                                              ((128, 4096), 0, 32),
-                                             ((2, 1024, 64, 16), 1, 8)])
+                                             ((2, 1024, 64, 16), 1, 8),
+                                             ((2, 256, 64, 16), 1, 16)])
 def test_launch_columns_passes_the_landing(recorded_planes, shape, axis, tile):
     re = torch.zeros(shape, dtype=torch.bfloat16)
     im = torch.zeros(shape, dtype=torch.bfloat16)
@@ -577,7 +707,8 @@ def test_launch_columns_passes_the_landing(recorded_planes, shape, axis, tile):
         fused_cuda._build._SIGNATURES[symbol])
     launched = (collections.Counter(fused_cuda.fused_fft_columns.variant_launches)
                 - before)
-    assert launched == {f"pipelined,tile{tile},cols,mma": 1}
+    roots = ",roots" if n == 256 else ""  # the one radix-256 stage, bf16ax2
+    assert launched == {f"pipelined,tile{tile},cols{roots},mma": 1}
     assert fused_cuda.fused_fft.launches == before_rows
 
 
@@ -685,19 +816,22 @@ def _same_bits_and_strides(got, want):
     ((128, 64, 64), 0, 32),
     ((1024, 64, 64), 0, 8),
     ((2048, 32, 64), 0, 8),
-], ids=["grid512", "outer3", "n128", "n1024", "n2048"])
+    ((256, 512, 64), 0, 32),         # N = 256: the stage's roots, both ways
+    ((2, 256, 64, 16), 1, 16),
+], ids=["grid512", "outer3", "n128", "n1024", "n2048", "n256", "n256_axis1"])
 def test_columns_equal_the_relayout(cuda, shape, axis, tile, forward):
     re, im = _grid_planes(shape, cuda, seed=sum(shape) + forward)
     n = shape[axis]
     plan = tt.create_plan(n)
+    roots = ",roots" if n == 256 else ""  # the one radix-256 stage, bf16ax2
     call = tt.fftn_split if forward else tt.ifftn_split
     got, nd, rows, cols = _pass_counted(
         lambda: call(re, im, axes=(axis,), plans={n: plan}))
     assert nd == {"fft2_branch": 0, "axis_passes": 1, "relayout_bytes": 0}
-    assert rows == {} and cols == {f"pipelined,tile{tile},cols,mma": 1}
+    assert rows == {} and cols == {f"pipelined,tile{tile},cols{roots},mma": 1}
     want, nd, rows, cols = _pass_counted(
         lambda: _relayout_pass(re, im, axis, plan, forward))
-    assert rows == {f"pipelined,tile{tile},mma": 1} and cols == {}
+    assert rows == {f"pipelined,tile{tile}{roots},mma": 1} and cols == {}
     _same_bits_and_strides(got, want)
 
 

@@ -310,3 +310,95 @@ def test_mma_order_model_matches_jax(precision, n):
     a = agreement(got, [np.asarray(w.T, np.float32) for w in want],
                   bf16=storage is torch.bfloat16)
     assert a.within(), a
+
+
+# -- the pipelined kernel's roots route (csrc/fused_fft_pipe.cu) --------------
+
+# The default plan at N = 256 under bfloat16 (one radix-256 stage, bf16ax2),
+# and a radix-256 stage after a first stage, under one term and two.
+ROOTS_CASES = [((256,), "bf16", "bf16ax2"), ((256,), "bf16", "default"),
+               ((256,), "bf16ax2", "default"), ((64, 256), "bf16", "default"),
+               ((64, 256), "bf16", "bf16ax2"), ((64, 256), "bf16ax2", "default")]
+
+
+def _signed_tables(radices, algorithm, first_dot, sign):
+    scales = tuple(float(s) for s in stage_scales(radices, "forward", sign < 0))
+    args = (tuple(radices), scales, sign, algorithm, first_dot, CPU, "stacked",
+            False, "block", "float32", True)
+    return fused_cuda.kernel_tables(*args), fused_cuda.mma_tables(*args)
+
+
+def test_the_default_plan_at_256_is_one_two_term_radix_256_stage():
+    plan = tt.create_plan(256, precision="bfloat16")
+    assert plan.radices == (256,) and plan.first_dot == "bf16ax2"
+    assert ROOTS_CASES[0] == (plan.radices, ALGORITHM["bfloat16"], plan.first_dot)
+
+
+@pytest.mark.parametrize("sign", [-1, 1], ids=["fwd", "inv"])
+@pytest.mark.parametrize("radices,algorithm,first_dot", ROOTS_CASES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_radix_256_stage_entries_are_its_roots(radices, algorithm, first_dot, sign):
+    # Every entry (term, matrix, r_out, r) of a stage of radix 256 on the
+    # mma route equals its entry (term, matrix, 1, (r_out * r) mod R), bit for
+    # bit: the identity the roots route's gathers rest on.
+    (tables, meta), _ = _signed_tables(radices, algorithm, first_dot, sign)
+    stages = fused_cuda.pass_stages(tuple(radices))
+    seen = 0
+    for s, st in enumerate(stages):
+        r, terms = int(meta[1 + 4 * s]), int(meta[2 + 4 * s])
+        if r != fused_cuda.ROOTS_RADIX or not fused_cuda.mma_route(st):
+            continue
+        seen += 1
+        table = tables[int(meta[3 + 4 * s]):][:terms * 2 * r * r].view(terms, 2, r, r)
+        k = (torch.arange(r)[:, None] * torch.arange(r)[None, :]) % r
+        assert torch.equal(table, table[:, :, 1, :][:, :, k])
+    assert seen == 1
+
+
+def _gathered_words(mats, d_off, radix):
+    """The roots route's A words of a two-term stage, modelled on the kernel:
+    row r_out = 1 of the stage's fragment-order table copied into the roots'
+    slots (load_roots), then lane l of chunk (q, c) gathering roots r_out (8c
+    + 2(l % 4)) and that + r_out (mod R) (stage_mma_roots): [q][lane][c][term]
+    words (re pair, im pair)."""
+    u16 = mats.view(torch.int16).numpy().view(np.uint16)[d_off:]
+    chunks = radix // 8
+
+    def slot(k):
+        return k + (k >> 5)
+
+    roots = np.zeros(4 * slot(radix), np.uint16)
+    tm, c, e = np.meshgrid(np.arange(4), np.arange(chunks), np.arange(8),
+                           indexing="ij")
+    roots[(slot(8 * c + e) * 2 + (tm >> 1)) * 2 + (tm & 1)] = \
+        u16[(tm * chunks * chunks + c) * 64 + 8 + e]
+    words = roots.view(np.uint32).reshape(-1, 2)
+    q, lane, c = np.meshgrid(np.arange(chunks), np.arange(32), np.arange(chunks),
+                             indexing="ij")
+    r_out = 8 * q + lane // 4
+    k0 = (r_out * (8 * c + 2 * (lane % 4))) % radix
+    w0, w1 = words[slot(k0)], words[slot((k0 + r_out) % radix)]
+    return ((w0 & 0xFFFF) | ((w1 & 0xFFFF) << 16)), ((w0 >> 16) | ((w1 >> 16) << 16))
+
+
+@pytest.mark.parametrize("sign", [-1, 1], ids=["fwd", "inv"])
+@pytest.mark.parametrize("radices,algorithm,first_dot", ROOTS_CASES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_roots_gathers_give_the_fragment_words(radices, algorithm, first_dot, sign):
+    # The words the route builds from the stage's roots are the words
+    # stage_mma loads from the fragment table, for every lane, chunk and
+    # row tile; a stage takes the route where it has two terms.
+    _, (_, meta, mats) = _signed_tables(radices, algorithm, first_dot, sign)
+    s = fused_cuda.roots_stage(meta, 32)
+    terms = [int(meta[2 + 4 * j]) for j in range(int(meta[0]))]
+    two = [j for j, (r, a) in enumerate(zip(radices, terms)) if r == 256 and a == 2]
+    assert s == (two[0] if two else None)
+    if s is None:
+        return
+    radix, chunks = radices[s], radices[s] // 8
+    m0, m1 = _gathered_words(mats, int(meta[3 + 4 * s]), radix)
+    frag = (mats.view(torch.int16).numpy().view(np.uint16)[int(meta[3 + 4 * s]):]
+            [:4 * radix * radix].view(np.uint32).reshape(2, 2, chunks, chunks, 32))
+    for term in range(2):
+        assert np.array_equal(m0[..., term], frag[term, 0].transpose(0, 2, 1))
+        assert np.array_equal(m1[..., term], frag[term, 1].transpose(0, 2, 1))
