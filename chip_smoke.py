@@ -21,7 +21,8 @@ first use, one process per source), then:
             at real N=32768 x 4096 (fused route) and real N=2^20 x 16
             (four-step route), which launch the nine 1D kernels;
        N-D: config 3 at full width, ``fft_convolve_2d`` of a 4096 x 4096
-            float32 image and ``fftn_split`` + ``ifftn_split`` over the last
+            float32 image (K4 three times and the spectral product's
+            kernel, ``spectral_product``) and ``fftn_split`` + ``ifftn_split`` over the last
             two axes of 4096 x 4096 bf16 planes (the K4 column and row
             kernels), and ``fftn_split`` of a 512^3 bf16 volume (K4 on the
             trailing axes, then kernel A along axis 0, its tiles landed
@@ -159,7 +160,9 @@ paths, in turns, and the pipelined kernel's tiles at TILE_SHAPES against one
 CTA a row, a row a step and (at the grid's rows) K3, the relayout with the
 rule's tiles and the strided landing at T = 16 and 32, then the scale and
 kernel A on the solve's half spectrum and half-length rows (and, for the
-record, radices (16, 16) there).  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
+record, radices (16, 16) there), and the spectral product on the
+convolution's 4096 x 4096 float32 spectra beside its plain version (the
+six torch launches it replaces) and its bound.  Past one CTA, the cluster twins (``fused_fft[cluster2]``, K3,
 kernel C, K4's row pass, K6; kernel B, K4's column pass and K5 with 4
 adjacent columns per cluster, ``four_step_col[cluster8]``) run the same
 engine on a thread-block cluster,
@@ -347,6 +350,10 @@ KERNELS = {
     # multiplies by full 3-D tables of 1/lambda in XLA).
     "poisson_scale": ("tensorfft_tpu_torch/csrc/spectral.cu",
                       "tensorfft_tpu/models/poisson.py:62 (XLA, no kernel)"),
+    # The convolutions' spectral product: no pallas_call (the JAX package's
+    # _cmul runs as XLA operations).
+    "spectral_product": ("tensorfft_tpu_torch/csrc/spectral.cu",
+                         "tensorfft_tpu/models/fft_conv.py:19 _cmul (XLA, no kernel)"),
 }
 # The tpu_tuned path's variants: the stacked engine under the numeric knobs
 # (grouped, mult3, bf16 state), the pretwiddle and gridslice engines, and
@@ -804,6 +811,7 @@ def main() -> int:
         "fft2_row": four_step_cuda.fft2_row_pass,
         "fused_fft_batch_major": four_step_cuda.fused_fft_batch_major,
         "poisson_scale": spectral_cuda.poisson_scale,
+        "spectral_product": spectral_cuda.spectral_product,
     }
     launches_by_path = {}
 
@@ -911,7 +919,7 @@ def main() -> int:
 
     conv2d, spec2d, back2d, vol_spec = counted(
         "nd", ("fft2_col[mma]", "fft2_row[mma]",
-               "fused_fft_cols[pipelined,tile16,cols,mma]"),
+               "fused_fft_cols[pipelined,tile16,cols,mma]", "spectral_product"),
         drive_nd)
     finite("fft_convolve_2d", (conv2d,), ND_IMAGE, torch.float32)
     finite("fftn_split 2D", (*spec2d, *back2d), ND_IMAGE, torch.bfloat16)
@@ -1243,6 +1251,13 @@ def main() -> int:
     bitwise("poisson_scale", f"{'x'.join(map(str, ND_VOLUME))} half spectrum, strides "
             f"{p_half[0].stride()}", spectral_cuda.poisson_scale(*p_half, *p_tables),
             spectral_cuda.poisson_scale_reference(*p_half, *p_tables))
+    # The spectral product on the spectra fft_convolve_2d gives it (the
+    # image's and the kernel's, float32), bit for bit with its plain version.
+    conv_spectra = [tt.fftn_split(x, torch.zeros_like(x), axes=(-2, -1), precision="float32")
+                    for x in (image, conv_kernel)]
+    bitwise("spectral_product", f"{h}x{w} float32 spectra (fft_convolve_2d)",
+            spectral_cuda.spectral_product(*conv_spectra[0], *conv_spectra[1]),
+            spectral_cuda.spectral_product_reference(*conv_spectra[0], *conv_spectra[1]))
     torch.cuda.synchronize()
 
     # -- 4. reference gates and round trips --------------------------------
@@ -2517,6 +2532,13 @@ def main() -> int:
                 lambda r, i: spectral_cuda.poisson_scale(r, i, *p_tables),
                 lambda r, i: spectral_cuda.poisson_scale_reference(r, i, *p_tables),
                 None, p_half, 8 * n_half, 6 * n_half)
+    # The convolution's spectral product: its plain version is the six torch
+    # launches of the JAX package's _cmul (four products, a difference and a
+    # sum); 24 bytes a point, four fp32 planes in and two out.
+    time_kernel("spectral_product", f"{h}x{w} float32 spectra (fft_convolve_2d)",
+                spectral_cuda.spectral_product, spectral_cuda.spectral_product_reference,
+                None, (*conv_spectra[0], *conv_spectra[1]), 24 * h * w, 6 * h * w)
+    del conv_spectra
     # Kernel A on the solve's half-length rows (rfft_split's transform of
     # 262,144 rows of 256 in the default plan), in the rule's tile.
     n_h = nz // 2

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "tfft_retangle_inv": [_P, _P, _P, _P, _I, _I, _L, _I, _P, _F, _P],
     "tfft_poisson_scale": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L,
                            _L, _L, _L, _L, _L, _L, _I, _P],
+    "tfft_spectral_product": [_P, _P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _I, _P],
 }
 
 

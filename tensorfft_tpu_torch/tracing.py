@@ -57,6 +57,15 @@ torch's ``cpu_op`` events and the CUDA runtime's launch events:
     ``tfft.launch.poisson_scale`` launch on the card), its ``irfftn_split``
     (a ``tfft.nd`` span, then a ``tfft.r2c`` span) and the cast of u to
     float32.
+``tfft.model.conv2d``
+    one ``models.fft_convolve_2d`` call: the two forward ``fftn_split``
+    calls (each a ``tfft.nd`` span, the image's first), the spectra's
+    product (the ``tfft.launch.spectral_product`` launch on the card), the
+    inverse ``ifftn_split`` (a third ``tfft.nd`` span) and the output's
+    scale by H * W.
+``tfft.model.conv_real``
+    one ``models.fft_convolve_real`` call: two ``rfft_split`` calls, the
+    product and an ``irfft_split`` call (three ``tfft.r2c`` spans).
 
 A call's spans nest on one thread; the ``tfft.entry`` span that holds a
 span is the call it belongs to.  The spans are made only while a profiler
@@ -95,6 +104,7 @@ _LAUNCHERS = {
     "untangle_fwd": ("rfft_cuda", "untangle_fwd"),
     "retangle_inv": ("rfft_cuda", "retangle_inv"),
     "poisson_scale": ("spectral_cuda", "poisson_scale"),
+    "spectral_product": ("spectral_cuda", "spectral_product"),
 }
 
 # The cached builders of kernel operands: each miss computes the tables on
@@ -157,10 +167,16 @@ def counters() -> dict:
         the N-D dispatch (``fft.nd_counts``): ``fft2_branch``, calls of the
         2D branch; ``axis_passes``, passes of the per-axis loop (those
         that land from the strided planes too); ``relayout_bytes``, bytes
-        the relayout wrote, both planes (it reads as many).
+        the relayout wrote, both planes (it reads as many);
+    ``r2c``
+        the R2C path (``rfft.r2c_counts``): ``calls`` and ``copy_bytes``;
+    ``models``
+        calls of each model: ``poisson_solves``, ``conv2d_calls``
+        (``fft_convolve_2d``) and ``conv_real_calls``
+        (``fft_convolve_real``).
     """
     from tensorfft_tpu_torch.fft import nd_counts
-    from tensorfft_tpu_torch.models import poisson
+    from tensorfft_tpu_torch.models import fft_conv, poisson
     from tensorfft_tpu_torch.ops import four_step_cuda, fused_cuda, rfft_cuda, spectral_cuda
     from tensorfft_tpu_torch.rfft import r2c_counts
 
@@ -177,5 +193,5 @@ def counters() -> dict:
                          for name, (m, f) in _TABLE_BUILDERS.items()},
         "nd": dict(nd_counts),
         "r2c": dict(r2c_counts),
-        "models": dict(poisson.model_counts),
+        "models": {**poisson.model_counts, **fft_conv.model_counts},
     }

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain-torch versions on the card:
 kernels A, B and C, the packed/interleaving four-step variants (K5, K6),
 the R2C epilogue kernels (K7-K10), the 2D row-column passes (K4), K3,
-every engine and numeric knob of the shared stage engine, and the Poisson
-solve's spectral scale and the solve itself.
+every engine and numeric knob of the shared stage engine, the Poisson
+solve's spectral scale and the solve itself, and the image convolution's
+spectral product and the convolution itself.
 
 Run on a machine with a CUDA device:
 
@@ -256,11 +257,19 @@ def test_rfft_split_on_card_passes_gate(cuda, n, precision):
 
 
 def test_fft_convolve_real_on_card(cuda):
+    """Within 1e-3 of the float64 convolution, with one launch of the
+    spectral product's kernel (on the odd-length half spectra: one element
+    a thread)."""
+    from tensorfft_tpu_torch.ops import spectral_cuda
+
     n = 1 << 12
     rng = np.random.default_rng(8)
     a, b = rng.standard_normal((2, 3, n))
+    before = spectral_cuda.spectral_product.launches
     got = tt.fft_convolve_real(torch.from_numpy(a).to(cuda),
                                torch.from_numpy(b).to(cuda))
+    torch.cuda.synchronize()
+    assert spectral_cuda.spectral_product.launches == before + 1
     want = np.fft.irfft(np.fft.rfft(a) * np.fft.rfft(b), n)
     assert np.abs(got.double().cpu().numpy() - want).max() <= 1e-3 * np.abs(want).max()
 
@@ -1228,3 +1237,77 @@ def test_poisson_solve_sends_an_array_to_the_card(cuda):
     assert spectral_cuda.poisson_scale.launches == before + 1
     assert u.is_cuda and u.dtype is torch.float32 and u.shape == f.shape
     assert torch.equal(u, poisson_solve_3d(torch.from_numpy(f).to(cuda)))
+
+
+# -- the image convolution ------------------------------------------------------
+
+# (A's shape, B's shape, A's storage offset in elements): the cell's frame
+# (one plane, 16-byte vectors); a kernel broadcast over a batch of images
+# (B's batch stride 0), and an image broadcast over kernels (A's); half
+# spectra of odd length (one element a thread); planes off their vector
+# alignment by one element (one element a thread); a broadcast the kernel
+# cannot stride (expanded first).
+PRODUCT_CASES = [((4096, 4096), (4096, 4096), 0), ((3, 64, 64), (64, 64), 0),
+                 ((64, 64), (2, 64, 64), 0), ((3, 2049), (3, 2049), 0),
+                 ((8, 256), (8, 256), 1), ((2, 1, 32, 32), (1, 3, 32, 32), 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("a_shape,b_shape,offset", PRODUCT_CASES)
+def test_spectral_product_kernel_matches_plain(cuda, a_shape, b_shape, offset, dtype):
+    """The kernel equals its plain version bit for bit: dense fp32 planes of
+    the broadcast shape, one launch."""
+    from tensorfft_tpu_torch.ops import spectral_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(len(a_shape) + offset)
+
+    def planes(shape):
+        n = int(np.prod(shape))
+        return tuple(torch.randn(n + offset, generator=gen, device=cuda).to(dtype)[offset:]
+                     .view(shape) for _ in range(2))
+
+    a, b = planes(a_shape), planes(b_shape)
+    before = spectral_cuda.spectral_product.launches
+    got = spectral_cuda.spectral_product(*a, *b)
+    torch.cuda.synchronize()
+    assert spectral_cuda.spectral_product.launches == before + 1
+    want = spectral_cuda.spectral_product_reference(*(x.cpu() for x in (*a, *b)))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype is torch.float32 and g.is_contiguous()
+        assert torch.equal(g.cpu(), w)
+
+
+def _conv_cell_limits():
+    import json
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "portbench/cells/conv4096.image.json"
+    return json.loads(path.read_text())["limits"]
+
+
+@pytest.mark.parametrize("side", [256, 4096])
+def test_fft_convolve_2d_within_the_cell_limits(cuda, side):
+    """The float32 convolution of a frame on the card against the float64
+    reference (``tests/reference_conv2d.py``), on the numbers and within the
+    limits of the benchmark's cell: the relative rms error of the output,
+    and the largest error of an element over its line's rms; K4 three times
+    and one launch of the product a call."""
+    import reference_conv2d
+    from tensorfft_tpu_torch.fft import nd_counts
+    from tensorfft_tpu_torch.models import fft_convolve_2d
+    from tensorfft_tpu_torch.ops import spectral_cuda
+
+    gen = torch.Generator(device=cuda).manual_seed(side)
+    image, kernel = (torch.randn((side, side), generator=gen, device=cuda) for _ in range(2))
+    before = (spectral_cuda.spectral_product.launches, nd_counts["fft2_branch"])
+    out = fft_convolve_2d(image, kernel)
+    torch.cuda.synchronize()
+    assert (spectral_cuda.spectral_product.launches, nd_counts["fft2_branch"]) == (
+        before[0] + 1, before[1] + 3)
+    assert out.is_cuda and out.dtype is torch.float32 and out.shape == image.shape
+    want = reference_conv2d.convolve(image, kernel)
+    diff = (out.double() - want).abs()
+    rms = float(diff.norm() / want.norm())
+    worst = float((diff / want.square().mean(-1, keepdim=True).sqrt()).max())
+    limits = _conv_cell_limits()
+    assert rms <= limits["fwd_rel_rms"] and worst <= limits["fwd_max_err"], (rms, worst)

@@ -331,7 +331,7 @@ def test_counters_at_16_cubed(dtype, precision):
 
     cast = 16 ** 3 * itemsize if dtype is not DTYPES[precision] else 0
     assert moved("r2c") == {"calls": 2, "copy_bytes": cast + 2 * half * itemsize + rows}
-    assert moved("models") == {"poisson_solves": 1}
+    assert moved("models") == {"poisson_solves": 1, "conv2d_calls": 0, "conv_real_calls": 0}
     assert moved("nd") == {"fft2_branch": 0, "axis_passes": 4,
                            "relayout_bytes": 4 * 2 * half * itemsize}
     assert after["launches"]["poisson_scale"] == before["launches"]["poisson_scale"]
